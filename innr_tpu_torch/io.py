@@ -1,0 +1,55 @@
+"""npz persistence for the ported containers.
+
+The same file format as :mod:`innr_tpu.io`, so an index saved by either
+package loads in the other: ``kind`` plus ``rows`` (float32),
+``rows_bf16`` (bfloat16 bits as uint16) or ``codes`` (uint8). Only the
+``VerticalBatch`` and ``QuantizedU8Batch`` kinds are ported; the other
+kinds ``innr_tpu.io`` writes raise :class:`ContractError`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from innr_tpu_torch.batch import VerticalBatch
+from innr_tpu_torch.ops.scalar import QuantizedU8Batch
+from innr_tpu_torch.utils.asserts import ContractError
+
+__all__ = ["save_npz", "load_npz"]
+
+_NOT_PORTED = {
+    "PackedBinary", "PackedBinaryBatch", "PackedTernary", "PackedTernaryBatch",
+    "SketchCorpus", "SparseCorpus", "SegmentedCorpus",
+}
+
+
+def save_npz(path: str, obj) -> None:
+    """Serialize a container to an npz archive."""
+    if isinstance(obj, VerticalBatch):
+        rows = obj.rows.cpu()
+        if rows.dtype == torch.float32:
+            np.savez(path, kind="VerticalBatch", rows=rows.numpy())
+        else:
+            np.savez(path, kind="VerticalBatch", rows_bf16=rows.view(torch.uint16).numpy())
+    elif isinstance(obj, QuantizedU8Batch):
+        np.savez(path, kind="QuantizedU8Batch", codes=obj.codes.cpu().numpy())
+    else:
+        raise ContractError(f"save_npz: unsupported container {type(obj).__name__}")
+
+
+def load_npz(path: str, device=None):
+    """Load a container written by :func:`save_npz` or ``innr_tpu.io.save_npz``
+    onto ``device`` (default CPU). bf16 rows keep their exact bits."""
+    with np.load(path) as z:
+        kind = str(z["kind"])
+        if kind == "VerticalBatch":
+            if "rows_bf16" in z:
+                bits = torch.from_numpy(np.ascontiguousarray(z["rows_bf16"]))
+                return VerticalBatch(bits.view(torch.bfloat16), dtype=torch.bfloat16, device=device)
+            return VerticalBatch.from_numpy(z["rows"], device=device)
+        if kind == "QuantizedU8Batch":
+            return QuantizedU8Batch.from_numpy(z["codes"], device=device)
+        if kind in _NOT_PORTED:
+            raise ContractError(f"load_npz: container kind {kind!r} not yet ported")
+        raise ContractError(f"load_npz: unknown container kind {kind!r}")

@@ -1,0 +1,94 @@
+"""Build the CUDA sources of this package with nvcc and load them by ctypes.
+
+Every ``innr_tpu_torch/csrc/*.cu`` is compiled into one shared library with
+a plain C interface (no PyTorch headers, so a build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/*.cu
+
+The library goes to ``build/innr_tpu_torch/`` beside the package, named by
+a hash of the sources and flags, so a first use builds it and a changed
+source rebuilds it. ``-Xptxas -v``'s report (registers, shared memory,
+spills per kernel) is kept beside the library as ``<lib>.log``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG_DIR = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG_DIR / "csrc"
+BUILD_DIR = _PKG_DIR.parent / "build" / "innr_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LIB: ctypes.CDLL | None = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.is_file():
+        return str(default)
+    raise RuntimeError(
+        "innr_tpu_torch: nvcc (the CUDA compiler) was not found on PATH or "
+        "at /usr/local/cuda/bin/nvcc; the CUDA kernels cannot be built"
+    )
+
+
+def build() -> Path:
+    """Compile the sources if no library for their hash exists; return its
+    path. Raises if nvcc is missing or the compile fails."""
+    nvcc = _nvcc()
+    sources = sorted(SRC_DIR.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(SRC_DIR.glob("*.cu*")):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    lib = BUILD_DIR / f"libinnr_tpu_torch_{digest.hexdigest()[:16]}.so"
+    if lib.is_file():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"innr_tpu_torch: nvcc failed ({proc.returncode}):\n"
+            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+        )
+    Path(f"{lib}.log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)
+    return lib
+
+
+def build_log() -> str:
+    """The compiler's report for the current sources ('' if not built here)."""
+    log = Path(f"{build()}.log")
+    return log.read_text() if log.is_file() else ""
+
+
+def load() -> ctypes.CDLL:
+    """The built library with every entry point's argument types declared."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.innr_knn_scan.argtypes = [
+            ptr, ptr, i32, ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, i32, ptr,
+        ]
+        lib.innr_knn_scan.restype = i32
+        lib.innr_knn_merge.argtypes = [ptr, ptr, i32, i32, i32, ptr]
+        lib.innr_knn_merge.restype = i32
+        _LIB = lib
+    return _LIB

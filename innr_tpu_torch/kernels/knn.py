@@ -1,0 +1,325 @@
+"""Fused streaming score + top-k kNN: the CUDA kernel and its plain version.
+
+Replaces the TPU kernel ``innr_tpu/kernels/knn.py:_knn_kernel`` (launched by
+``_fused_knn_raw``; ``_fused_knn_multi`` drives it for large k). The kernel
+is ``csrc/knn.cu`` (``knn_scan`` + ``knn_merge``); its source note says what
+it computes, what bounds it on the H100 and what this first design leaves
+on the table.
+
+Selection runs on int64 composites of (int32 total-order key, row index)
+(:mod:`innr_tpu_torch.utils.order`): larger is better, ties go to the lower
+row, and the exclusion bound of a resumed pass is one compare. The raw form
+(:func:`fused_knn_keys_batch`) returns keys that are larger-is-better for
+every mode (L2 keys come bit-inverted), ready for a cross-shard merge.
+
+Dispatch: a CUDA tensor runs the kernel, or the call raises; a CPU tensor
+runs the plain version. :func:`innr_tpu_torch.config.force_reference` sends
+every tensor to the plain version. There is no size gate and no fallback.
+Both run through the same exclusion-bounded multi-pass driver for k above
+:func:`single_pass_k`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from innr_tpu_torch import config
+from innr_tpu_torch.utils.asserts import ContractError
+from innr_tpu_torch.utils.order import (
+    composite_keys,
+    invert_total_key,
+    split_composite,
+    total_order_key_f32,
+)
+from innr_tpu_torch.utils.padding import round_up
+
+# Per-pass cap on k: the scan keeps a (32, k) int64 buffer per CTA in shared
+# memory (64 KB at 256). Larger k runs as exclusion-bounded passes.
+_K_MAX_PASS = 256
+# Rows per tile and queries per CTA: kRowTile and kQueryTile in
+# csrc/knn.cu. Slabs are whole tiles.
+_ROW_TILE = 128
+_QUERY_TILE = 32
+# The scan grid is whole waves of CTAs: 2 are resident per SM
+# (__launch_bounds__(256, 2) in csrc/knn.cu), and a partial last wave
+# nearly doubles the time when each CTA's work is large. Small k takes 4
+# waves; every slab fills a k-long sorted buffer per query from empty,
+# which dominates on short slabs at large k, so a slab keeps at least
+# _SLAB_ROWS_PER_K * k rows, down to a single wave.
+_RESIDENT_CTAS = 2
+_MAX_WAVES = 4
+_SLAB_ROWS_PER_K = 256
+
+# mode -> (score: 0 dot, 1 l2, 2 cosine; has a row predicate)
+_MODES = {
+    "dot": (0, False), "l2": (1, False), "cosine": (2, False),
+    "dotm": (0, True), "l2m": (1, True), "cosinem": (2, True),
+}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
+_EMPTY = torch.iinfo(torch.int64).min
+_INT32_MIN = torch.iinfo(torch.int32).min
+_MAX_ROWS = 2**31 - 1
+
+# Kernel passes launched (each pass launches knn_scan, then knn_merge), in
+# all and by corpus dtype. Incremented only where the kernels launch.
+LAUNCHES = 0
+LAUNCHES_BY_DTYPE = {"float32": 0, "bfloat16": 0, "uint8": 0}
+
+
+def single_pass_k(n_q: int) -> int:
+    """Largest k one kernel pass selects (for any query count)."""
+    return _K_MAX_PASS
+
+
+def _split_aux(aux, mode: str, n: int):
+    """``aux`` in the JAX package's layout -> (per-row values, predicate):
+    None for "dot"; (N,) norms2 / inverse norms for "l2" / "cosine"; (N,)
+    predicate for "dotm"; (2, N) [values, predicate] for "l2m" / "cosinem"."""
+    if mode not in _MODES:
+        raise ContractError(f"innr_tpu_torch::knn: unknown mode {mode!r}")
+    score, masked = _MODES[mode]
+    if score == 0 and not masked:
+        if aux is not None:
+            raise ContractError("innr_tpu_torch::knn: mode 'dot' takes no aux")
+        return None, None
+    want = (2, n) if masked and score != 0 else (n,)
+    if aux is None or tuple(aux.shape) != want:
+        got = None if aux is None else tuple(aux.shape)
+        raise ContractError(
+            f"innr_tpu_torch::knn: mode {mode!r} needs aux of shape {want}, got {got}"
+        )
+    aux = aux.to(torch.float32).contiguous()
+    if not masked:
+        return aux, None
+    if score == 0:
+        return None, aux
+    return aux[0].contiguous(), aux[1].contiguous()
+
+
+def _check(qs, rows, vals, mask, k: int, op: str) -> None:
+    if rows.dim() != 2 or rows.dtype not in _DTYPES:
+        raise ContractError(
+            f"innr_tpu_torch::{op}: rows must be a 2-D float32, bfloat16 or "
+            f"uint8 tensor, got {rows.dtype} of shape {tuple(rows.shape)}"
+        )
+    if qs.dim() != 2 or qs.dtype != torch.float32 or qs.shape[1] != rows.shape[1]:
+        raise ContractError(
+            f"innr_tpu_torch::{op}: queries must be float32 (Q, {rows.shape[1]}), "
+            f"got {qs.dtype} of shape {tuple(qs.shape)}"
+        )
+    for name, t in (("queries", qs), ("aux", vals), ("mask", mask)):
+        if t is not None and t.device != rows.device:
+            raise ContractError(
+                f"innr_tpu_torch::{op}: {name} on {t.device}, rows on {rows.device}"
+            )
+    n = rows.shape[0]
+    if n > _MAX_ROWS:
+        raise ContractError(
+            f"innr_tpu_torch::{op}: {n} rows; row indices are int32 (< 2**31)"
+        )
+    if not 1 <= k <= n:
+        raise ContractError(f"innr_tpu_torch::{op}: k={k} outside [1, {n}]")
+
+
+def _plain_composites(qs, rows, vals, mask, mode: str) -> torch.Tensor:
+    score = _MODES[mode][0]
+    q = qs.to(torch.bfloat16).float() if rows.dtype == torch.bfloat16 else qs
+    # "+ 0.0" turns a -0.0 sum into +0.0, as the kernel's sums start at +0.0.
+    s = q @ rows.float().T + 0.0
+    if score == 1:
+        s = vals - 2.0 * s
+    elif score == 2:
+        s = s * vals
+    nan = torch.tensor(0x7FC00000, dtype=torch.int32, device=s.device).view(torch.float32)
+    keys = total_order_key_f32(torch.where(torch.isnan(s), nan, s))
+    if score == 1:
+        keys = ~keys
+    if mask is not None:
+        keys = torch.where(mask > 0, keys, _INT32_MIN)
+    return composite_keys(keys, torch.arange(rows.shape[0], device=rows.device))
+
+
+def _plain_top(qs, rows, vals, mask, k: int, mode: str, bound=None) -> torch.Tensor:
+    comp = _plain_composites(qs, rows, vals, mask, mode)
+    if bound is not None:
+        comp = torch.where(comp < bound[:, None], comp, _EMPTY)
+    return torch.topk(comp, k, dim=1).values
+
+
+def knn_plain(qs, rows, aux, k: int, mode: str, excl=None):
+    """The plain PyTorch version of the kernel: matmul scores, keys,
+    composite top-k. Returns raw ``(keys, idx)`` int32 (Q, k), best first.
+
+    ``excl``: optional per-query ``(keys, idx)`` bound; only candidates
+    strictly after it in (key desc, idx asc) order are kept. Slots past the
+    last kept candidate hold ``(INT32_MIN, -1)``."""
+    vals, mask = _split_aux(aux, mode, rows.shape[0])
+    _check(qs, rows, vals, mask, k, "knn_plain")
+    bound = None if excl is None else composite_keys(excl[0], excl[1])
+    return split_composite(_plain_top(qs, rows, vals, mask, k, mode, bound))
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _scan_pass(qs, rows, vals, mask, k: int, mode: str, bound) -> torch.Tensor:
+    """One kernel pass (knn_scan + knn_merge): (Q, k) int64 composites."""
+    global LAUNCHES
+    from innr_tpu_torch.kernels import _build
+
+    lib = _build.load()
+    n_q, d = qs.shape
+    n = rows.shape[0]
+    dev = rows.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    q_tiles = -(-n_q // _QUERY_TILE)
+    wave = max(1, sms * _RESIDENT_CTAS // q_tiles)
+    waves = min(_MAX_WAVES, max(1, n // (_SLAB_ROWS_PER_K * k * wave)))
+    slab_rows = round_up(-(-n // (wave * waves)), _ROW_TILE)
+    n_slabs = -(-n // slab_rows)
+    with torch.cuda.device(dev):
+        partial = torch.empty((n_slabs, n_q, k), dtype=torch.int64, device=dev)
+        out = torch.empty((n_q, k), dtype=torch.int64, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.innr_knn_scan(
+            qs.data_ptr(), rows.data_ptr(), _DTYPES[rows.dtype], _ptr(vals),
+            _ptr(mask), _ptr(bound), partial.data_ptr(), n_q, n, d, k,
+            _MODES[mode][0], slab_rows, stream,
+        )
+        if rc != 0:
+            raise RuntimeError(f"innr_tpu_torch: knn_scan launch failed, cudaError {rc}")
+        rc = lib.innr_knn_merge(partial.data_ptr(), out.data_ptr(), n_q, n_slabs, k, stream)
+        if rc != 0:
+            raise RuntimeError(f"innr_tpu_torch: knn_merge launch failed, cudaError {rc}")
+    LAUNCHES += 1
+    LAUNCHES_BY_DTYPE[str(rows.dtype).removeprefix("torch.")] += 1
+    return out
+
+
+def fused_knn_keys_batch(qs, rows, aux, k: int, mode: str):
+    """Top-k as RAW int32 total-order keys (larger is better for every mode;
+    L2 keys come bit-inverted) plus int32 row indices, both (Q, k).
+
+    Any k in [1, N]: above :func:`single_pass_k` the kernel runs
+    exclusion-bounded passes, each resuming strictly after the previous
+    pass's last (key, idx); the concatenation equals one ideal selection."""
+    qs = qs.contiguous()
+    rows = rows.contiguous()
+    vals, mask = _split_aux(aux, mode, rows.shape[0])
+    _check(qs, rows, vals, mask, k, "fused_knn_keys_batch")
+    if rows.device.type == "cpu" or config.reference_forced():
+        run_pass = _plain_top
+    elif rows.device.type == "cuda":
+        run_pass = _scan_pass
+    else:
+        raise ContractError(f"innr_tpu_torch::knn: unsupported device {rows.device}")
+    comp = _multi_pass(
+        lambda pass_k, bound: run_pass(qs, rows, vals, mask, pass_k, mode, bound),
+        k, single_pass_k(qs.shape[0]),
+    )
+    return split_composite(comp)
+
+
+def _multi_pass(run_pass, k: int, cap: int) -> torch.Tensor:
+    """ceil(k / cap) passes of ``run_pass(pass_k, bound)``, each keeping only
+    candidates strictly after the previous pass's last composite."""
+    parts, bound, remaining = [], None, k
+    while remaining > 0:
+        comp = run_pass(min(cap, remaining), bound)
+        parts.append(comp)
+        bound = comp[:, -1].contiguous()
+        remaining -= comp.shape[1]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+def _fused_knn(qs, rows, aux, k: int, mode: str):
+    keys, idx = fused_knn_keys_batch(qs, rows, aux, k, mode)
+    if mode in ("l2", "l2m"):
+        keys = ~keys
+    return invert_total_key(keys), idx
+
+
+def _norms2(rows) -> torch.Tensor:
+    r = rows.float()
+    return (r * r).sum(dim=1)
+
+
+def _clamp_l2(vals, qs):
+    """Add back ||q||^2 and clamp at 0; NaN propagates."""
+    return (vals + (qs * qs).sum(dim=1, keepdim=True)).clamp_min(0.0)
+
+
+def fused_knn_dot(q, rows, k: int):
+    """Top-k largest dot products of one query: ``(scores (k,), idx (k,))``."""
+    vals, idx = _fused_knn(q[None, :], rows, None, k, "dot")
+    return vals[0], idx[0]
+
+
+def fused_knn_dot_batch(qs, rows, k: int):
+    """Top-k MIPS for a (Q, D) batch in one corpus read per pass."""
+    return _fused_knn(qs, rows, None, k, "dot")
+
+
+def fused_knn_l2(q, rows, k: int, norms2=None):
+    """Top-k smallest squared L2 distances of one query, clamped at 0.
+    Pass precomputed ``norms2`` to skip a corpus read."""
+    vals, idx = fused_knn_l2_batch(q[None, :], rows, k, norms2)
+    return vals[0], idx[0]
+
+
+def fused_knn_l2_batch(qs, rows, k: int, norms2=None):
+    """Top-k L2^2 for a (Q, D) batch: ``norms2 - 2 q.r`` in the kernel,
+    ``||q||^2`` added back after selection."""
+    if norms2 is None:
+        norms2 = _norms2(rows)
+    vals, idx = _fused_knn(qs, rows, norms2, k, "l2")
+    return _clamp_l2(vals, qs), idx
+
+
+def fused_knn_l2_masked_batch(qs, rows, mask, k: int, norms2=None):
+    """Top-k smallest L2^2 among rows where ``mask`` (N,) is true. When fewer
+    than k rows pass, the tail entries are failing rows; callers trim to the
+    passing count."""
+    if norms2 is None:
+        norms2 = _norms2(rows)
+    aux = torch.stack([norms2.float(), mask.to(device=norms2.device, dtype=torch.float32)])
+    vals, idx = _fused_knn(qs, rows, aux, k, "l2m")
+    return _clamp_l2(vals, qs), idx
+
+
+def fused_knn_u8_batch(qs, codes, k: int):
+    """Top-k raw mixed dots ``sum(q_i * code_i)`` of f32 queries against a
+    uint8 corpus; callers apply the affine correction afterwards."""
+    if codes.dtype != torch.uint8:
+        raise ContractError("innr_tpu_torch::fused_knn_u8_batch expects uint8 codes")
+    return _fused_knn(qs, codes, None, k, "dot")
+
+
+def _unit_queries(qs):
+    """Unit query rows; zero/tiny-norm queries become zero rows, so every
+    cosine they produce is 0.0."""
+    qn = torch.sqrt((qs * qs).sum(dim=1, keepdim=True))
+    ok = qn > config.NORM_EPSILON
+    return torch.where(ok, qs / torch.where(ok, qn, 1.0), 0.0)
+
+
+def inv_norms(rows):
+    """Per-row guarded inverse norms (zero/tiny-norm rows -> 0.0)."""
+    norms = torch.sqrt(_norms2(rows))
+    ok = norms > config.NORM_EPSILON
+    return torch.where(ok, 1.0 / torch.where(ok, norms, 1.0), 0.0)
+
+
+def fused_knn_cosine(q, rows, k: int):
+    """Top-k by cosine similarity of one query."""
+    vals, idx = fused_knn_cosine_batch(q[None, :], rows, k)
+    return vals[0], idx[0]
+
+
+def fused_knn_cosine_batch(qs, rows, k: int, inv=None):
+    """Top-k by cosine for a (Q, D) batch: unit queries, per-row inverse
+    norms (pass precomputed ``inv`` to skip a corpus read)."""
+    if inv is None:
+        inv = inv_norms(rows)
+    return _fused_knn(_unit_queries(qs), rows, inv, k, "cosine")

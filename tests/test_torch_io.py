@@ -1,0 +1,76 @@
+"""Files written by innr_tpu.io.save_npz load into innr_tpu_torch bit for bit
+and give the same kNN results (integer-valued data: exact); the port's own
+files load back into innr_tpu."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+import innr_tpu as it  # noqa: E402
+import innr_tpu.io as jio  # noqa: E402
+import innr_tpu_torch as itt  # noqa: E402
+import innr_tpu_torch.io as tio  # noqa: E402
+
+
+@pytest.fixture
+def rows(rng):
+    return rng.integers(-4, 5, (2100, 12)).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vertical_batch_from_jax_file(tmp_path, rng, rows, dtype):
+    jb = it.VerticalBatch(rows, dtype=jnp.bfloat16 if dtype == "bfloat16" else jnp.float32)
+    path = str(tmp_path / "vb.npz")
+    jio.save_npz(path, jb)
+    tb = tio.load_npz(path)
+    assert tb.rows.dtype == getattr(torch, dtype)
+    want_bits = np.asarray(jb.rows).view(np.uint16 if dtype == "bfloat16" else np.int32)
+    got_bits = tb.rows.view(torch.int16 if dtype == "bfloat16" else torch.int32).numpy()
+    np.testing.assert_array_equal(got_bits.view(want_bits.dtype), want_bits)
+    qs = rng.integers(-4, 5, (2, 12)).astype(np.float32)
+    for name in ("batch_knn", "batch_knn_dot"):
+        a, b = getattr(it, name)(qs, jb, 6), getattr(itt, name)(qs, tb, 6)
+        np.testing.assert_array_equal(b.indices, a.indices)
+        np.testing.assert_array_equal(b.scores, a.scores)
+
+
+def test_quantized_batch_from_jax_file(tmp_path, rng):
+    codes = rng.integers(0, 256, (2100, 10)).astype(np.uint8)
+    path = str(tmp_path / "q.npz")
+    jio.save_npz(path, it.QuantizedU8Batch(codes))
+    tb = tio.load_npz(path)
+    np.testing.assert_array_equal(tb.codes.numpy(), codes)
+    q = rng.integers(-3, 4, 10).astype(np.float32)
+    params = it.QuantizationParams(2.0, -1.0)
+    assert itt.batch_knn_u8(q, tb, itt.QuantizationParams(2.0, -1.0), 5) == it.batch_knn_u8(
+        q, it.QuantizedU8Batch(codes), params, 5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_port_files_round_trip_and_load_in_jax(tmp_path, rows, dtype):
+    tb = itt.VerticalBatch(rows, dtype=dtype)
+    path = str(tmp_path / "t.npz")
+    tio.save_npz(path, tb)
+    back = tio.load_npz(path)
+    assert torch.equal(back.rows.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       tb.rows.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+    jb = jio.load_npz(path)
+    np.testing.assert_array_equal(np.asarray(jb.rows, np.float32), tb.rows.float().numpy())
+    qpath = str(tmp_path / "c.npz")
+    tio.save_npz(qpath, itt.QuantizedU8Batch(rows.astype(np.uint8)))
+    np.testing.assert_array_equal(np.asarray(jio.load_npz(qpath).codes), rows.astype(np.uint8))
+
+
+def test_unported_kinds_raise(tmp_path):
+    path = str(tmp_path / "b.npz")
+    jio.save_npz(path, it.PackedBinaryBatch(np.zeros((3, 2), np.uint32), 64))
+    with pytest.raises(itt.ContractError, match="not yet ported"):
+        tio.load_npz(path)
+    np.savez(str(tmp_path / "x.npz"), kind="Mystery")
+    with pytest.raises(itt.ContractError, match="unknown"):
+        tio.load_npz(str(tmp_path / "x.npz"))
+    with pytest.raises(itt.ContractError, match="unsupported"):
+        tio.save_npz(path, object())

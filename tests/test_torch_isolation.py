@@ -1,0 +1,47 @@
+"""innr_tpu_torch stands apart from JAX and builds its kernels or raises."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from innr_tpu_torch.kernels import _build  # noqa: E402
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "innr_tpu_torch"
+
+
+def test_imports_with_jax_blocked():
+    code = (
+        "import sys; sys.modules['jax'] = None; "
+        "import innr_tpu_torch, innr_tpu_torch.kernels.knn, innr_tpu_torch.io; "
+        "assert 'innr_tpu' not in sys.modules"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_no_module_imports_jax_or_innr_tpu():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|innr_tpu)(\.|\s|$)", re.M)
+    offenders = [p.name for p in PKG.rglob("*.py") if pattern.search(p.read_text())]
+    assert offenders == []
+    assert "jax" not in (ROOT / "chip_smoke.py").read_text().replace("JAX", "")
+
+
+def test_build_without_nvcc_raises_naming_nvcc(monkeypatch):
+    monkeypatch.setenv("PATH", "/nonexistent")
+    monkeypatch.setattr(_build.Path, "is_file", lambda self: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build()
+
+
+def test_sources_ship_with_the_package():
+    assert sorted(p.name for p in (PKG / "csrc").glob("*.cu")) == ["knn.cu"]
+    text = (ROOT / "pyproject.toml").read_text()
+    assert 'innr_tpu_torch = ["csrc/*.cu", "csrc/*.cuh"]' in text
+    assert 'include = ["innr_tpu*"]' in text  # picks up innr_tpu_torch too

@@ -1,0 +1,343 @@
+"""innr_tpu_torch.kernels.knn against innr_tpu.kernels.knn.
+
+The same numpy inputs go through the JAX Pallas kernel (interpret mode on
+the CPU, as innr_tpu's own tests run it) and the port, which runs the plain
+PyTorch version of its CUDA kernel on CPU tensors.
+
+Tolerances:
+- integer-valued inputs (dot / l2 / masked modes, f32 and bf16 corpora, u8):
+  exact keys and indices, ties included — every score is exact;
+- cosine (unit queries are not integer-valued): scores within 1e-5,
+  indices equal wherever the neighbouring-rank gap exceeds it;
+- Gaussian inputs: scores within cond_tol (32 eps sum|q_i r_i|, and the L2
+  decomposition's terms), indices equal where the gap exceeds it;
+- u8 on Gaussian queries: 1e-5 sum|q_i c_i| + cond_tol, covering the TPU's
+  hi/lo bf16 query split (~2^-18 relative per product).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import ml_dtypes  # noqa: E402
+
+from innr_tpu.kernels import knn as jk  # noqa: E402
+from innr_tpu_torch.kernels import knn as tk  # noqa: E402
+from innr_tpu_torch.utils.asserts import ContractError  # noqa: E402
+
+N = 2100  # >= innr_tpu.config.MIN_ROWS_PALLAS, not a multiple of any tile
+EPS = float(np.finfo(np.float32).eps)
+MODES = ("dot", "l2", "cosine", "dotm", "l2m", "cosinem")
+
+
+def assert_topk_agrees(vals, idx, want_vals, want_idx, tol):
+    """Scores within ``tol`` ((Q, 1) or scalar; NaN matches NaN); indices
+    equal wherever ``want_vals`` separates a rank from its neighbours in the
+    returned list by more than 2 tol."""
+    v = np.asarray(vals, np.float64)
+    w = np.asarray(want_vals, np.float64)
+    v, w = np.atleast_2d(v), np.atleast_2d(w)
+    i, wi = np.atleast_2d(np.asarray(idx)), np.atleast_2d(np.asarray(want_idx))
+    tol = np.broadcast_to(np.asarray(tol, np.float64).reshape(-1, 1), (w.shape[0], 1))
+    same = (np.isnan(v) & np.isnan(w)) | (np.abs(v - w) <= tol) | (v == w)
+    assert same.all(), f"scores differ: {v[~same]} vs {w[~same]}"
+    gaps = np.abs(np.diff(w, axis=1))
+    inf = np.full((w.shape[0], 1), np.inf)
+    sep = (np.concatenate([inf, gaps], 1) > 2 * tol) & (np.concatenate([gaps, inf], 1) > 2 * tol)
+    np.testing.assert_array_equal(i[sep], wi[sep])
+
+
+def int_data(rng, n_q, d, dtype="float32", n=N):
+    """Integer-valued corpus in {-4..4} (u8: codes 0..255) with a planted
+    NaN row and a -0.0 row, queries in {-4..4}, and a ~60% predicate."""
+    if dtype == "uint8":
+        rows = rng.integers(0, 256, (n, d)).astype(np.uint8)
+    else:
+        rows = rng.integers(-4, 5, (n, d)).astype(np.float32)
+        rows[11] = np.nan
+        rows[29] = -0.0
+    qs = rng.integers(-4, 5, (n_q, d)).astype(np.float32)
+    mask = rng.random(n) < 0.6
+    return rows, qs, mask
+
+
+def jax_rows(rows, dtype):
+    if dtype == "bfloat16":
+        return jnp.asarray(rows.astype(ml_dtypes.bfloat16))
+    return jnp.asarray(rows)
+
+
+def torch_rows(rows, dtype):
+    t = torch.from_numpy(np.ascontiguousarray(rows))
+    return t.to(torch.bfloat16) if dtype == "bfloat16" else t
+
+
+def jax_aux(mode, jrows, mask):
+    r = jrows.astype(jnp.float32)
+    norms2 = jnp.sum(r * r, axis=1)
+    inv = jk.inv_norms(jrows)
+    m = jnp.asarray(mask, jnp.float32)
+    return {"dot": None, "l2": norms2, "cosine": inv, "dotm": m,
+            "l2m": jnp.stack([norms2, m]), "cosinem": jnp.stack([inv, m])}[mode]
+
+
+def torch_aux(mode, trows, mask):
+    norms2 = tk._norms2(trows)
+    inv = tk.inv_norms(trows)
+    m = torch.from_numpy(mask.astype(np.float32))
+    return {"dot": None, "l2": norms2, "cosine": inv, "dotm": m,
+            "l2m": torch.stack([norms2, m]), "cosinem": torch.stack([inv, m])}[mode]
+
+
+def both_keys(rows, qs, mask, k, mode, dtype):
+    jr, tr = jax_rows(rows, dtype), torch_rows(rows, dtype)
+    jq, tq = jnp.asarray(qs), torch.from_numpy(qs)
+    if mode.startswith("cos"):
+        jq, tq = jk._unit_queries(jq), tk._unit_queries(tq)
+    jkeys, jidx = jk.fused_knn_keys_batch(jq, jr, jax_aux(mode, jr, mask), k, mode)
+    tkeys, tidx = tk.fused_knn_keys_batch(tq, tr, torch_aux(mode, tr, mask), k, mode)
+    return (np.asarray(jkeys), np.asarray(jidx)), (tkeys.numpy(), tidx.numpy())
+
+
+def key_scores(keys, mode):
+    keys = np.array(keys)
+    if mode in ("l2", "l2m"):
+        keys = ~keys
+    return tk.invert_total_key(torch.from_numpy(keys)).numpy()
+
+
+class TestKeysAgainstJax:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("mode", MODES)
+    def test_every_mode(self, rng, mode, dtype):
+        rows, qs, mask = int_data(rng, 3, 17, dtype)
+        (jkeys, jidx), (tkeys, tidx) = both_keys(rows, qs, mask, 7, mode, dtype)
+        if mode.startswith("cos"):
+            assert_topk_agrees(key_scores(tkeys, mode), tidx,
+                               key_scores(jkeys, mode), jidx, 1e-5)
+        else:
+            np.testing.assert_array_equal(tkeys, jkeys)
+            np.testing.assert_array_equal(tidx, jidx)
+
+    @pytest.mark.parametrize("n_q,d,k", [(1, 1, 1), (3, 17, 7), (8, 128, 7), (8, 128, 1)])
+    @pytest.mark.parametrize("mode", ["dot", "l2"])
+    def test_shapes(self, rng, n_q, d, k, mode):
+        rows, qs, mask = int_data(rng, n_q, d)
+        (jkeys, jidx), (tkeys, tidx) = both_keys(rows, qs, mask, k, mode, "float32")
+        np.testing.assert_array_equal(tkeys, jkeys)
+        np.testing.assert_array_equal(tidx, jidx)
+
+    def test_u8(self, rng):
+        codes, qs, _ = int_data(rng, 3, 17, "uint8")
+        jv, ji = jk.fused_knn_u8_batch(jnp.asarray(qs), jnp.asarray(codes), 7)
+        tv, ti = tk.fused_knn_u8_batch(torch.from_numpy(qs), torch.from_numpy(codes), 7)
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+
+    @pytest.mark.parametrize("mode", ["dot", "l2m"])
+    def test_multi_pass_with_cap_patched_down(self, rng, monkeypatch, mode):
+        """k beyond the pass cap: exclusion-bounded passes whose
+        concatenation equals JAX's single ideal selection, ties included."""
+        monkeypatch.setattr(tk, "_K_MAX_PASS", 16)
+        assert tk.single_pass_k(3) == 16
+        rows, qs, mask = int_data(rng, 3, 8)
+        (jkeys, jidx), (tkeys, tidx) = both_keys(rows, qs, mask, 45, mode, "float32")
+        np.testing.assert_array_equal(tkeys, jkeys)
+        np.testing.assert_array_equal(tidx, jidx)
+
+    def test_exclusion_bound(self, rng):
+        """knn_plain's excl resumes strictly after (key, idx), as the JAX
+        kernel's excl does."""
+        rows, qs, _ = int_data(rng, 3, 8)
+        jr, tr = jnp.asarray(rows), torch.from_numpy(rows)
+        first_k, first_i = tk.knn_plain(torch.from_numpy(qs), tr, None, 5, "dot")
+        excl = (first_k[:, -1], first_i[:, -1])
+        tkeys, tidx = tk.knn_plain(torch.from_numpy(qs), tr, None, 7, "dot", excl=excl)
+        jkeys, jidx = jk._fused_knn_raw(
+            jnp.asarray(qs), jr, None, 7, "dot",
+            (jnp.asarray(excl[0].numpy()), jnp.asarray(excl[1].numpy())),
+        )
+        np.testing.assert_array_equal(tkeys.numpy(), np.asarray(jkeys))
+        np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
+        full_k, full_i = tk.knn_plain(torch.from_numpy(qs), tr, None, 12, "dot")
+        np.testing.assert_array_equal(full_i[:, 5:].numpy(), tidx.numpy())
+
+    def test_multi_pass_driver_equals_one_selection(self, rng):
+        rows, qs, mask = int_data(rng, 4, 5)
+        tr, tq = torch.from_numpy(rows), torch.from_numpy(qs)
+        vals, m = tk._split_aux(torch_aux("l2m", tr, mask), "l2m", N)
+        one = tk._plain_top(tq, tr, vals, m, 100, "l2m")
+        many = tk._multi_pass(
+            lambda pk, bound: tk._plain_top(tq, tr, vals, m, pk, "l2m", bound), 100, 7
+        )
+        assert torch.equal(one, many)
+
+
+class TestWrappersGaussian:
+    D, Q, K = 32, 3, 7
+
+    @pytest.fixture
+    def data(self, rng):
+        rows = rng.standard_normal((N, self.D)).astype(np.float32)
+        qs = rng.standard_normal((self.Q, self.D)).astype(np.float32)
+        dot_tol = 32 * EPS * (np.abs(qs) @ np.abs(rows).T).max(axis=1, keepdims=True)
+        l2_tol = (32 * EPS * ((rows * rows).sum(1).max() + (qs * qs).sum(1, keepdims=True))
+                  + 2 * dot_tol)
+        return rows, qs, dot_tol, l2_tol
+
+    def test_dot_batch(self, data):
+        rows, qs, dot_tol, _ = data
+        jv, ji = jk.fused_knn_dot_batch(jnp.asarray(qs), jnp.asarray(rows), self.K)
+        tv, ti = tk.fused_knn_dot_batch(torch.from_numpy(qs), torch.from_numpy(rows), self.K)
+        assert_topk_agrees(tv, ti, jv, ji, dot_tol)
+
+    def test_dot_single(self, data):
+        rows, qs, dot_tol, _ = data
+        jv, ji = jk.fused_knn_dot(jnp.asarray(qs[1]), jnp.asarray(rows), self.K)
+        tv, ti = tk.fused_knn_dot(torch.from_numpy(qs[1]), torch.from_numpy(rows), self.K)
+        assert tv.shape == (self.K,) and ti.dtype == torch.int32
+        assert_topk_agrees(tv, ti, jv, ji, dot_tol[1])
+
+    def test_l2_batch_and_single(self, data):
+        rows, qs, _, l2_tol = data
+        jv, ji = jk.fused_knn_l2_batch(jnp.asarray(qs), jnp.asarray(rows), self.K)
+        tv, ti = tk.fused_knn_l2_batch(torch.from_numpy(qs), torch.from_numpy(rows), self.K)
+        assert_topk_agrees(tv, ti, jv, ji, l2_tol)
+        sv, si = tk.fused_knn_l2(torch.from_numpy(qs[0]), torch.from_numpy(rows), self.K)
+        assert_topk_agrees(sv, si, jv[0], ji[0], l2_tol[0])
+        assert (tv >= 0).all()
+
+    def test_l2_masked(self, data, rng):
+        rows, qs, _, l2_tol = data
+        mask = rng.random(N) < 0.4
+        jv, ji = jk.fused_knn_l2_masked_batch(
+            jnp.asarray(qs), jnp.asarray(rows), jnp.asarray(mask), self.K)
+        tv, ti = tk.fused_knn_l2_masked_batch(
+            torch.from_numpy(qs), torch.from_numpy(rows), torch.from_numpy(mask), self.K)
+        assert_topk_agrees(tv, ti, jv, ji, l2_tol)
+        assert mask[ti.numpy()].all()
+
+    def test_cosine_batch_and_single(self, data):
+        rows, qs, _, _ = data
+        rows[5] = 0.0  # zero-norm row scores exactly 0.0
+        jv, ji = jk.fused_knn_cosine_batch(jnp.asarray(qs), jnp.asarray(rows), self.K)
+        tv, ti = tk.fused_knn_cosine_batch(torch.from_numpy(qs), torch.from_numpy(rows), self.K)
+        assert_topk_agrees(tv, ti, jv, ji, 1e-5)
+        sv, si = tk.fused_knn_cosine(torch.from_numpy(qs[2]), torch.from_numpy(rows), self.K)
+        assert_topk_agrees(sv, si, jv[2], ji[2], 1e-5)
+
+    def test_u8_gaussian_queries(self, rng):
+        codes = rng.integers(0, 256, (N, 24)).astype(np.uint8)
+        qs = rng.standard_normal((2, 24)).astype(np.float32)
+        cond = (np.abs(qs) @ codes.T.astype(np.float64)).max(axis=1, keepdims=True)
+        tol = 1e-5 * cond + 32 * EPS * cond
+        jv, ji = jk.fused_knn_u8_batch(jnp.asarray(qs), jnp.asarray(codes), self.K)
+        tv, ti = tk.fused_knn_u8_batch(torch.from_numpy(qs), torch.from_numpy(codes), self.K)
+        assert_topk_agrees(tv, ti, jv, ji, tol)
+
+    def test_inv_norms_and_unit_queries(self, data):
+        rows, qs, _, _ = data
+        rows[0] = 0.0
+        qs[1] = 0.0
+        np.testing.assert_allclose(
+            tk.inv_norms(torch.from_numpy(rows)).numpy(),
+            np.asarray(jk.inv_norms(jnp.asarray(rows))), rtol=1e-6)
+        unit = tk._unit_queries(torch.from_numpy(qs)).numpy()
+        np.testing.assert_allclose(
+            unit, np.asarray(jk._unit_queries(jnp.asarray(qs))), rtol=1e-6, atol=1e-7)
+        assert (unit[1] == 0.0).all()
+
+
+class TestPlainSemantics:
+    def test_nan_inf_and_zero_order(self):
+        """Canonical NaN sorts greatest for dot, last for L2; +inf next;
+        equal scores go to the lowest row."""
+        rows = torch.tensor([[1.0], [np.nan], [np.inf], [1.0], [-np.inf], [-0.0]])
+        q = torch.tensor([[1.0]])
+        keys, idx = tk.knn_plain(q, rows, None, 6, "dot")
+        assert idx.tolist() == [[1, 2, 0, 3, 5, 4]]
+        # L2: the NaN row and the +inf row (inf - 2 inf = NaN) sort last,
+        # in row order.
+        keys, idx = tk.knn_plain(q, rows, tk._norms2(rows), 6, "l2")
+        assert idx[0, -2:].tolist() == [1, 2]
+
+    def test_negative_nan_payload_is_canonical(self):
+        neg_nan = torch.tensor([-1], dtype=torch.int32).view(torch.float32)  # 0xFFFFFFFF
+        rows = torch.stack([torch.ones(1), neg_nan, 2 * torch.ones(1)])
+        keys, idx = tk.knn_plain(torch.ones(1, 1), rows, None, 3, "dot")
+        assert idx.tolist() == [[1, 2, 0]]
+        assert keys[0, 0] == 0x7FC00000
+
+    def test_tail_slots_after_exclusion_are_empty(self):
+        rows = torch.arange(4.0)[:, None]
+        q = torch.ones(1, 1)
+        keys, idx = tk.knn_plain(q, rows, None, 3, "dot")
+        k2, i2 = tk.knn_plain(q, rows, None, 3, "dot", excl=(keys[:, -1], idx[:, -1]))
+        assert i2.tolist() == [[0, -1, -1]]
+        assert k2[0, 1] == torch.iinfo(torch.int32).min
+
+    def test_force_reference_runs_plain(self, monkeypatch):
+        from innr_tpu_torch import config
+
+        rows = torch.randn(50, 4, generator=torch.Generator().manual_seed(0))
+        want = tk.knn_plain(rows[:2], rows, None, 5, "dot")
+        monkeypatch.setattr(config, "_FORCE_REFERENCE", True)
+        got = tk.fused_knn_keys_batch(rows[:2], rows, None, 5, "dot")
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+class TestContracts:
+    @pytest.mark.parametrize("bad", [
+        dict(mode="nope"),
+        dict(mode="l2", aux=None),
+        dict(mode="dot", aux=torch.ones(10)),
+        dict(mode="l2m", aux=torch.ones(10)),
+        dict(k=0),
+        dict(k=11),
+        dict(rows=torch.ones(10, 4, dtype=torch.float64)),
+        dict(qs=torch.ones(2, 3)),
+        dict(qs=torch.ones(2, 4, dtype=torch.float64)),
+    ])
+    def test_raises(self, bad):
+        args = dict(qs=torch.ones(2, 4), rows=torch.ones(10, 4), aux=None, k=3, mode="dot")
+        args.update(bad)
+        with pytest.raises(ContractError):
+            tk.fused_knn_keys_batch(args["qs"], args["rows"], args["aux"], args["k"], args["mode"])
+
+    def test_u8_wrapper_rejects_float_codes(self):
+        with pytest.raises(ContractError, match="uint8"):
+            tk.fused_knn_u8_batch(torch.ones(1, 4), torch.ones(10, 4), 2)
+
+    def test_meta_device_raises_not_falls_back(self):
+        with pytest.raises(ContractError, match="unsupported device"):
+            tk.fused_knn_keys_batch(torch.ones(1, 4, device="meta"),
+                                    torch.ones(10, 4, device="meta"), None, 2, "dot")
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs these checks on the card")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+class TestKernelOnCuda:
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.uint8])
+    @pytest.mark.parametrize("k", [1, 10, 259])
+    def test_kernel_matches_plain_exactly(self, cuda_device, dtype, k):
+        gen = torch.Generator(device=cuda_device).manual_seed(7)
+        if dtype == torch.uint8:
+            rows = torch.randint(0, 256, (3077, 127), generator=gen, device=cuda_device,
+                                 dtype=torch.uint8)
+        else:
+            rows = torch.randint(-4, 5, (3077, 127), generator=gen,
+                                 device=cuda_device).to(dtype)
+        qs = torch.randint(-4, 5, (5, 127), generator=gen, device=cuda_device).float()
+        before = tk.LAUNCHES
+        got = tk.fused_knn_keys_batch(qs, rows, None, k, "dot")
+        assert tk.LAUNCHES > before
+        want = tk.knn_plain(qs, rows, None, k, "dot")
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
