@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of innr_tpu_torch's batch-kNN main path on one CUDA GPU.
+"""Smoke run of innr_tpu_torch's main paths on one CUDA GPU.
 
 Run from the repository root, with no arguments:
 
@@ -9,30 +9,55 @@ It needs a CUDA device and nvcc (``/usr/local/cuda``), and exits non-zero
 without printing a result when either is missing. It never runs on the CPU
 and imports nothing of JAX. Phases:
 
-1. build    — compile ``innr_tpu_torch/csrc/*.cu`` with nvcc (sm_90a); print
-              the build time, the card's name and power limit, and ptxas'
-              register / spill report.
-2. exact    — the kNN kernel against its plain PyTorch version on the same
-              device tensors, on integer-valued data (every dot and L2 score
-              is then exact, so keys and indices must agree bit for bit,
-              ties included) for every mode and corpus dtype, Q in {1, 5, 32},
-              D in {1, 127, 768}, k in {1, 10, cap + 3} (the last runs two
-              passes), N not a multiple of the slab size, with planted NaN,
-              +-inf and -0.0 rows. Cosine (unit queries) is held to 1e-5.
+1. build    — compile ``innr_tpu_torch/csrc/*.cu`` with nvcc (sm_90a), one
+              process per source; print the build time, the card's name and
+              power limit, and ptxas' register / spill report.
+2. exact    — every kernel against its plain PyTorch version on the same
+              device tensors, bit for bit:
+              - the kNN kernel on integer-valued data (every dot and L2 score
+                is then exact, so keys and indices must agree, ties
+                included) for every mode and corpus dtype, Q in {1, 5, 32},
+                D in {1, 127, 768}, k in {1, 10, cap + 3} (the last runs two
+                passes), N not a multiple of the slab size, with planted NaN,
+                +-inf and -0.0 rows. Cosine (unit queries) is held to 1e-5;
+              - the packed kNN scan and the per-row packed scores, binary and
+                ternary, on words drawn over all 32 bits (the sign bit of
+                the int32 view included), disjoint ternary planes and planted
+                duplicate rows (ties go to the lowest row), Q in
+                {1, 5, 16, 33}, D in {1, 77, 768} bits, k in {1, 10, cap + 3}.
 3. main     — the public entry points at full size, launch counters reset
-              just before: batch_knn_dot / batch_knn / batch_knn_cosine /
-              batch_knn_filtered on a 10M x 128 f32 VerticalBatch (32
-              queries, k=10), batch_knn_dot on 20M x 128 bf16,
-              batch_knn_u8_multi on 1M x 768 u8, the batch_demo
-              configuration (10K x 128, 100 queries, top-2) against a float64
-              brute force, and k=2048 on the 10M corpus (8 passes). Each
-              result is held against the plain version (scores within a
-              condition-aware tolerance, indices equal wherever the score
-              gap exceeds it); the bf16-vs-f32 top-10 overlap must be >= 0.98.
-4. timing   — kernel, plain version and a same-bytes ``torch.sum`` read for
-              f32 10M x 128, bf16 20M x 128 and u8 1M x 768 (Q=32, k=10):
-              CUDA events, median of 7 after warm-up; roofline fraction =
-              read_ms / kernel_ms.
+              just before each path and read just after it:
+              a. batch kNN: batch_knn_dot / batch_knn / batch_knn_cosine /
+                 batch_knn_filtered on a 10M x 128 f32 VerticalBatch (32
+                 queries, k=10), batch_knn_dot on 20M x 128 bf16,
+                 batch_knn_u8_multi on 1M x 768 u8, the batch_demo
+                 configuration (10K x 128, 100 queries, top-2) against a
+                 float64 brute force, and k=2048 on the 10M corpus (8
+                 passes). Scores within a condition-aware tolerance of the
+                 plain version, indices equal wherever the score gap exceeds
+                 it; the bf16-vs-f32 top-10 overlap must be >= 0.98;
+              b. packed: binary_knn_batch on a 30M x 768-bit
+                 PackedBinaryBatch and ternary_knn_batch on a 15M x 768
+                 PackedTernaryBatch (Q=16, k=10), binary_knn / ternary_knn
+                 on 1M x 768 (k=40), batch_binary_hamming and
+                 batch_ternary_dot over the big corpora's row-major words;
+                 counts, dots and indices equal to the plain version's;
+              c. TwoStageIndex.search_batch over 1M x 768 f32 rows, 32
+                 queries, k=10, in all four coarse kinds (binary rf=64,
+                 ternary rf=64, u8 rf=8, matryoshka prefix 128 rf=10); the
+                 binary / ternary shortlists equal the plain version's, the
+                 u8 / matryoshka ones agree within the kNN tolerance, and the
+                 final scores agree with a plain rerank of the plain
+                 shortlist. Then recall@10 of the four kinds on a clustered
+                 100K x 256 corpus (64 queries, exact top-10 by
+                 batch_knn_dot).
+4. timing   — kernel, plain version and a same-bytes ``torch.sum`` read
+              (CUDA events, median of 7 after warm-up; roofline fraction =
+              read_ms / kernel_ms) for f32 10M x 128, bf16 20M x 128 and u8
+              1M x 768 (Q=32, k=10), and for each packed kernel at the sizes
+              of 3b (with popcounts per ms); the host time of one
+              TwoStageIndex.search_batch of 32 queries, host copy included,
+              per coarse kind, and its packed passes.
 
 Every failed check raises, so the exit code is non-zero. The last two lines
 are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -55,6 +80,31 @@ K_DEMO, N_DEMO, Q_DEMO = 2, 10_000, 100
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _counted():
+    from innr_tpu_torch.kernels import hamming as th
+    from innr_tpu_torch.kernels import knn as tk
+    from innr_tpu_torch.kernels import packed_knn as tp
+
+    return (
+        ("knn_scan+knn_merge", tk, tk.LAUNCHES_BY_DTYPE),
+        ("packed_scan", tp, tp.LAUNCHES_BY_KIND),
+        ("packed_rows", th, th.LAUNCHES_BY_KIND),
+    )
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count to 0."""
+    for _, mod, by in _counted():
+        mod.LAUNCHES = 0
+        for key in by:
+            by[key] = 0
+
+
+def read_counts() -> dict:
+    """Launches per kernel instance, e.g. ``packed_scan<binary>``."""
+    return {f"{name}<{key}>": n for name, _, by in _counted() for key, n in by.items()}
 
 
 def gpu_name_and_power() -> str:
@@ -173,18 +223,77 @@ def phase_exact(dev) -> int:
                             check_close(name, scores_from_keys(keys, mode), idx,
                                         scores_from_keys(pk, mode), pi, tol)
                         else:
-                            pk, pi = tk.knn_plain(q_in, rows, aux, k, mode)
-                            if not (torch.equal(keys, pk) and torch.equal(idx, pi)):
-                                bad = (keys != pk) | (idx != pi)
-                                q, j = (int(v) for v in bad.nonzero()[0])
-                                raise AssertionError(
-                                    f"{name}: query {q} rank {j}: kernel "
-                                    f"({int(keys[q, j])}, {int(idx[q, j])}) plain "
-                                    f"({int(pk[q, j])}, {int(pi[q, j])})"
-                                )
+                            expect_equal(name, (keys, idx),
+                                         tk.knn_plain(q_in, rows, aux, k, mode))
                         checks += 1
     torch.cuda.synchronize()
-    log(f"[exact] {checks} kernel-vs-plain checks agree (bit-exact; cosine within 1e-5)")
+    log(f"[exact] {checks} kNN kernel-vs-plain checks agree (bit-exact; cosine within 1e-5)")
+    return checks
+
+
+def expect_equal(name: str, got, want) -> None:
+    """Raw ``(keys, idx)`` of the kernel and of the plain version, equal."""
+    import torch
+
+    (keys, idx), (pk, pi) = got, want
+    if not (torch.equal(keys, pk) and torch.equal(idx, pi)):
+        bad = (keys != pk) | (idx != pi)
+        q, j = (int(v) for v in bad.nonzero()[0])
+        raise AssertionError(
+            f"{name}: query {q} rank {j}: kernel ({int(keys[q, j])}, {int(idx[q, j])}) "
+            f"plain ({int(pk[q, j])}, {int(pi[q, j])})"
+        )
+
+
+def words(gen, shape, dev):
+    """Random int32 words over all 32 bits, the sign bit included."""
+    import torch
+
+    return torch.randint(-(2**31), 2**31, shape, generator=gen, device=dev, dtype=torch.int32)
+
+
+def planes(gen, kind: str, shape, dev) -> tuple:
+    """One plane of random words (binary) or two disjoint planes (ternary)."""
+    a = words(gen, shape, dev)
+    if kind == "binary":
+        return (a,)
+    b = words(gen, shape, dev)
+    return (a & b, a & ~b)
+
+
+def phase_exact_packed(dev) -> int:
+    import torch
+
+    from innr_tpu_torch.kernels import hamming as th
+    from innr_tpu_torch.kernels import knn as tk
+    from innr_tpu_torch.kernels import packed_knn as tp
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    cap = tk.single_pass_k(1)
+    n = 3 * 1024 + 77
+    checks = 0
+    for kind in ("binary", "ternary"):
+        for d in (1, 77, 768):
+            w = -(-d // 32)
+            rows = planes(gen, kind, (n, w), dev)
+            for p in rows:  # copies of row 5: ties must go to the lowest row
+                p[[100, 2000, n - 1]] = p[5].clone()
+            rows_t = tuple(p.T.contiguous() for p in rows)
+            for n_q in (1, 5, 16, 33):
+                qs = planes(gen, kind, (n_q, w), dev)
+                for q, p in zip(qs, rows):  # query 0 is row 5: its copies tie
+                    q[0] = p[5]
+                for k in (1, 10, cap + 3):
+                    expect_equal(f"exact packed_scan<{kind}> d={d} q={n_q} k={k}",
+                                 tp.fused_packed_keys_batch(qs, rows_t, k),
+                                 tp.packed_knn_plain(qs, rows_t, k))
+                    checks += 1
+            q1 = tuple(q[0] for q in planes(gen, kind, (1, w), dev))
+            if not torch.equal(th.packed_rows(q1, rows), th.hamming_rows_plain(q1, rows)):
+                raise AssertionError(f"exact packed_rows<{kind}> d={d}: kernel != plain")
+            checks += 1
+    torch.cuda.synchronize()
+    log(f"[exact] {checks} packed kernel-vs-plain checks agree bit for bit")
     return checks
 
 
@@ -259,9 +368,7 @@ def phase_main(dev, corpora: dict, errs: dict) -> dict:
         raise AssertionError("force_reference is on; the main path must run the kernel")
 
     # Main path: counters from zero, public entry points only.
-    tk.LAUNCHES = 0
-    for name in tk.LAUNCHES_BY_DTYPE:
-        tk.LAUNCHES_BY_DTYPE[name] = 0
+    reset_counts()
     results = {}
     for b, size in ((vb, f32.shape[0]), (vb16, bf16.shape[0])):
         if backend.batch_backend(size, b.rows.device) != backend.Backend.CUDA:
@@ -284,8 +391,8 @@ def phase_main(dev, corpora: dict, errs: dict) -> dict:
     results["k2048"] = itt.batch_knn_dot(qs128, vb, 2048)
     last = _expect_launch(last, "batch_knn_dot k=2048")
     torch.cuda.synchronize()
-    launches = dict(tk.LAUNCHES_BY_DTYPE)
-    log(f"[main] kernel passes on the main path: {tk.LAUNCHES} {launches}")
+    launches = read_counts()
+    log(f"[main] kernel passes on the batch-kNN path: {tk.LAUNCHES} {launches}")
 
     def t(res):
         return (torch.as_tensor(res.scores, device=dev), torch.as_tensor(res.indices, device=dev))
@@ -394,6 +501,228 @@ def phase_timing(corpora: dict) -> dict:
     return out
 
 
+def _timed(name: str, kernel, plain, read, pops: int) -> tuple:
+    """Kernel, plain and same-bytes read medians; logs the roofline fraction
+    and popcounts per ms (``pops`` popcounts per call)."""
+    k_ms, p_ms, r_ms = _median_ms(kernel), _median_ms(plain), _median_ms(read)
+    log(f"[timing] {name}: kernel {k_ms!r} ms, plain {p_ms!r} ms, same-bytes read "
+        f"{r_ms!r} ms, roofline fraction (read/kernel) {r_ms / k_ms!r}, "
+        f"popcounts per ms {pops / k_ms!r}")
+    return k_ms, p_ms, r_ms
+
+
+def _check_path(path: str, launches: dict, names) -> None:
+    for name in names:
+        if launches[name] == 0:
+            raise AssertionError(f"the {path} path launched no {name}")
+
+
+def phase_packed(dev) -> tuple[dict, dict, dict]:
+    """3b and its timing: the packed families at full size. Returns the
+    path's launches, and per kernel its times and max abs error."""
+    import numpy as np
+    import torch
+
+    import innr_tpu_torch as itt
+    from innr_tpu_torch.kernels import hamming as th
+    from innr_tpu_torch.kernels import packed_knn as tp
+    from innr_tpu_torch.ops.binary import binary_knn_batch
+    from innr_tpu_torch.ops.ternary import ternary_knn_batch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    d, w, n_q, k, k1, n1 = 768, 24, 16, 10, 40, 1_000_000
+    # Containers from random device words: an f32 corpus of 30M x 768 would
+    # not fit the card.
+    bb = itt.PackedBinaryBatch(words(gen, (30_000_000, w), dev), d)
+    tb = itt.PackedTernaryBatch(*planes(gen, "ternary", (15_000_000, w), dev), d)
+    bb1 = itt.PackedBinaryBatch(bb.words[:n1], d)
+    tb1 = itt.PackedTernaryBatch(tb.pos[:n1], tb.neg[:n1], d)
+    (qb,), (qtp, qtn) = planes(gen, "binary", (n_q, w), dev), planes(gen, "ternary", (n_q, w), dev)
+    q1b, q1t = itt.PackedBinary(qb[0], d), itt.PackedTernary(qtp[0], qtn[0], d)
+    torch.cuda.synchronize()
+    if itt.config.reference_forced():
+        raise AssertionError("force_reference is on; the main path must run the kernels")
+
+    reset_counts()
+    res = {
+        "binary": binary_knn_batch(qb, bb, k),
+        "ternary": ternary_knn_batch((qtp, qtn), tb, k),
+        "binary1": itt.binary_knn(q1b, bb1, k1),
+        "ternary1": itt.ternary_knn(q1t, tb1, k1),
+        "hamming": itt.batch_binary_hamming(q1b, bb.words),
+        "tdot": itt.batch_ternary_dot(q1t, tb.pos, tb.neg),
+    }
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log(f"[main] kernel passes on the packed path: {launches}")
+    _check_path("packed", launches, [f"{n}<{kind}>" for n in ("packed_scan", "packed_rows")
+                                     for kind in ("binary", "ternary")])
+
+    def same(name, got, want) -> None:
+        """Kernel and plain results equal, element for element."""
+        for g, p in zip(got, want, strict=True):
+            g = np.asarray(g.cpu() if torch.is_tensor(g) else g, np.int64)
+            if not np.array_equal(g, np.asarray(p.cpu(), np.int64)):
+                raise AssertionError(f"{name}: kernel result != plain version")
+
+    def counts(keys_idx):
+        return -keys_idx[0], keys_idx[1]
+
+    def first(keys_idx):
+        return keys_idx[0][0], keys_idx[1][0]
+
+    same("binary_knn_batch 30M", res["binary"],
+         counts(tp.packed_knn_plain((qb,), (bb.words_t,), k)))
+    same("binary_knn 1M", res["binary1"],
+         counts(first(tp.packed_knn_plain((qb[:1],), (bb1.words_t,), k1))))
+    same("ternary_knn_batch 15M", res["ternary"],
+         tp.packed_knn_plain((qtp, qtn), (tb.pos_t, tb.neg_t), k))
+    same("ternary_knn 1M", res["ternary1"],
+         first(tp.packed_knn_plain((qtp[:1], qtn[:1]), (tb1.pos_t, tb1.neg_t), k1)))
+    same("batch_binary_hamming 30M", (res["hamming"],),
+         (th.hamming_rows_plain((qb[0],), (bb.words,)),))
+    same("batch_ternary_dot 15M", (res["tdot"],),
+         (th.hamming_rows_plain((qtp[0], qtn[0]), (tb.pos, tb.neg)),))
+    log("[main] packed 30M / 15M x 768 bits (Q=16, k=10), 1M (Q=1, k=40) and the "
+        "per-row scores agree with the plain version bit for bit")
+    # The packed checks above are exact: every packed kernel's error is 0.
+    errs = {name: 0.0 for name in ("packed_scan<binary>", "packed_scan<ternary>",
+                                   "packed_rows<binary>", "packed_rows<ternary>")}
+
+    times = {}
+    scan_pops = 30_000_000 * w * n_q  # ternary: 2 popcounts a word over half the rows
+    times["packed_scan<binary>"] = _timed(
+        f"packed_scan<binary> 30M x {d} bits, Q={n_q}, k={k}",
+        lambda: tp.fused_packed_keys_batch((qb,), (bb.words_t,), k),
+        lambda: tp.packed_knn_plain((qb,), (bb.words_t,), k),
+        lambda: bb.words_t.view(torch.float32).sum(), scan_pops)
+    times["packed_scan<ternary>"] = _timed(
+        f"packed_scan<ternary> 15M x {d}, Q={n_q}, k={k}",
+        lambda: tp.fused_packed_keys_batch((qtp, qtn), (tb.pos_t, tb.neg_t), k),
+        lambda: tp.packed_knn_plain((qtp, qtn), (tb.pos_t, tb.neg_t), k),
+        lambda: tb.pos_t.view(torch.float32).sum() + tb.neg_t.view(torch.float32).sum(),
+        scan_pops)
+    _timed(f"packed_scan<binary> 1M x {d} bits, Q=1, k={k1}",
+           lambda: tp.fused_packed_keys_batch((qb[:1],), (bb1.words_t,), k1),
+           lambda: tp.packed_knn_plain((qb[:1],), (bb1.words_t,), k1),
+           lambda: bb1.words_t.view(torch.float32).sum(), n1 * w)
+    _timed(f"packed_scan<ternary> 1M x {d}, Q=1, k={k1}",
+           lambda: tp.fused_packed_keys_batch((qtp[:1], qtn[:1]), (tb1.pos_t, tb1.neg_t), k1),
+           lambda: tp.packed_knn_plain((qtp[:1], qtn[:1]), (tb1.pos_t, tb1.neg_t), k1),
+           lambda: tb1.pos_t.view(torch.float32).sum() + tb1.neg_t.view(torch.float32).sum(),
+           2 * n1 * w)
+    times["packed_rows<binary>"] = _timed(
+        f"packed_rows<binary> 30M x {d} bits",
+        lambda: th.packed_rows((qb[0],), (bb.words,)),
+        lambda: th.hamming_rows_plain((qb[0],), (bb.words,)),
+        lambda: bb.words.view(torch.float32).sum(), 30_000_000 * w)
+    times["packed_rows<ternary>"] = _timed(
+        f"packed_rows<ternary> 15M x {d}",
+        lambda: th.packed_rows((qtp[0], qtn[0]), (tb.pos, tb.neg)),
+        lambda: th.hamming_rows_plain((qtp[0], qtn[0]), (tb.pos, tb.neg)),
+        lambda: tb.pos.view(torch.float32).sum() + tb.neg.view(torch.float32).sum(),
+        2 * 15_000_000 * w)
+    return launches, times, errs
+
+
+def _median_host_ms(fn, reps: int = 7) -> float:
+    """Host-clock median of ``fn`` (which waits for its own result)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_pipeline(dev, errs: dict) -> dict:
+    """3c and its timing: TwoStageIndex in all four coarse kinds, then the
+    recall of each on a clustered corpus."""
+    import numpy as np
+    import torch
+
+    import innr_tpu_torch as itt
+    from innr_tpu_torch.pipeline import rerank
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    n, d, n_q, k = 1_000_000, 768, 32, 10
+    rows = torch.randn((n, d), generator=gen, device=dev)
+    qs = torch.randn((n_q, d), generator=gen, device=dev)
+    kinds = (
+        ("binary", itt.CoarseConfig("binary"), 64),
+        ("ternary", itt.CoarseConfig("ternary"), 64),
+        ("u8", itt.CoarseConfig("u8"), 8),
+        ("matryoshka", itt.CoarseConfig("matryoshka", prefix_dims=128), 10),
+    )
+    indexes = {kind: itt.TwoStageIndex(rows, cfg, rerank_factor=rf) for kind, cfg, rf in kinds}
+    torch.cuda.synchronize()
+
+    # The kernel each kind's coarse stage runs; only that kind launches it.
+    coarse_kernel = {
+        "binary": "packed_scan<binary>", "ternary": "packed_scan<ternary>",
+        "u8": "knn_scan+knn_merge<uint8>", "matryoshka": "knn_scan+knn_merge<float32>",
+    }
+    reset_counts()
+    results = {kind: index.search_batch(qs, k) for kind, index in indexes.items()}
+    launches = read_counts()
+    log(f"[main] kernel passes on the TwoStageIndex path: {launches}")
+    _check_path("TwoStageIndex", launches, coarse_kernel.values())
+
+    tol_fine = _tol_dot(qs, rows)
+    for kind, index in indexes.items():
+        n_cand = k * index.rerank_factor
+        keys, cand = index.candidates(qs, n_cand)
+        itt.config.force_reference(True)
+        try:
+            pkeys, pcand = index.candidates(qs, n_cand + 1)
+        finally:
+            itt.config.force_reference(False)
+        got = results[kind]
+        pv, pi = rerank(rows, qs, pcand[:, :n_cand], k + 1)
+        if kind in ("binary", "ternary"):
+            expect_equal(f"TwoStageIndex {kind} shortlist", (keys, cand),
+                         (pkeys[:, :n_cand], pcand[:, :n_cand]))
+            if not (np.array_equal(got.indices, pi[:, :k].cpu().numpy())
+                    and np.array_equal(got.scores, pv[:, :k].cpu().numpy())):
+                raise AssertionError(f"TwoStageIndex {kind}: result != plain rerank")
+        else:
+            coarse = index._coarse.codes if kind == "u8" else index._coarse
+            cq = qs if kind == "u8" else qs[:, : coarse.shape[1]]
+            err = check_close(f"TwoStageIndex {kind} shortlist",
+                              scores_from_keys(keys, "dot"), cand,
+                              scores_from_keys(pkeys, "dot"), pcand, _tol_dot(cq, coarse))
+            name = "uint8" if kind == "u8" else "float32"
+            errs[name] = max(errs[name], err)
+            check_close(f"TwoStageIndex {kind} result",
+                        torch.as_tensor(got.scores, device=dev),
+                        torch.as_tensor(got.indices, device=dev), pv, pi, tol_fine)
+    log("[main] TwoStageIndex 1M x 768, 32 queries, k=10: binary and ternary shortlists "
+        "and results equal the plain version's; u8 and matryoshka agree within tolerance")
+
+    for kind, index in indexes.items():
+        n_cand = k * index.rerank_factor
+        ms = _median_host_ms(lambda: index.search_batch(qs, k))
+        log(f"[timing] TwoStageIndex.search_batch {kind} rf={index.rerank_factor} "
+            f"(1M x {d}, 32 queries, k={k}, host copy included): {ms!r} ms per batch, "
+            f"{n_cand} candidates in {launches[coarse_kernel[kind]]} coarse pass(es)")
+    del indexes, rows
+
+    rng = np.random.default_rng(SEED)
+    n_r, d_r = 100_000, 256
+    centers = rng.standard_normal((256, d_r)).astype(np.float32)
+    rows_r = (centers[rng.integers(0, 256, n_r)]
+              + 0.3 * rng.standard_normal((n_r, d_r)).astype(np.float32))
+    qs_r = rows_r[:64] + 0.05 * rng.standard_normal((64, d_r)).astype(np.float32)
+    recall = {
+        f"{kind}_rf{rf}": itt.TwoStageIndex(rows_r, kind, rerank_factor=rf, device=dev)
+        .recall_vs_exact(qs_r, 10)
+        for kind, rf in (("binary", 64), ("ternary", 64), ("u8", 8), ("matryoshka", 8))
+    }
+    log(f"[main] two_stage_recall_at_10 (clustered 100K x 256, 64 queries): {recall}")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "innr_tpu_torch").is_dir():
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -406,25 +735,44 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     phase_build()
     phase_exact(dev)
+    phase_exact_packed(dev)
     corpora, errs = {}, {}
     launches = phase_main(dev, corpora, errs)
-    times = phase_timing(corpora)
+    _check_path("batch-kNN", launches,
+                [f"knn_scan+knn_merge<{name}>" for name in ("float32", "bfloat16", "uint8")])
+    times = {f"knn_scan+knn_merge<{name}>": t for name, t in phase_timing(corpora).items()}
+    corpora.clear()
+    torch.cuda.empty_cache()
+    packed_launches, packed_times, packed_errs = phase_packed(dev)
+    times.update(packed_times)
+    torch.cuda.empty_cache()
+    pipeline_launches = phase_pipeline(dev, errs)
+    for counts in (packed_launches, pipeline_launches):
+        for name, n in counts.items():
+            launches[name] += n
+    errs = {f"knn_scan+knn_merge<{name}>": err for name, err in errs.items()} | packed_errs
+    kernels = [
+        ("knn_scan+knn_merge<float32>", "knn.cu", "knn.py:197"),
+        ("knn_scan+knn_merge<bfloat16>", "knn.cu", "knn.py:197"),
+        ("knn_scan+knn_merge<uint8>", "knn.cu", "knn.py:197"),
+        ("packed_scan<binary>", "packed_knn.cu", "packed_knn.py:93,150"),
+        ("packed_scan<ternary>", "packed_knn.cu", "packed_knn.py:228,292"),
+        ("packed_rows<binary>", "packed.cu", "hamming.py:32"),
+        ("packed_rows<ternary>", "packed.cu", "hamming.py:62"),
+    ]
     record = {"kernels": [
         {
-            "name": f"knn_scan+knn_merge<{name}>",
+            "name": name,
             "route": "cuda",
-            "source": "innr_tpu_torch/csrc/knn.cu",
-            "replaces": "innr_tpu/kernels/knn.py:197",
+            "source": f"innr_tpu_torch/csrc/{source}",
+            "replaces": f"innr_tpu/kernels/{replaces}",
             "launches": launches[name],
             "max_abs_err": errs[name],
             "ms": times[name][0],
             "plain_ms": times[name][1],
         }
-        for name in ("float32", "bfloat16", "uint8")
+        for name, source, replaces in kernels
     ]}
-    for name, count in launches.items():
-        if count == 0:
-            raise AssertionError(f"the main path launched no {name} kernel pass")
     log(gpu_name_and_power())
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

@@ -1,19 +1,28 @@
 """innr_tpu_torch — the PyTorch / CUDA port of innr_tpu, for NVIDIA Hopper.
 
 The JAX package ``innr_tpu`` is the reference; this package mirrors its
-module names. Ported so far: the batch-kNN main path — :class:`VerticalBatch`
-and ``batch_knn`` / ``batch_knn_dot`` / ``batch_knn_cosine`` /
-``batch_knn_filtered``, the uint8 scalar-quantized kNN, npz persistence for
-those containers — over one hand-written CUDA kernel, the fused streaming
-score + top-k scan (``csrc/knn.cu``). Corpora on a CUDA device run the
-kernel; corpora on the CPU run its plain PyTorch version.
+module names. Ported so far:
+
+- the batch-kNN main path — :class:`VerticalBatch` and ``batch_knn`` /
+  ``batch_knn_dot`` / ``batch_knn_cosine`` / ``batch_knn_filtered`` — and
+  the uint8 scalar-quantized kNN, on the fused streaming score + top-k scan
+  (``csrc/knn.cu``);
+- the packed binary and ternary families and the integer primitives of
+  ``ops/quant.py``, on the packed kNN scan (``csrc/packed_knn.cu``) and the
+  per-row packed scores (``csrc/packed.cu``);
+- :class:`TwoStageIndex`, the coarse-then-rerank pipeline, on both scans;
+- npz persistence for those containers.
+
+Corpora on a CUDA device run the hand-written kernels; corpora on the CPU
+run their plain PyTorch versions.
 
 Contracts: dispatching functions raise :class:`ContractError` on shape
 mismatch; cosine returns 0.0 for effectively-zero norms (< 1e-9); orderings
 follow IEEE total order with ties to the lowest index.
 """
 
-from innr_tpu_torch import backend, batch, config, io
+from innr_tpu_torch import backend, batch, config, io, pipeline
+from innr_tpu_torch.pipeline import CoarseConfig, TwoStageIndex
 from innr_tpu_torch.batch import (
     BatchKnnResult,
     VerticalBatch,
@@ -31,6 +40,18 @@ from innr_tpu_torch.batch import (
     batch_norms,
     batch_norms_into,
 )
+from innr_tpu_torch.ops.binary import (
+    PackedBinary,
+    PackedBinaryBatch,
+    batch_binary_hamming,
+    binary_dot,
+    binary_hamming,
+    binary_jaccard,
+    binary_knn,
+    encode_binary,
+    encode_binary_batch,
+)
+from innr_tpu_torch.ops.quant import batch_dot_u8, batch_hamming, dot_u8, hamming_distance
 from innr_tpu_torch.ops.scalar import (
     QuantizationParams,
     QuantizedU8,
@@ -43,6 +64,19 @@ from innr_tpu_torch.ops.scalar import (
     mixed_dot_u8_f32,
     quantize_u8,
     query_context,
+)
+from innr_tpu_torch.ops.ternary import (
+    PackedTernary,
+    PackedTernaryBatch,
+    asymmetric_dot,
+    batch_asymmetric_dot,
+    batch_ternary_dot,
+    encode_ternary,
+    encode_ternary_batch,
+    sparsity,
+    ternary_dot,
+    ternary_hamming,
+    ternary_knn,
 )
 from innr_tpu_torch.utils.asserts import ContractError
 

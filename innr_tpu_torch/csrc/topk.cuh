@@ -1,0 +1,57 @@
+// Streaming top-k selection on int64 composites, shared by the kNN scans
+// (knn.cu, packed_knn.cu).
+//
+// A candidate is one int64 composite
+//     (uint32)key << 32 | (0xFFFFFFFF - row)
+// of an int32 key (larger is better) and its corpus row. One signed max
+// over composites gives "key descending, row ascending": ties go to the
+// lowest row, the first-occurrence rule of the JAX package's update_topk
+// (innr_tpu/kernels/knn.py:152-166), and an exclusion bound (resume after a
+// previous pass) is a single compare. LLONG_MIN is the empty slot: it
+// decodes to (INT_MIN, -1) and never beats a real row.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <climits>
+
+namespace {
+
+__device__ __forceinline__ long long composite(int key, long long row) {
+  unsigned long long hi = static_cast<unsigned long long>(static_cast<unsigned>(key)) << 32;
+  unsigned long long lo = 0xFFFFFFFFull - static_cast<unsigned long long>(row);
+  return static_cast<long long>(hi | lo);
+}
+
+// Insert c into buf[0..k), sorted descending, dropping buf[k-1]. The caller
+// guarantees c > buf[k-1]. All 32 lanes call with the same c.
+__device__ void warp_insert(long long* buf, int k, long long c, int lane) {
+  int pos = 0;
+  for (int i = lane; i < k; i += 32) pos += buf[i] > c;
+  for (int o = 16; o > 0; o >>= 1) pos += __shfl_xor_sync(0xFFFFFFFFu, pos, o);
+  // Shift buf[pos..k-2] up by one, highest chunk first, so that no entry is
+  // overwritten before it has been read.
+  for (int base = ((k - 1) / 32) * 32; base >= 0; base -= 32) {
+    int i = base + lane;
+    long long v = i < k ? buf[i] : 0;
+    __syncwarp();
+    if (i >= pos && i + 1 < k) buf[i + 1] = v;
+    __syncwarp();
+  }
+  if (lane == 0) buf[pos] = c;
+  __syncwarp();
+}
+
+// Offer one candidate per lane to a warp-owned top-k buffer: one compare
+// rejects a candidate that cannot beat the k-th best.
+__device__ void warp_offer(long long* buf, int k, long long c, int lane) {
+  unsigned todo = __ballot_sync(0xFFFFFFFFu, c > buf[k - 1]);
+  while (todo) {
+    int src = __ffs(todo) - 1;
+    todo &= todo - 1;
+    long long cand = __shfl_sync(0xFFFFFFFFu, c, src);
+    if (cand > buf[k - 1]) warp_insert(buf, k, cand, lane);
+  }
+}
+
+}  // namespace

@@ -2,9 +2,12 @@
 
 The same file format as :mod:`innr_tpu.io`, so an index saved by either
 package loads in the other: ``kind`` plus ``rows`` (float32),
-``rows_bf16`` (bfloat16 bits as uint16) or ``codes`` (uint8). Only the
-``VerticalBatch`` and ``QuantizedU8Batch`` kinds are ported; the other
-kinds ``innr_tpu.io`` writes raise :class:`ContractError`.
+``rows_bf16`` (bfloat16 bits as uint16) or ``codes`` (uint8) for the dense
+kinds, and ``words`` or ``pos`` / ``neg`` (uint32 words, the JAX package's
+type; this package holds them as bit-identical int32) with ``dimension``
+for the packed kinds. The ``SketchCorpus``, ``SparseCorpus`` and
+``SegmentedCorpus`` kinds are not ported yet and raise
+:class:`ContractError`.
 """
 
 from __future__ import annotations
@@ -13,15 +16,15 @@ import numpy as np
 import torch
 
 from innr_tpu_torch.batch import VerticalBatch
+from innr_tpu_torch.ops.binary import PackedBinary, PackedBinaryBatch
 from innr_tpu_torch.ops.scalar import QuantizedU8Batch
+from innr_tpu_torch.ops.ternary import PackedTernary, PackedTernaryBatch
 from innr_tpu_torch.utils.asserts import ContractError
+from innr_tpu_torch.utils.bits import words_to_numpy
 
 __all__ = ["save_npz", "load_npz"]
 
-_NOT_PORTED = {
-    "PackedBinary", "PackedBinaryBatch", "PackedTernary", "PackedTernaryBatch",
-    "SketchCorpus", "SparseCorpus", "SegmentedCorpus",
-}
+_NOT_PORTED = {"SketchCorpus", "SparseCorpus", "SegmentedCorpus"}
 
 
 def save_npz(path: str, obj) -> None:
@@ -32,6 +35,12 @@ def save_npz(path: str, obj) -> None:
             np.savez(path, kind="VerticalBatch", rows=rows.numpy())
         else:
             np.savez(path, kind="VerticalBatch", rows_bf16=rows.view(torch.uint16).numpy())
+    elif isinstance(obj, (PackedBinary, PackedBinaryBatch)):
+        np.savez(path, kind=type(obj).__name__, words=words_to_numpy(obj.words),
+                 dimension=obj.dimension)
+    elif isinstance(obj, (PackedTernary, PackedTernaryBatch)):
+        np.savez(path, kind=type(obj).__name__, pos=words_to_numpy(obj.pos),
+                 neg=words_to_numpy(obj.neg), dimension=obj.dimension)
     elif isinstance(obj, QuantizedU8Batch):
         np.savez(path, kind="QuantizedU8Batch", codes=obj.codes.cpu().numpy())
     else:
@@ -40,7 +49,8 @@ def save_npz(path: str, obj) -> None:
 
 def load_npz(path: str, device=None):
     """Load a container written by :func:`save_npz` or ``innr_tpu.io.save_npz``
-    onto ``device`` (default CPU). bf16 rows keep their exact bits."""
+    onto ``device`` (default CPU). bf16 rows and packed words keep their
+    exact bits."""
     with np.load(path) as z:
         kind = str(z["kind"])
         if kind == "VerticalBatch":
@@ -50,6 +60,12 @@ def load_npz(path: str, device=None):
             return VerticalBatch.from_numpy(z["rows"], device=device)
         if kind == "QuantizedU8Batch":
             return QuantizedU8Batch.from_numpy(z["codes"], device=device)
+        if kind in ("PackedBinary", "PackedBinaryBatch"):
+            cls = PackedBinary if kind == "PackedBinary" else PackedBinaryBatch
+            return cls.from_numpy(z["words"], int(z["dimension"]), device=device)
+        if kind in ("PackedTernary", "PackedTernaryBatch"):
+            cls = PackedTernary if kind == "PackedTernary" else PackedTernaryBatch
+            return cls.from_numpy(z["pos"], z["neg"], int(z["dimension"]), device=device)
         if kind in _NOT_PORTED:
             raise ContractError(f"load_npz: container kind {kind!r} not yet ported")
         raise ContractError(f"load_npz: unknown container kind {kind!r}")

@@ -1,15 +1,18 @@
 """Build the CUDA sources of this package with nvcc and load them by ctypes.
 
 Every ``innr_tpu_torch/csrc/*.cu`` is compiled into one shared library with
-a plain C interface (no PyTorch headers, so a build takes seconds):
+a plain C interface (no PyTorch headers, so a build takes seconds). The
+sources compile in parallel, one nvcc each, and are then linked:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c -o <obj> csrc/<source>.cu   (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o <lib> <objs>
 
 The library goes to ``build/innr_tpu_torch/`` beside the package, named by
-a hash of the sources and flags, so a first use builds it and a changed
-source rebuilds it. ``-Xptxas -v``'s report (registers, shared memory,
-spills per kernel) is kept beside the library as ``<lib>.log``.
+a hash of the sources (``*.cu`` and ``*.cuh``) and flags, so a first use
+builds it and a changed source rebuilds it. ``-Xptxas -v``'s report
+(registers, shared memory, spills per kernel) is kept beside the library
+as ``<lib>.log``.
 """
 
 from __future__ import annotations
@@ -24,10 +27,8 @@ from pathlib import Path
 _PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "innr_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIB: ctypes.CDLL | None = None
 
@@ -58,18 +59,33 @@ def build() -> Path:
     if lib.is_file():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"innr_tpu_torch: nvcc failed ({proc.returncode}):\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    Path(f"{lib}.log").write_text(proc.stdout + proc.stderr)
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+    try:
+        for cmd, proc, out in zip(cmds, procs, outs):
+            _check(cmd, proc.returncode, out)
+        proc = subprocess.run(link, capture_output=True, text=True)
+        _check(link, proc.returncode, proc.stdout + proc.stderr)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    Path(f"{lib}.log").write_text("".join(outs))
     os.replace(tmp, lib)
     return lib
+
+
+def _check(cmd: list[str], returncode: int, output: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(
+            f"innr_tpu_torch: nvcc failed ({returncode}):\n{' '.join(cmd)}\n{output}"
+        )
 
 
 def build_log() -> str:
@@ -90,5 +106,11 @@ def load() -> ctypes.CDLL:
         lib.innr_knn_scan.restype = i32
         lib.innr_knn_merge.argtypes = [ptr, ptr, i32, i32, i32, ptr]
         lib.innr_knn_merge.restype = i32
+        lib.innr_packed_scan.argtypes = [
+            i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, i32, ptr,
+        ]
+        lib.innr_packed_scan.restype = i32
+        lib.innr_packed_rows.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i64, i32, ptr]
+        lib.innr_packed_rows.restype = i32
         _LIB = lib
     return _LIB

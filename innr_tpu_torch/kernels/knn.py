@@ -163,6 +163,16 @@ def _ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+def _slab_rows(n: int, q_tiles: int, k: int, device, row_tile: int) -> int:
+    """Corpus rows per CTA of a scan grid with ``q_tiles`` query tiles:
+    whole waves of ``_RESIDENT_CTAS`` per SM, ``_MAX_WAVES`` for small k,
+    fewer as k grows so that a slab keeps ``_SLAB_ROWS_PER_K * k`` rows."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    wave = max(1, sms * _RESIDENT_CTAS // q_tiles)
+    waves = min(_MAX_WAVES, max(1, n // (_SLAB_ROWS_PER_K * k * wave)))
+    return round_up(-(-n // (wave * waves)), row_tile)
+
+
 def _scan_pass(qs, rows, vals, mask, k: int, mode: str, bound) -> torch.Tensor:
     """One kernel pass (knn_scan + knn_merge): (Q, k) int64 composites."""
     global LAUNCHES
@@ -172,11 +182,7 @@ def _scan_pass(qs, rows, vals, mask, k: int, mode: str, bound) -> torch.Tensor:
     n_q, d = qs.shape
     n = rows.shape[0]
     dev = rows.device
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    q_tiles = -(-n_q // _QUERY_TILE)
-    wave = max(1, sms * _RESIDENT_CTAS // q_tiles)
-    waves = min(_MAX_WAVES, max(1, n // (_SLAB_ROWS_PER_K * k * wave)))
-    slab_rows = round_up(-(-n // (wave * waves)), _ROW_TILE)
+    slab_rows = _slab_rows(n, -(-n_q // _QUERY_TILE), k, dev, _ROW_TILE)
     n_slabs = -(-n // slab_rows)
     with torch.cuda.device(dev):
         partial = torch.empty((n_slabs, n_q, k), dtype=torch.int64, device=dev)

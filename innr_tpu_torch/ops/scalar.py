@@ -20,6 +20,7 @@ import torch
 
 from innr_tpu_torch.kernels import knn as _kernels
 from innr_tpu_torch.utils.asserts import ContractError
+from innr_tpu_torch.utils.tensors import as_tensor
 
 __all__ = [
     "QuantizationParams",
@@ -52,11 +53,13 @@ class QuantizationParams:
 
     @classmethod
     def fit(cls, values) -> "QuantizationParams":
-        """Min/max over a flat value slice (reference ``src/scalar.rs:68``)."""
-        v = _host_f32(values).reshape(-1)
-        if v.size == 0:
+        """Min/max over a flat value slice (reference ``src/scalar.rs:68``).
+        A tensor is reduced on its own device; NaN propagates, as numpy's
+        min/max propagate it."""
+        v = as_tensor(values, torch.float32).detach().reshape(-1)
+        if v.numel() == 0:
             return cls(alpha=1.0, offset=0.0)
-        return cls.from_range(float(np.min(v)), float(np.max(v)))
+        return cls.from_range(float(v.min()), float(v.max()))
 
     @classmethod
     def fit_quantile(cls, values, quantile: float) -> "QuantizationParams":
@@ -98,19 +101,13 @@ def _host_f32(values) -> np.ndarray:
     return np.asarray(values, dtype=np.float32)
 
 
-def _as_tensor(values, dtype, device) -> torch.Tensor:
-    if isinstance(values, torch.Tensor):
-        return values.to(device=device if device is not None else values.device, dtype=dtype)
-    return torch.as_tensor(np.asarray(values), device=device or "cpu").to(dtype)
-
-
 class QuantizedU8:
     """A single scalar-quantized vector (reference ``src/scalar.rs:171``)."""
 
     __slots__ = ("codes",)
 
     def __init__(self, data, dimension: int | None = None, device=None):
-        codes = _as_tensor(data, torch.uint8, device)
+        codes = as_tensor(data, torch.uint8, device)
         if codes.dim() != 1:
             raise ContractError("QuantizedU8: data must be 1-D")
         if dimension is not None and codes.shape[0] != dimension:
@@ -137,7 +134,7 @@ class QuantizedU8Batch:
     __slots__ = ("codes",)
 
     def __init__(self, codes, device=None):
-        codes = _as_tensor(codes, torch.uint8, device)
+        codes = as_tensor(codes, torch.uint8, device)
         if codes.dim() != 2:
             raise ContractError("QuantizedU8Batch: codes must be 2-D (N, D)")
         self.codes = codes.contiguous()
@@ -149,7 +146,7 @@ class QuantizedU8Batch:
 
     @classmethod
     def quantize(cls, rows, params: QuantizationParams, device=None) -> "QuantizedU8Batch":
-        return cls(_quantize(_as_tensor(rows, torch.float32, device), params.alpha, params.offset))
+        return cls(_quantize(as_tensor(rows, torch.float32, device), params.alpha, params.offset))
 
     @property
     def num_vectors(self) -> int:
@@ -174,7 +171,7 @@ def _quantize(values: torch.Tensor, alpha: float, offset: float) -> torch.Tensor
 
 def quantize_u8(values, params: QuantizationParams, device=None) -> QuantizedU8:
     """Quantize one f32 vector (reference ``src/scalar.rs:212``)."""
-    values = _as_tensor(values, torch.float32, device)
+    values = as_tensor(values, torch.float32, device)
     return QuantizedU8(_quantize(values, params.alpha, params.offset))
 
 
@@ -187,14 +184,14 @@ class QueryContext:
 
 def query_context(query) -> QueryContext:
     """Precompute the query sum once per query (reference ``src/scalar.rs:236``)."""
-    return QueryContext(query_sum=float(_as_tensor(query, torch.float32, None).sum()))
+    return QueryContext(query_sum=float(as_tensor(query, torch.float32, None).sum()))
 
 
 def mixed_dot_u8_f32(a, b) -> torch.Tensor:
     """Raw mixed-precision inner loop ``sum(a_f32[i] * b_u8[i])``
     (reference ``src/scalar.rs:314``)."""
-    a = _as_tensor(a, torch.float32, None)
-    b = _as_tensor(b, torch.uint8, a.device)
+    a = as_tensor(a, torch.float32, None)
+    b = as_tensor(b, torch.uint8, a.device)
     if a.shape[-1] != b.shape[-1]:
         raise ContractError(
             f"mixed_dot_u8_f32: slice length mismatch ({a.shape[-1]} vs {b.shape[-1]})"
@@ -208,7 +205,7 @@ def _affine(mixed, q_sum, params: QuantizationParams):
 
 def asymmetric_dot_u8(query, quantized: QuantizedU8, params: QuantizationParams) -> torch.Tensor:
     """f32 query x quantized doc without dequantizing (reference ``src/scalar.rs:261``)."""
-    q = _as_tensor(query, torch.float32, quantized.codes.device)
+    q = as_tensor(query, torch.float32, quantized.codes.device)
     if q.shape[-1] != quantized.dimension:
         raise ContractError(
             f"asymmetric_dot_u8: dimension mismatch ({q.shape[-1]} vs {quantized.dimension})"
@@ -221,7 +218,7 @@ def asymmetric_dot_u8_precomputed(
 ) -> torch.Tensor:
     """Asymmetric dot with the query sum amortized across the corpus
     (reference ``src/scalar.rs:284``)."""
-    q = _as_tensor(query, torch.float32, quantized.codes.device)
+    q = as_tensor(query, torch.float32, quantized.codes.device)
     if q.shape[-1] != quantized.dimension:
         raise ContractError(
             f"asymmetric_dot_u8_precomputed: dimension mismatch "
@@ -248,7 +245,7 @@ def batch_knn_u8(query, corpus, params: QuantizationParams, k: int) -> list[tupl
         codes = torch.stack([c.codes for c in corpus])
     if codes.shape[0] == 0 or k == 0:
         return []
-    q = _as_tensor(query, torch.float32, codes.device)
+    q = as_tensor(query, torch.float32, codes.device)
     if q.dim() != 1 or q.shape[0] != codes.shape[1]:
         raise ContractError(
             f"batch_knn_u8: dimension mismatch ({q.shape[-1]} vs {codes.shape[1]})"
@@ -263,7 +260,7 @@ def batch_knn_u8_multi(queries, corpus: QuantizedU8Batch, params: QuantizationPa
     """(Q, D) f32 queries against a u8 corpus in one corpus read per pass.
     Returns ``(scores (Q, k) descending, indices (Q, k))`` tensors; scores
     carry the full affine correction."""
-    qs = _as_tensor(queries, torch.float32, corpus.codes.device)
+    qs = as_tensor(queries, torch.float32, corpus.codes.device)
     if qs.dim() != 2 or qs.shape[1] != corpus.dimension:
         raise ContractError(
             f"batch_knn_u8_multi: queries shape {tuple(qs.shape)} != (Q, {corpus.dimension})"

@@ -18,7 +18,10 @@ PKG = ROOT / "innr_tpu_torch"
 def test_imports_with_jax_blocked():
     code = (
         "import sys; sys.modules['jax'] = None; "
-        "import innr_tpu_torch, innr_tpu_torch.kernels.knn, innr_tpu_torch.io; "
+        "import innr_tpu_torch, innr_tpu_torch.kernels.knn, innr_tpu_torch.io, "
+        "innr_tpu_torch.kernels.packed_knn, innr_tpu_torch.kernels.hamming, "
+        "innr_tpu_torch.ops.quant, innr_tpu_torch.ops.binary, innr_tpu_torch.ops.ternary, "
+        "innr_tpu_torch.pipeline; "
         "assert 'innr_tpu' not in sys.modules"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -41,7 +44,9 @@ def test_build_without_nvcc_raises_naming_nvcc(monkeypatch):
 
 
 def test_sources_ship_with_the_package():
-    assert sorted(p.name for p in (PKG / "csrc").glob("*.cu")) == ["knn.cu"]
+    assert sorted(p.name for p in (PKG / "csrc").glob("*.cu")) == [
+        "knn.cu", "packed.cu", "packed_knn.cu"]
+    assert sorted(p.name for p in (PKG / "csrc").glob("*.cuh")) == ["packed.cuh", "topk.cuh"]
     text = (ROOT / "pyproject.toml").read_text()
     assert 'innr_tpu_torch = ["csrc/*.cu", "csrc/*.cuh"]' in text
     assert 'include = ["innr_tpu*"]' in text  # picks up innr_tpu_torch too

@@ -38,6 +38,20 @@ def test_params_match(values, fit):
     assert (got.alpha, got.offset) == (want.alpha, want.offset)
 
 
+@pytest.mark.parametrize("form", ["tensor", "list", "float64", "nan"])
+def test_fit_input_forms(values, form):
+    """fit reduces every input form (on a tensor's own device) to the JAX
+    package's float32 min/max; NaN propagates as numpy's does."""
+    if form == "nan":
+        values = values.copy()
+        values[5, 7] = np.nan
+    data = {"tensor": torch.from_numpy(values), "list": values.tolist(),
+            "float64": values.astype(np.float64), "nan": values}[form]
+    got = ts.QuantizationParams.fit(data)
+    want = js.QuantizationParams.fit(values)
+    np.testing.assert_array_equal([got.alpha, got.offset], [want.alpha, want.offset])
+
+
 def test_params_edges():
     assert ts.QuantizationParams.fit([]) == ts.QuantizationParams(1.0, 0.0)
     assert ts.QuantizationParams.from_range(3.0, 3.0).alpha == 1.0
