@@ -13,7 +13,7 @@ and imports nothing of JAX. Phases:
               process per source; print the build time, the card's name and
               power limit, and ptxas' register / spill report.
 2. exact    — every kernel against its plain PyTorch version on the same
-              device tensors, bit for bit:
+              device tensors, bit for bit (NaN payloads canonicalised):
               - the kNN kernel on integer-valued data (every dot and L2 score
                 is then exact, so keys and indices must agree, ties
                 included) for every mode and corpus dtype, Q in {1, 5, 32},
@@ -24,7 +24,17 @@ and imports nothing of JAX. Phases:
                 ternary, on words drawn over all 32 bits (the sign bit of
                 the int32 view included), disjoint ternary planes and planted
                 duplicate rows (ties go to the lowest row), Q in
-                {1, 5, 16, 33}, D in {1, 77, 768} bits, k in {1, 10, cap + 3}.
+                {1, 5, 16, 33}, D in {1, 77, 768} bits, k in {1, 10, cap + 3};
+              - the tile scan (knn_scan over a survivor tile list) in all six
+                modes, f32 and bf16, D in {127, 128}, Q in {1, 5, 32}, k in
+                {1, 10, cap + 3}, tile heights {128, 200, 4736} (N ragged),
+                plans with no, one, every and a scattered set of tiles, on
+                the kNN phase's corpus (NaN, +-inf, -0.0 rows) with planted
+                duplicate rows; also against K1's full scan on full plans;
+              - the threshold scan, f32 and bf16, D in {1, 127, 128, 768};
+              - the nearest-centroid pass, f32 / bf16 / u8 rows, D in
+                {7, 128, 300}, KC in {1, 3, 256, 2049, 16896}, with exact
+                ties and an all-NaN row.
 3. main     — the public entry points at full size, launch counters reset
               just before each path and read just after it:
               a. batch kNN: batch_knn_dot / batch_knn / batch_knn_cosine /
@@ -50,14 +60,35 @@ and imports nothing of JAX. Phases:
                  final scores agree with a plain rerank of the plain
                  shortlist. Then recall@10 of the four kinds on a clustered
                  100K x 256 corpus (64 queries, exact top-10 by
-                 batch_knn_dot).
+                 batch_knn_dot);
+              d. pruning (N_PRUNE = 10M x 128): batch_knn_dot / batch_knn /
+                 batch_knn_cosine with prune=True on the JAX bench's
+                 clustered, cluster-ordered corpus (256 centres, 32
+                 near-centre queries, k=10), f32 and bf16, and batch_knn_dot
+                 on the Gaussian corpus of 3a (nothing prunes): bit for bit
+                 the full scan's result, with no K1 launch;
+                 batch_knn_adaptive equal to batch_knn;
+                 batch_l2_squared_pruning (threshold 1.0) against a plain full
+                 pass; VerticalBatch.cluster_reorder of the unordered corpus
+                 (256 clusters), then prune=True mapped back through perm;
+                 IVFIndex (16896 clusters, dot, n_iters=3) against
+                 batch_knn_dot.
 4. timing   — kernel, plain version and a same-bytes ``torch.sum`` read
               (CUDA events, median of 7 after warm-up; roofline fraction =
               read_ms / kernel_ms) for f32 10M x 128, bf16 20M x 128 and u8
               1M x 768 (Q=32, k=10), and for each packed kernel at the sizes
               of 3b (with popcounts per ms); the host time of one
               TwoStageIndex.search_batch of 32 queries, host copy included,
-              per coarse kind, and its packed passes.
+              per coarse kind, and its packed passes; the pruned scan (tile
+              kernel, prune=True end to end, plain) against K1's full scan
+              and reads of all / the surviving rows, on the clustered corpus
+              and on the Gaussian one (the nothing-prunes overhead); the
+              threshold scan against its plain version and a read of its
+              surviving rows; the nearest-centroid pass at KC = 256 and
+              16896 against its plain version (3 runs at 16896); the host
+              time of cluster_reorder and of an IVFIndex build in
+              scan-equivalents of K1's full f32 scan, and of one
+              IVFIndex.search_batch of 32 queries.
 
 Every failed check raises, so the exit code is non-zero. The last two lines
 are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -76,6 +107,9 @@ ROOT = Path(__file__).resolve().parent
 SEED = 1234
 EPS32 = 1.1920928955078125e-07
 K_DEMO, N_DEMO, Q_DEMO = 2, 10_000, 100
+# The pruning cells (3d): the clustered corpus's rows, and the IVFIndex
+# clusters (8 x the 2112 tiles of the default tiling at 10M x 128).
+N_PRUNE, IVF_CLUSTERS = 10_000_000, 16_896
 
 
 def log(msg: str) -> None:
@@ -83,28 +117,39 @@ def log(msg: str) -> None:
 
 
 def _counted():
+    """(kernel name, module, its total counter's name, counts by instance)."""
+    from innr_tpu_torch.kernels import assign as ta
     from innr_tpu_torch.kernels import hamming as th
     from innr_tpu_torch.kernels import knn as tk
     from innr_tpu_torch.kernels import packed_knn as tp
+    from innr_tpu_torch.kernels import pruned_knn as tpk
 
     return (
-        ("knn_scan+knn_merge", tk, tk.LAUNCHES_BY_DTYPE),
-        ("packed_scan", tp, tp.LAUNCHES_BY_KIND),
-        ("packed_rows", th, th.LAUNCHES_BY_KIND),
+        ("knn_scan+knn_merge", tk, "LAUNCHES", tk.LAUNCHES_BY_DTYPE),
+        ("packed_scan", tp, "LAUNCHES", tp.LAUNCHES_BY_KIND),
+        ("packed_rows", th, "LAUNCHES", th.LAUNCHES_BY_KIND),
+        ("knn_scan_tiles+knn_merge", tpk, "LAUNCHES", tpk.LAUNCHES_BY_DTYPE),
+        ("threshold_scan", tpk, "THRESHOLD_LAUNCHES", tpk.THRESHOLD_LAUNCHES_BY_DTYPE),
+        ("nearest_centroid", ta, "LAUNCHES", ta.LAUNCHES_BY_DTYPE),
     )
 
 
 def reset_counts() -> None:
     """Every kernel's launch count to 0."""
-    for _, mod, by in _counted():
-        mod.LAUNCHES = 0
+    for _, mod, total, by in _counted():
+        setattr(mod, total, 0)
         for key in by:
             by[key] = 0
 
 
 def read_counts() -> dict:
     """Launches per kernel instance, e.g. ``packed_scan<binary>``."""
-    return {f"{name}<{key}>": n for name, _, by in _counted() for key, n in by.items()}
+    return {f"{name}<{key}>": n for name, _, _, by in _counted() for key, n in by.items()}
+
+
+def launches_of(counts: dict, name: str) -> int:
+    """All launches of one kernel, over its instances."""
+    return sum(n for key, n in counts.items() if key.startswith(f"{name}<"))
 
 
 def gpu_name_and_power() -> str:
@@ -295,6 +340,143 @@ def phase_exact_packed(dev) -> int:
     torch.cuda.synchronize()
     log(f"[exact] {checks} packed kernel-vs-plain checks agree bit for bit")
     return checks
+
+
+def bits_equal(a, b) -> bool:
+    """Float tensors equal bit for bit, every NaN taken as the canonical one
+    (GPU arithmetic and the plain version may carry other payloads)."""
+    import torch
+
+    def canon(x):
+        return torch.where(torch.isnan(x), float("nan"), x).view(torch.int32)
+
+    return torch.equal(canon(a), canon(b))
+
+
+def _plans(gen, n_tiles: int, dev):
+    """Survivor plans of every kind: no tile, one, all, a scattered set."""
+    import torch
+
+    from innr_tpu_torch.prune import _survivor_order
+
+    one = torch.zeros(n_tiles, dtype=torch.bool, device=dev)
+    one[n_tiles // 2] = True
+    alive = {
+        "none": torch.zeros(n_tiles, dtype=torch.bool, device=dev), "one": one,
+        "all": torch.ones(n_tiles, dtype=torch.bool, device=dev),
+        "scattered": torch.rand(n_tiles, generator=gen, device=dev) < 0.4,
+    }
+    return {name: _survivor_order(a, n_tiles) for name, a in alive.items()}
+
+
+def phase_exact_pruned(dev) -> int:
+    """The tile scan (K14), the threshold scan (K15) and the nearest-centroid
+    pass (K13) against their plain versions, bit for bit on integer-valued
+    data; the tile scan also against K1's full scan of the same rows."""
+    import torch
+
+    from innr_tpu_torch.kernels import assign as ta
+    from innr_tpu_torch.kernels import knn as tk
+    from innr_tpu_torch.kernels import pruned_knn as tpk
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    cap = tk.single_pass_k(1)
+    n = 3 * 1024 + 77
+    checks = 0
+
+    def corpus(n_rows, d, dtype):
+        """Integer rows with planted duplicates of row 5 (ties go to the
+        lowest row), and the aux of every mode."""
+        rows = _int_corpus(gen, n_rows, d, dtype, dev)
+        rows[[100, 2000, n_rows - 1]] = rows[5].clone()
+        norms2, inv = tk._norms2(rows), tk.inv_norms(rows)
+        mask = (torch.rand(n_rows, generator=gen, device=dev) < 0.5).float()
+        return rows, {
+            "dot": None, "l2": norms2, "cosine": inv, "dotm": mask,
+            "l2m": torch.stack([norms2, mask]), "cosinem": torch.stack([inv, mask]),
+        }
+
+    def check(rows, aux_by_mode, tile_n, plans, queries, ks):
+        nonlocal checks
+        d = rows.shape[1]
+        for plan, (order, n_surv) in _plans(gen, -(-rows.shape[0] // tile_n), dev).items():
+            if plan not in plans:
+                continue
+            for n_q in queries:
+                # Integer-valued queries in every mode (cosine too): each
+                # score is then one rounding of an exact value.
+                qs = torch.randint(-4, 5, (n_q, d), generator=gen, device=dev).float()
+                qs[0] = rows[5].float()
+                for mode, aux in aux_by_mode.items():
+                    for k in ks:
+                        name = (f"exact knn_scan_tiles {rows.dtype} n={rows.shape[0]} d={d} "
+                                f"tile={tile_n} plan={plan} q={n_q} {mode} k={k}")
+                        got = tpk.pruned_keys(qs, rows, aux, order, n_surv, tile_n, k, mode)
+                        expect_equal(name, got, tpk.pruned_knn_plain(
+                            qs, rows, aux, order, n_surv, tile_n, k, mode))
+                        if plan == "all":
+                            expect_equal(name + " vs K1", got, tk.fused_knn_keys_batch(
+                                qs, rows, aux, k, mode))
+                        checks += 1
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (127, 128):
+            rows, aux_by_mode = corpus(n, d, dtype)
+            for tile_n in (128, 200, 4736):
+                check(rows, aux_by_mode, tile_n, ("none", "one", "all", "scattered"),
+                      (1, 5, 32), (1, 10, cap + 3))
+        # More chunks than one wave of CTAs: each CTA runs several items
+        # through one load pipeline.
+        rows, aux_by_mode = corpus(300_000 + 77, 128, dtype)
+        for tile_n in (200, 4736):
+            check(rows, aux_by_mode, tile_n, ("all", "scattered"), (32,), (10,))
+    torch.cuda.synchronize()
+    log(f"[exact] {checks} tile-scan checks agree bit for bit (with K1 on full plans)")
+
+    k15 = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (1, 127, 128, 768):
+            rows = _int_corpus(gen, n, d, dtype, dev)
+            norms2 = tk._norms2(rows)
+            q = torch.randint(-4, 5, (d,), generator=gen, device=dev).float()
+            for tile_n in (128, 200, 4736):
+                for plan, (order, n_surv) in _plans(gen, -(-n // tile_n), dev).items():
+                    got = tpk.threshold_dists(q, rows, norms2, order, n_surv, tile_n)
+                    want = tpk.threshold_plain(q, rows, norms2, order, n_surv, tile_n)
+                    if not bits_equal(got, want):
+                        raise AssertionError(
+                            f"exact threshold_scan {dtype} d={d} tile={tile_n} plan={plan}: "
+                            "kernel != plain")
+                    k15 += 1
+    torch.cuda.synchronize()
+    log(f"[exact] {k15} threshold-scan checks agree bit for bit")
+
+    k13 = 0
+    for dtype in (torch.float32, torch.bfloat16, torch.uint8):
+        for d in (7, 128, 300):
+            if dtype == torch.uint8:
+                rows = torch.randint(0, 256, (n, d), generator=gen, device=dev,
+                                     dtype=torch.uint8)
+            else:
+                rows = torch.randint(-4, 5, (n, d), generator=gen, device=dev).float()
+                rows[11] = float("nan")  # every score NaN: centroid 0
+                rows = rows.to(dtype)
+            for kc in (1, 3, 256, 2049, 16_896):
+                # Small integer centroids keep every partial sum below 2^24:
+                # exact in any summation order.
+                cent = torch.randint(-4, 5, (kc, d), generator=gen, device=dev).float()
+                if kc > 3:
+                    cent[kc // 2] = cent[1]  # exact ties: the lower centroid wins
+                got = ta.nearest_centroid(rows, cent)
+                if not torch.equal(got, ta.nearest_centroid_plain(rows, cent)):
+                    raise AssertionError(f"exact nearest_centroid {dtype} d={d} kc={kc}: "
+                                         "kernel != plain")
+                if dtype != torch.uint8 and int(got[11]) != 0:
+                    raise AssertionError("nearest_centroid: a NaN row must get centroid 0")
+                k13 += 1
+    torch.cuda.synchronize()
+    log(f"[exact] {k13} nearest-centroid checks agree exactly")
+    return checks + k15 + k13
 
 
 # -- phase 3 ---------------------------------------------------------------
@@ -499,6 +681,337 @@ def phase_timing(corpora: dict) -> dict:
             f"plain {plain!r} ms, same-bytes read {read!r} ms, "
             f"roofline fraction (read/kernel) {read / kernel!r}")
     return out
+
+
+def _plan(vb, qs, k: int, mode: str):
+    """The survivor plan ``prune=True`` makes for ``qs`` (unit queries for
+    cosine) on ``vb``: ``(order, n_surv, summary)``."""
+    from innr_tpu_torch.kernels import pruned_knn as tpk
+
+    s = vb.tile_summary(normalized=mode == "cosine")
+    return (*tpk.plan(qs, vb.rows, s, k, mode), s)
+
+
+def _hold_to_plain(name: str, res, qs, vb, k: int, metric: str) -> float:
+    """A ``batch_knn_dot`` / ``batch_knn`` / ``batch_knn_cosine`` result on
+    ``vb`` against ``knn_plain`` over all its rows, under phase 3a's
+    tolerances. Returns the max abs score difference."""
+    import torch
+
+    from innr_tpu_torch.kernels import knn as tk
+
+    rows, dev = vb.rows, qs.device
+    got = (torch.as_tensor(res.scores, device=dev), torch.as_tensor(res.indices, device=dev))
+    if metric == "cosine":
+        pv, pi = _plain_vals(tk._unit_queries(qs), rows, vb.inv_norms(), k + 1, "cosine")
+        tol = torch.full((qs.shape[0], 1), 1e-5, dtype=torch.float64, device=dev)
+        return check_close(name, *got, pv, pi, tol)
+    q = qs.to(torch.bfloat16).float() if rows.dtype == torch.bfloat16 else qs
+    tol = _tol_dot(q, rows)
+    if metric == "dot":
+        return check_close(name, *got, *_plain_vals(qs, rows, None, k + 1, "dot"), tol)
+    norms2 = vb.norms2()
+    pv, pi = _plain_vals(qs, rows, norms2, k + 1, "l2")
+    qq = (qs * qs).sum(dim=1, keepdim=True).double()
+    tol = 32 * EPS32 * (norms2.max().double() + qq) + 2 * tol
+    return check_close(name, *got, (pv.double() + qq).clamp_min(0.0), pi, tol)
+
+
+def _same_result(name: str, got, want) -> None:
+    """Two BatchKnnResults equal: indices, and scores bit for bit."""
+    import numpy as np
+
+    if not (np.array_equal(got.indices, want.indices)
+            and np.array_equal(got.scores.view(np.int32), want.scores.view(np.int32))):
+        raise AssertionError(f"{name}: result differs from the full scan's")
+
+
+def phase_gaussian_prune(dev, corpora: dict, full_ms: float) -> tuple[dict, tuple]:
+    """prune=True on the Gaussian 10M x 128 corpus of phase 3a, where
+    nothing prunes: the result equals the full scan's, and the overhead of
+    the tile scan reading its plan (about every tile) over K1's full scan
+    (``full_ms``, phase 4). Returns the path's launches and
+    (pruned ms end to end, tile kernel ms, tiles read, tiles)."""
+    import innr_tpu_torch as itt
+    from innr_tpu_torch.kernels import pruned_knn as tpk
+
+    rows, qs = corpora["f32"], corpora["qs128"]
+    vb = itt.VerticalBatch(rows)
+    full = itt.batch_knn_dot(qs, vb, 10)
+    vb.tile_summary()
+    reset_counts()
+    pruned = itt.batch_knn_dot(qs, vb, 10, prune=True)
+    launches = read_counts()
+    _check_path("prune=True (Gaussian)", launches, ["knn_scan_tiles+knn_merge<float32>"])
+    if launches_of(launches, "knn_scan+knn_merge"):
+        raise AssertionError("prune=True launched K1's full scan")
+    _same_result("batch_knn_dot prune=True, Gaussian", pruned, full)
+    order, n_surv, s = _plan(vb, qs, 10, "dot")
+    e2e = _median_ms(lambda: tpk.fused_knn_dot_pruned_batch(qs, rows, s, 10))
+    kernel = _median_ms(lambda: tpk.pruned_keys(qs, rows, None, order, n_surv, s.tile_n, 10,
+                                                "dot"))
+    read_tiles = int(n_surv)
+    log(f"[timing] nothing prunes (Gaussian {rows.shape[0]} x 128, Q={qs.shape[0]}, k=10, "
+        f"tile {s.tile_n}): "
+        f"{read_tiles} of {s.n_tiles} tiles read; prune=True end to end {e2e!r} ms, tile "
+        f"kernel {kernel!r} ms, K1 full scan {full_ms!r} ms: overhead "
+        f"{e2e / full_ms - 1.0!r} end to end, {kernel / full_ms - 1.0!r} kernel")
+    return launches, (e2e, kernel, read_tiles, s.n_tiles)
+
+
+def _clustered(gen, n: int, n_centers: int, ordered: bool, dev, sigma: float = 0.05):
+    """The JAX bench's clustered corpus (``bench.py:452-496``): centres
+    3 N(0, 1), rows centre + sigma N(0, 1), sorted by cluster or not, made on
+    the device in chunks. Returns ``(rows, centres)``."""
+    import torch
+
+    centers = 3.0 * torch.randn((n_centers, 128), generator=gen, device=dev)
+    assign = torch.randint(0, n_centers, (n,), generator=gen, device=dev)
+    if ordered:
+        assign = torch.sort(assign).values
+    rows = torch.empty((n, 128), device=dev)
+    for s in range(0, n, 1 << 20):
+        e = min(n, s + (1 << 20))
+        rows[s:e] = centers[assign[s:e]] + sigma * torch.randn((e - s, 128), generator=gen,
+                                                               device=dev)
+    return rows, centers
+
+
+def _scan_equivalents(ms: float, full_ms: float) -> str:
+    return f"{ms!r} ms = {ms / full_ms!r} scan-equivalents"
+
+
+def phase_prune(dev, full_ms: float, errs: dict) -> tuple[dict, dict]:
+    """3d and its timing: prune=True, batch_knn_adaptive,
+    batch_l2_squared_pruning, cluster_reorder and IVFIndex at 10M x 128,
+    each path with the counters reset just before it and read just after.
+    ``full_ms``: K1's full f32 scan (phase 4), the unit of the build costs.
+    Returns the paths' launches and each new kernel's (ms, plain ms)."""
+    import numpy as np
+    import torch
+
+    import innr_tpu_torch as itt
+    from innr_tpu_torch.kernels import assign as ta
+    from innr_tpu_torch.kernels import knn as tk
+    from innr_tpu_torch.kernels import pruned_knn as tpk
+    from innr_tpu_torch.prune import plan_threshold_survivors
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    n, n_q, k = N_PRUNE, 32, 10
+    rows, centers = _clustered(gen, n, 256, True, dev)
+    qs = centers[:n_q] + 0.01 * torch.randn((n_q, 128), generator=gen, device=dev)
+    vb = itt.VerticalBatch(rows)
+    vb16 = itt.VerticalBatch(rows, dtype=torch.bfloat16)
+    funcs = (("batch_knn_dot", itt.batch_knn_dot), ("batch_knn", itt.batch_knn),
+             ("batch_knn_cosine", itt.batch_knn_cosine))
+    full = {(name, b): fn(qs, batch, k) for name, fn in funcs
+            for b, batch in (("f32", vb), ("bf16", vb16))}
+    for batch in (vb, vb16):
+        batch.tile_summary(), batch.tile_summary(normalized=True)
+    torch.cuda.synchronize()
+    total = {}
+
+    def path(name: str, must: list, run):
+        """Counters from zero, ``run()``, counters read; every kernel in
+        ``must`` launched, K1 only where allowed."""
+        reset_counts()
+        out = run()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        _check_path(name, counts, must)
+        for key, v in counts.items():
+            total[key] = total.get(key, 0) + v
+        return out, counts
+
+    for b, batch in (("f32", vb), ("bf16", vb16)):
+        kernel = f"knn_scan_tiles+knn_merge<{'float32' if b == 'f32' else 'bfloat16'}>"
+        res, counts = path(f"prune=True {b}", [kernel],
+                           lambda: {name: fn(qs, batch, k, prune=True) for name, fn in funcs})
+        if launches_of(counts, "knn_scan+knn_merge"):
+            raise AssertionError(f"prune=True {b} launched K1's full scan")
+        for (name, _), metric in zip(funcs, ("dot", "l2", "cosine")):
+            _same_result(f"{name} prune=True {b} clustered", res[name], full[(name, b)])
+            _hold_to_plain(f"{name} prune=True {b} clustered", res[name], qs, batch, k, metric)
+            unit = tk._unit_queries(qs) if metric == "cosine" else qs
+            _, n_surv, s = _plan(batch, unit, k, metric)
+            log(f"[main] clustered {n} x 128 {b} {name}: {int(n_surv)} of {s.n_tiles} tiles "
+                f"of {s.tile_n} rows read")
+    log(f"[main] prune=True (batch_knn_dot, batch_knn, batch_knn_cosine; f32 and bf16; {n_q} "
+        f"queries, k={k}) on the clustered {n} x 128 corpus equals the full scan bit for bit, "
+        "with no K1 launch, and agrees with the plain full pass")
+
+    res, _ = path("batch_knn_adaptive", ["knn_scan_tiles+knn_merge<float32>"],
+                  lambda: itt.batch_knn_adaptive(qs, vb, k, 32))
+    _same_result("batch_knn_adaptive", res, itt.batch_knn(qs, vb, k))
+    log("[main] batch_knn_adaptive equals batch_knn (exact)")
+
+    q0, thr = qs[0], 1.0
+    (idx, dists), _ = path("batch_l2_squared_pruning", ["threshold_scan<float32>"],
+                           lambda: itt.batch_l2_squared_pruning(q0, vb, thr))
+    norms2 = vb.norms2()
+    plain = torch.cat([itt.batch_l2_squared(q0, itt.VerticalBatch(rows[s:s + (1 << 21)]))
+                       for s in range(0, n, 1 << 21)])
+    tol = (32 * EPS32 * (norms2.double() + float((q0 * q0).sum()))
+           + 64 * EPS32 * (rows.abs() @ q0.abs()).double())
+    sure = torch.nonzero(plain.double() <= thr - tol).flatten().cpu().numpy()
+    maybe = torch.nonzero(plain.double() <= thr + tol).flatten().cpu().numpy()
+    if not (set(sure.tolist()) <= set(idx.tolist()) <= set(maybe.tolist())):
+        raise AssertionError("batch_l2_squared_pruning: survivor set != the plain full pass's")
+    idx_t = torch.as_tensor(idx, device=dev)
+    diff = (torch.as_tensor(dists, device=dev).double() - plain[idx_t].double()).abs()
+    if bool((diff > tol[idx_t]).any()):
+        raise AssertionError("batch_l2_squared_pruning: a distance is off the plain pass's")
+    t_order, t_surv, t_alive = plan_threshold_survivors(
+        q0[None], vb.tile_summary().centroids, vb.tile_summary().radii, thr)
+    log(f"[main] batch_l2_squared_pruning (threshold {thr}): {len(idx)} rows, equal to the "
+        f"plain full pass within K1's tolerance; {int(t_surv)} of {vb.tile_summary().n_tiles} "
+        "tiles read")
+
+    times = {}
+    order, n_surv, s = _plan(vb, qs, k, "dot")
+    surv_rows = min(n, int(n_surv) * s.tile_n)
+    got = tpk.pruned_keys(qs, rows, None, order, n_surv, s.tile_n, k, "dot")
+    want = tpk.pruned_knn_plain(qs, rows, None, order, n_surv, s.tile_n, k + 1, "dot")
+    errs["knn_scan_tiles+knn_merge"] = check_close(
+        "knn_scan_tiles clustered", scores_from_keys(got[0], "dot"), got[1],
+        scores_from_keys(want[0], "dot"), want[1], _tol_dot(qs, rows))
+    kernel = _median_ms(lambda: tpk.pruned_keys(qs, rows, None, order, n_surv, s.tile_n, k,
+                                                "dot"))
+    e2e = _median_ms(lambda: tpk.fused_knn_dot_pruned_batch(qs, rows, s, k))
+    plain_ms = _median_ms(lambda: tpk.pruned_knn_plain(qs, rows, None, order, n_surv, s.tile_n,
+                                                       k, "dot"))
+    read_all = _median_ms(lambda: rows.sum())
+    read_surv = _median_ms(lambda: rows[:surv_rows].sum())
+    times["knn_scan_tiles+knn_merge"] = (kernel, plain_ms)
+    log(f"[timing] pruned scan, clustered {n} x 128 f32, Q={n_q}, k={k}: {int(n_surv)} of "
+        f"{s.n_tiles} tiles ({surv_rows} rows) read; tile kernel {kernel!r} ms, prune=True "
+        f"end to end {e2e!r} ms, plain {plain_ms!r} ms, K1 full scan {full_ms!r} ms "
+        f"(speedup {full_ms / e2e!r} end to end), read of all rows {read_all!r} ms, of the "
+        f"surviving rows {read_surv!r} ms")
+
+    t_surv_rows = min(n, int(t_surv) * s.tile_n)
+    got = tpk.threshold_dists(q0, rows, norms2, t_order, t_surv, s.tile_n)
+    want = tpk.threshold_plain(q0, rows, norms2, t_order, t_surv, s.tile_n)
+    fin = torch.isfinite(want)
+    if not torch.equal(fin, torch.isfinite(got)):
+        raise AssertionError("threshold_scan: kernel and plain differ in finite rows")
+    errs["threshold_scan"] = float((got[fin] - want[fin]).abs().max())
+    kernel = _median_ms(lambda: tpk.threshold_dists(q0, rows, norms2, t_order, t_surv,
+                                                    s.tile_n))
+    plain_ms = _median_ms(lambda: tpk.threshold_plain(q0, rows, norms2, t_order, t_surv,
+                                                      s.tile_n))
+    read_t = _median_ms(lambda: rows[:t_surv_rows].sum())
+    every = torch.arange(s.n_tiles, dtype=torch.int32, device=dev)
+    all_n = torch.full((1,), s.n_tiles, dtype=torch.int32, device=dev)
+    kernel_all = _median_ms(lambda: tpk.threshold_dists(q0, rows, norms2, every, all_n,
+                                                        s.tile_n))
+    times["threshold_scan"] = (kernel, plain_ms)
+    log(f"[timing] threshold scan, clustered {n} x 128 f32, threshold {thr}: {int(t_surv)} "
+        f"tiles ({t_surv_rows} rows); kernel {kernel!r} ms, plain {plain_ms!r} ms, read of "
+        f"the surviving rows {read_t!r} ms; every tile: kernel {kernel_all!r} ms, read "
+        f"{read_all!r} ms (read/kernel {read_all / kernel_all!r})")
+
+    cent256 = centers + 0.1 * torch.randn(centers.shape, generator=gen, device=dev)
+    errs["nearest_centroid"] = _assign_check(
+        f"nearest_centroid {n} x 128, KC=256", rows, cent256, ta.nearest_centroid(rows, cent256),
+        ta.nearest_centroid_plain(rows, cent256))
+    kernel = _median_ms(lambda: ta.nearest_centroid(rows, cent256))
+    plain_ms = _median_ms(lambda: ta.nearest_centroid_plain(rows, cent256))
+    times["nearest_centroid"] = (kernel, plain_ms)
+    log(f"[timing] nearest_centroid {n} x 128, KC=256: kernel {kernel!r} ms, plain "
+        f"{plain_ms!r} ms")
+    del vb, vb16, rows, full, plain, norms2
+    torch.cuda.empty_cache()
+
+    rows, centers = _clustered(gen, n, 256, False, dev)
+    qs = centers[:n_q] + 0.01 * torch.randn((n_q, 128), generator=gen, device=dev)
+    vb = itt.VerticalBatch(rows)
+    full = itt.batch_knn(qs, vb, k)
+    (nb, perm), _ = path("cluster_reorder", ["nearest_centroid<float32>"],
+                         lambda: vb.cluster_reorder(n_clusters=256))
+    p = perm.long()
+    if not torch.equal(torch.sort(p).values, torch.arange(n, device=dev)):
+        raise AssertionError("cluster_reorder: perm is not a permutation")
+    for s0 in range(0, n, 1 << 20):
+        if not torch.equal(rows[p[s0:s0 + (1 << 20)]], nb.rows[s0:s0 + (1 << 20)]):
+            raise AssertionError("cluster_reorder: rows[perm] != the reordered rows")
+    res, _ = path("prune=True on the reordered batch", ["knn_scan_tiles+knn_merge<float32>"],
+                  lambda: itt.batch_knn(qs, nb, k, prune=True))
+    mapped = p.cpu().numpy()[res.indices]
+    if not (np.array_equal(mapped, full.indices)
+            and np.array_equal(res.scores.view(np.int32), full.scores.view(np.int32))):
+        raise AssertionError("prune=True on the reordered batch != the full scan")
+    _, n_surv, s = _plan(nb, qs, k, "l2")
+    reorder_ms = _median_host_ms(lambda: (vb.cluster_reorder(n_clusters=256),
+                                          torch.cuda.synchronize()), reps=3)
+    log(f"[main] cluster_reorder ({n} x 128, 256 clusters): perm is a permutation, rows[perm] "
+        f"equal the reordered rows, prune=True on them maps back to the full scan's result; "
+        f"tile {s.tile_n}, {int(n_surv)} of {s.n_tiles} tiles read")
+    log(f"[timing] cluster_reorder host time {_scan_equivalents(reorder_ms, full_ms)}")
+    del vb, nb, perm, p, rows
+    torch.cuda.empty_cache()
+
+    n_clusters = IVF_CLUSTERS
+    rows, centers = _clustered(gen, n, n_clusters, False, dev)
+    qs = centers[torch.arange(n_q, device=dev) % n_clusters] + 0.05 * torch.randn(
+        (n_q, 128), generator=gen, device=dev)
+    full = itt.batch_knn_dot(qs, itt.VerticalBatch(rows), k)
+    index, counts = path("IVFIndex build", ["nearest_centroid<float32>"],
+                         lambda: itt.IVFIndex(rows, n_clusters=n_clusters, metric="dot",
+                                              n_iters=3))
+    res, _ = path("IVFIndex.search_batch", ["knn_scan_tiles+knn_merge<float32>"],
+                  lambda: index.search_batch(qs, k))
+    _same_result("IVFIndex.search_batch", res, full)
+    surv, tiles = index.plan_stats(qs, k)
+    log(f"[main] IVFIndex ({n} x 128, {n_clusters} clusters, dot, n_iters=3): search_batch "
+        f"equals batch_knn_dot bit for bit; plan_stats {surv} of {tiles} tiles "
+        f"({1.0 - surv / tiles!r} elided), tile {index.tile_n}, padding_fraction "
+        f"{index.padding_fraction!r}, {index.memory_bytes()} bytes")
+    search_ms = _median_host_ms(lambda: index.search_batch(qs, k))
+    del index
+    torch.cuda.empty_cache()
+    build_ms = _median_host_ms(lambda: (itt.IVFIndex(rows, n_clusters=n_clusters, metric="dot",
+                                                     n_iters=3), torch.cuda.synchronize()),
+                               reps=1)
+    log(f"[timing] IVFIndex build host time {_scan_equivalents(build_ms, full_ms)}; "
+        f"search_batch of {n_q} queries, k={k}, host copy included: {search_ms!r} ms")
+    cent = centers + 0.1 * torch.randn(centers.shape, generator=gen, device=dev)
+    errs["nearest_centroid"] = max(errs["nearest_centroid"], _assign_check(
+        f"nearest_centroid {n} x 128, KC={n_clusters}", rows, cent,
+        ta.nearest_centroid(rows, cent), ta.nearest_centroid_plain(rows, cent)))
+    kernel = _median_ms(lambda: ta.nearest_centroid(rows, cent), reps=3)
+    plain_ms = _median_ms(lambda: ta.nearest_centroid_plain(rows, cent), reps=3)
+    log(f"[timing] nearest_centroid {n} x 128, KC={n_clusters}: kernel {kernel!r} ms, plain "
+        f"{plain_ms!r} ms (median of 3)")
+    del rows, full
+    torch.cuda.empty_cache()
+    return total, times
+
+
+def _assign_check(name: str, rows, cent, got, want) -> float:
+    """The kernel's assignments against the plain version's. Where they
+    differ, the float64 scores ||c||^2 - 2 x.c of the two chosen centroids
+    must lie within the f32 rounding of both, 32 eps (||c||^2 + 2 |x|.|c|)
+    each; else it raises. Returns the largest score gap (0 if all agree)."""
+    import torch
+
+    bad = torch.nonzero(got != want).flatten()
+    if bad.numel() == 0:
+        log(f"[main] {name}: kernel assignments equal the plain version's")
+        return 0.0
+    x, c = rows[bad].double(), cent.double()
+    a, b = c[got[bad].long()], c[want[bad].long()]
+    sa = (a * a).sum(1) - 2 * (x * a).sum(1)
+    sb = (b * b).sum(1) - 2 * (x * b).sum(1)
+    bound = 32 * EPS32 * ((a * a).sum(1) + (b * b).sum(1)
+                          + 2 * (x.abs() * (a.abs() + b.abs())).sum(1))
+    gap = (sa - sb).abs()
+    if not bool((gap <= bound).all()):
+        raise AssertionError(f"{name}: {int((~(gap <= bound)).sum())} of {bad.numel()} "
+                             "differing assignments beyond rounding")
+    log(f"[main] {name}: {bad.numel()} of {rows.shape[0]} assignments differ from the plain "
+        f"version's, each within rounding (largest score gap {float(gap.max())!r})")
+    return float(gap.max())
 
 
 def _timed(name: str, kernel, plain, read, pops: int) -> tuple:
@@ -736,21 +1249,31 @@ def main() -> int:
     phase_build()
     phase_exact(dev)
     phase_exact_packed(dev)
+    phase_exact_pruned(dev)
     corpora, errs = {}, {}
     launches = phase_main(dev, corpora, errs)
     _check_path("batch-kNN", launches,
                 [f"knn_scan+knn_merge<{name}>" for name in ("float32", "bfloat16", "uint8")])
     times = {f"knn_scan+knn_merge<{name}>": t for name, t in phase_timing(corpora).items()}
+    full_ms = times["knn_scan+knn_merge<float32>"][0]
+    gauss_launches, _ = phase_gaussian_prune(dev, corpora, full_ms)
     corpora.clear()
     torch.cuda.empty_cache()
     packed_launches, packed_times, packed_errs = phase_packed(dev)
     times.update(packed_times)
     torch.cuda.empty_cache()
     pipeline_launches = phase_pipeline(dev, errs)
-    for counts in (packed_launches, pipeline_launches):
+    torch.cuda.empty_cache()
+    prune_errs = {}
+    prune_launches, prune_times = phase_prune(dev, full_ms, prune_errs)
+    times.update(prune_times)
+    for counts in (gauss_launches, packed_launches, pipeline_launches, prune_launches):
         for name, n in counts.items():
             launches[name] += n
-    errs = {f"knn_scan+knn_merge<{name}>": err for name, err in errs.items()} | packed_errs
+    for name in prune_times:
+        launches[name] = launches_of(launches, name)
+    errs = ({f"knn_scan+knn_merge<{name}>": err for name, err in errs.items()} | packed_errs
+            | prune_errs)
     kernels = [
         ("knn_scan+knn_merge<float32>", "knn.cu", "knn.py:197"),
         ("knn_scan+knn_merge<bfloat16>", "knn.cu", "knn.py:197"),
@@ -759,6 +1282,9 @@ def main() -> int:
         ("packed_scan<ternary>", "packed_knn.cu", "packed_knn.py:228,292"),
         ("packed_rows<binary>", "packed.cu", "hamming.py:32"),
         ("packed_rows<ternary>", "packed.cu", "hamming.py:62"),
+        ("knn_scan_tiles+knn_merge", "knn.cu", "pruned_knn.py:80,162"),
+        ("threshold_scan", "pruned.cu", "pruned_knn.py:483,566"),
+        ("nearest_centroid", "assign.cu", "assign.py:71"),
     ]
     record = {"kernels": [
         {

@@ -11,7 +11,13 @@ module names. Ported so far:
   ``ops/quant.py``, on the packed kNN scan (``csrc/packed_knn.cu``) and the
   per-row packed scores (``csrc/packed.cu``);
 - :class:`TwoStageIndex`, the coarse-then-rerank pipeline, on both scans;
-- npz persistence for those containers.
+- npz persistence for those containers;
+- tile-skip pruning (``prune=True``, ``batch_knn_adaptive``,
+  ``batch_l2_squared_pruning``; :mod:`innr_tpu_torch.prune`), the k-means
+  layout passes (``cluster_order``, ``cluster_reorder``) and
+  :class:`IVFIndex`, on the pruned tile scan (``csrc/knn.cu``), the
+  threshold scan (``csrc/pruned.cu``) and the nearest-centroid pass
+  (``csrc/assign.cu``).
 
 Corpora on a CUDA device run the hand-written kernels; corpora on the CPU
 run their plain PyTorch versions.
@@ -21,8 +27,16 @@ mismatch; cosine returns 0.0 for effectively-zero norms (< 1e-9); orderings
 follow IEEE total order with ties to the lowest index.
 """
 
-from innr_tpu_torch import backend, batch, config, io, pipeline
+from innr_tpu_torch import backend, batch, config, io, pipeline, prune
 from innr_tpu_torch.pipeline import CoarseConfig, TwoStageIndex
+from innr_tpu_torch.ivf import IVFIndex
+from innr_tpu_torch.prune import (
+    TileSummary,
+    build_tile_summary,
+    cluster_order,
+    cluster_reorder,
+    suggest_tile_n,
+)
 from innr_tpu_torch.batch import (
     BatchKnnResult,
     VerticalBatch,
@@ -32,11 +46,14 @@ from innr_tpu_torch.batch import (
     batch_dot,
     batch_dot_into,
     batch_knn,
+    batch_knn_adaptive,
     batch_knn_cosine,
     batch_knn_dot,
     batch_knn_filtered,
+    batch_knn_reordered,
     batch_l2_squared,
     batch_l2_squared_into,
+    batch_l2_squared_pruning,
     batch_norms,
     batch_norms_into,
 )

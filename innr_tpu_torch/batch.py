@@ -11,9 +11,17 @@ kNN kernel streams.
 
 Every kNN function takes one query (D,) or a batch (Q, D) and any k, and
 runs the fused kNN kernel (:mod:`innr_tpu_torch.kernels.knn`) for a corpus
-on a CUDA device, or its plain version for a corpus on the CPU. The
-tile-pruned scans (``prune=True``, ``batch_knn_reordered``,
-``batch_knn_adaptive``, ``batch_l2_squared_pruning``) are not ported yet.
+on a CUDA device, or its plain version for a corpus on the CPU.
+
+Tile-skip pruning (:mod:`innr_tpu_torch.prune`): ``prune=True`` on
+``batch_knn`` / ``batch_knn_dot`` / ``batch_knn_cosine`` plans survivor
+tiles from the batch's cached :meth:`VerticalBatch.tile_summary` and runs
+the tile scan (:mod:`innr_tpu_torch.kernels.pruned_knn`): the same exact
+results, reading only tiles that can hold a winner.
+``batch_l2_squared_pruning`` runs the tile-skipping threshold scan, and
+``batch_knn_adaptive`` is the exact pruned scan unless asked for the
+approximate warmup path. This package has no ``MIN_ROWS_PALLAS`` size
+gate: a corpus of any size takes these paths.
 """
 
 from __future__ import annotations
@@ -23,9 +31,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from innr_tpu_torch import config
 from innr_tpu_torch.config import NORM_EPSILON
 from innr_tpu_torch.kernels import knn as _kernels
+from innr_tpu_torch.kernels import pruned_knn as _pruned
+from innr_tpu_torch.prune import build_tile_summary, cluster_reorder, suggest_tile_n
 from innr_tpu_torch.utils.asserts import ContractError
+from innr_tpu_torch.utils.order import composite_keys, top_k_total, total_order_key_f32
+from innr_tpu_torch.utils.padding import round_up
 
 __all__ = [
     "VerticalBatch",
@@ -43,6 +56,9 @@ __all__ = [
     "batch_knn_dot",
     "batch_knn_cosine",
     "batch_knn_filtered",
+    "batch_knn_reordered",
+    "batch_knn_adaptive",
+    "batch_l2_squared_pruning",
 ]
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -67,7 +83,8 @@ class VerticalBatch:
     ``device`` is given.
     """
 
-    __slots__ = ("rows", "_norms2", "_inv_norms")
+    __slots__ = ("rows", "_norms2", "_inv_norms", "_tile_summary", "_tile_summary_norm",
+                 "_prune_tile_n")
 
     def __init__(self, rows, dtype=torch.float32, device=None):
         if dtype not in _DTYPES:
@@ -91,6 +108,9 @@ class VerticalBatch:
         # would cost a second corpus read per call.
         self._norms2 = None
         self._inv_norms = None
+        self._tile_summary = None
+        self._tile_summary_norm = None
+        self._prune_tile_n = None
 
     def norms2(self) -> torch.Tensor:
         """Per-row squared L2 norms (float32), computed once and cached."""
@@ -103,6 +123,60 @@ class VerticalBatch:
         if self._inv_norms is None:
             self._inv_norms = _kernels.inv_norms(self.rows)
         return self._inv_norms
+
+    def set_prune_tile_n(self, tile_n) -> "VerticalBatch":
+        """Override the pruning tile height (a layout knob): rounded up to
+        a multiple of 128 and capped at ``pruned_tile_n``; ``None`` restores
+        the default. Clusters smaller than a tile cannot prune, so pass
+        about the cluster size for fine-grained corpora. Results never
+        depend on it. Clears the cached summaries; returns self."""
+        if tile_n is not None:
+            tile_n = int(tile_n)
+            if tile_n <= 0:
+                raise ContractError("set_prune_tile_n: tile_n must be positive or None")
+            cap = _pruned.pruned_tile_n(self.num_vectors, self.dimension, self.rows.dtype)
+            tile_n = min(round_up(tile_n, 128), cap)
+        self._prune_tile_n = tile_n
+        self._tile_summary = None
+        self._tile_summary_norm = None
+        return self
+
+    def _tile_n(self) -> int:
+        if self._prune_tile_n is not None:
+            return self._prune_tile_n
+        return _pruned.pruned_tile_n(self.num_vectors, self.dimension, self.rows.dtype)
+
+    def tile_summary(self, normalized: bool = False):
+        """Per-tile (centroid, radius) bounds for tile-skip pruning
+        (:mod:`innr_tpu_torch.prune`), built in one corpus pass and cached.
+        ``normalized=True``: the unit-row summary the cosine scan plans
+        against (cached apart). Tile height: :meth:`set_prune_tile_n`, else
+        ``pruned_tile_n``."""
+        if normalized:
+            if self._tile_summary_norm is None:
+                self._tile_summary_norm = build_tile_summary(
+                    self.rows, self._tile_n(), normalized=True)
+            return self._tile_summary_norm
+        if self._tile_summary is None:
+            self._tile_summary = build_tile_summary(self.rows, self._tile_n())
+        return self._tile_summary
+
+    def cluster_reorder(self, n_clusters: int = 256, n_iters: int = 5, seed: int = 0,
+                        sample: int = 65536):
+        """Layout pass for ``prune=True``: ``(reordered VerticalBatch,
+        perm)``, ``perm`` the (N,) int32 permutation on the batch's device
+        (``new.rows[i] == self.rows[perm[i]]``; map a kNN index ``j`` on the
+        new batch back as ``perm[j]``). Everything runs on the device
+        (:func:`innr_tpu_torch.prune.cluster_reorder`), and the new batch's
+        tile height comes from the cluster sizes
+        (:func:`~innr_tpu_torch.prune.suggest_tile_n`). Results of pruned
+        scans never depend on the layout, only how much they prune."""
+        reordered, perm, sizes = cluster_reorder(
+            self.rows, n_clusters=n_clusters, n_iters=n_iters, seed=seed, sample=sample)
+        out = VerticalBatch(reordered, dtype=self.rows.dtype)
+        out.set_prune_tile_n(
+            suggest_tile_n(sizes, self.num_vectors, self.dimension, self.rows.dtype))
+        return out, perm
 
     # -- constructors (reference src/batch.rs:103/138/167) ------------------
 
@@ -289,38 +363,56 @@ def _queries(q) -> torch.Tensor:
     return q if q.dim() == 2 else q[None, :]
 
 
-def batch_knn(query, batch: VerticalBatch, k: int) -> BatchKnnResult:
+def batch_knn(query, batch: VerticalBatch, k: int, prune: bool = False) -> BatchKnnResult:
     """Exact k nearest neighbors by squared L2 (reference ``src/batch.rs:385``).
-    Scores ascending; k is capped at N."""
+    Scores ascending; k is capped at N. ``prune=True``: the tile-skipping
+    scan, the same results reading only tiles that can hold a winner."""
     q = _check_query(query, batch, "batch_knn", allow_multi=True)
     if batch.num_vectors == 0 or k == 0:
         return _empty_result(q)
     k = min(int(k), batch.num_vectors)
-    vals, idx = _kernels.fused_knn_l2_batch(_queries(q), batch.rows, k, norms2=batch.norms2())
+    if prune:
+        vals, idx = _pruned.fused_knn_l2_pruned_batch(
+            _queries(q), batch.rows, batch.tile_summary(), k, norms2=batch.norms2())
+    else:
+        vals, idx = _kernels.fused_knn_l2_batch(_queries(q), batch.rows, k,
+                                                norms2=batch.norms2())
     return _result(q, vals, idx)
 
 
-def batch_knn_dot(query, batch: VerticalBatch, k: int) -> BatchKnnResult:
+def batch_knn_dot(query, batch: VerticalBatch, k: int, prune: bool = False) -> BatchKnnResult:
     """Top-k by dot product — MIPS (reference ``src/batch.rs:731``).
-    Scores descending; NaN scores sort first."""
+    Scores descending; NaN scores sort first. ``prune=True``: the
+    tile-skipping scan (see :func:`batch_knn`)."""
     q = _check_query(query, batch, "batch_knn_dot", allow_multi=True)
     if batch.num_vectors == 0 or k == 0:
         return _empty_result(q)
     k = min(int(k), batch.num_vectors)
-    vals, idx = _kernels.fused_knn_dot_batch(_queries(q), batch.rows, k)
+    if prune:
+        vals, idx = _pruned.fused_knn_dot_pruned_batch(
+            _queries(q), batch.rows, batch.tile_summary(), k)
+    else:
+        vals, idx = _kernels.fused_knn_dot_batch(_queries(q), batch.rows, k)
     return _result(q, vals, idx)
 
 
-def batch_knn_cosine(query, batch: VerticalBatch, k: int) -> BatchKnnResult:
+def batch_knn_cosine(query, batch: VerticalBatch, k: int, prune: bool = False) -> BatchKnnResult:
     """Top-k by cosine similarity (reference ``src/batch.rs:766``). Scores
-    descending; a zero-norm query scores everything 0.0."""
+    descending; a zero-norm query scores everything 0.0; a NaN row scores
+    NaN and sorts first (the JAX kernel paths' rule, ROADMAP R4).
+    ``prune=True``: the tile-skipping scan over unit-row bounds (see
+    :func:`batch_knn`)."""
     q = _check_query(query, batch, "batch_knn_cosine", allow_multi=True)
     if batch.num_vectors == 0 or k == 0:
         return _empty_result(q)
     k = min(int(k), batch.num_vectors)
-    vals, idx = _kernels.fused_knn_cosine_batch(
-        _queries(q), batch.rows, k, inv=batch.inv_norms()
-    )
+    if prune:
+        vals, idx = _pruned.fused_knn_cosine_pruned_batch(
+            _queries(q), batch.rows, batch.tile_summary(normalized=True), k,
+            inv=batch.inv_norms())
+    else:
+        vals, idx = _kernels.fused_knn_cosine_batch(
+            _queries(q), batch.rows, k, inv=batch.inv_norms())
     return _result(q, vals, idx)
 
 
@@ -356,3 +448,117 @@ def batch_knn_filtered(query, batch: VerticalBatch, k: int, predicate) -> BatchK
         _queries(q), batch.rows, mask, k, norms2=batch.norms2()
     )
     return _result(q, vals, idx)
+
+
+def batch_l2_squared_pruning(query, batch: VerticalBatch, threshold: float):
+    """Indices and squared L2 distances of the vectors with L2^2 <=
+    ``threshold`` (reference ``src/batch.rs:320``): ``(indices (M,) int64,
+    distances (M,) float32)`` on the host, indices ascending.
+
+    Runs the tile-skipping threshold scan: tiles whose centroid/radius lower
+    bound exceeds the threshold are never read. Scores are ``norms2 - 2 q.r
+    + ||q||^2``, so a row whose distance ties the threshold to the last ulp
+    may fall either side of it under another summation order. The keep-mask
+    and its ``nonzero`` are taken on the device; only the survivors are
+    copied to the host. NaN distances are kept out."""
+    q = _check_query(query, batch, "batch_l2_squared_pruning")
+    if batch.num_vectors == 0:
+        return np.zeros(0, np.int64), np.zeros(0, np.float32)
+    dists = _pruned.l2_squared_pruning_scan(
+        q, batch.rows, batch.norms2(), batch.tile_summary(), float(threshold))
+    keep = ~(dists > float(np.float32(threshold))) & ~torch.isnan(dists)
+    idx = torch.nonzero(keep).flatten()
+    return idx.cpu().numpy().astype(np.int64), dists[idx].cpu().numpy().astype(np.float32)
+
+
+def _variance_order(batch: VerticalBatch) -> torch.Tensor:
+    """Dimensions by decreasing population variance, ties low dimension
+    first."""
+    keys = total_order_key_f32(batch_dimension_variance(batch))
+    return torch.argsort(~keys, stable=True)
+
+
+def batch_knn_reordered(query, batch: VerticalBatch, k: int) -> BatchKnnResult:
+    """Exact kNN by L2^2 over the dimensions in decreasing variance order
+    (reference ``src/batch.rs:610``): the same neighbors as
+    :func:`batch_knn` up to float association. The permutation is applied
+    for parity with the reference (it tightens the CPU reference's early
+    exit; here it changes only the summation order), which costs a copy of
+    the permuted corpus per call; the scan is the fused kNN kernel."""
+    q = _check_query(query, batch, "batch_knn_reordered", allow_multi=True)
+    if batch.num_vectors == 0 or k == 0:
+        return _empty_result(q)
+    k = min(int(k), batch.num_vectors)
+    order = _variance_order(batch)
+    rows = batch.rows[:, order].contiguous()
+    vals, idx = _kernels.fused_knn_l2_batch(_queries(q)[:, order].contiguous(), rows, k)
+    return _result(q, vals, idx)
+
+
+def _adaptive_plain(qs, rows, k: int, warmup_dims: int):
+    """The warmup-extrapolation kNN of the JAX package (``_knn_adaptive``)
+    in plain torch, over row chunks: ``(vals, idx, alive)``."""
+    dim = rows.shape[1]
+    scale = torch.tensor(dim, dtype=torch.float32) / torch.tensor(warmup_dims, dtype=torch.float32)
+    step = max(1, (1 << 24) // max(1, qs.shape[0] * dim))
+
+    def sq_dists(d_end):
+        parts = []
+        for s in range(0, rows.shape[0], step):
+            diff = rows[None, s:s + step, :d_end].float() - qs[:, None, :d_end]
+            parts.append((diff * diff).sum(dim=2))
+        return torch.cat(parts, dim=1)
+
+    partial = sq_dists(warmup_dims)
+    kth, _ = top_k_total(partial, k, largest=False)
+    threshold = kth[:, -1:] * scale.to(qs.device)
+    # Inverted gates: NaN partials stay alive (reference src/batch.rs:474-488).
+    alive = ~(partial * scale.to(qs.device) > threshold * 1.5)
+    full = sq_dists(dim)
+    alive &= ~(full > threshold)
+    keys = torch.where(alive, ~total_order_key_f32(full), torch.iinfo(torch.int32).min)
+    comp = composite_keys(keys, torch.arange(rows.shape[0], device=rows.device))
+    idx = torch.topk(comp, k, dim=1).indices
+    return torch.gather(full, 1, idx), idx, alive
+
+
+def batch_knn_adaptive(query, batch: VerticalBatch, k: int, warmup_dims: int,
+                       force_adaptive: bool = False) -> BatchKnnResult:
+    """Adaptive kNN (reference ``src/batch.rs:439``), whose documented
+    approximation contract only permits losing true neighbors.
+
+    This package has no ``MIN_ROWS_PALLAS`` gate, so by default it returns
+    the exact top-k of the tile-skipping scan (``batch_knn(...,
+    prune=True)``: the tile kernel on a CUDA tensor, its plain version on
+    the CPU) for every corpus size; ``warmup_dims`` is then validated and
+    unused. For N < 2048 the JAX package runs the approximate warmup path
+    there, so the port is exact where the reference is approximate; both
+    meet the contract.
+
+    ``force_adaptive=True``, or ``config.force_reference(True)``, runs the
+    warmup-extrapolation path in plain torch: the first ``warmup_dims``
+    dimensions extrapolate a threshold from the k-th best partial distance
+    (x dim / warmup, x1.5 margin), then exact distances are kept where they
+    pass it. It may return fewer than k results: a single query is
+    trimmed; for a (Q, D) batch the tail entries carry index -1 and score
+    NaN."""
+    q = _check_query(query, batch, "batch_knn_adaptive", allow_multi=True)
+    if warmup_dims <= 0:
+        raise ContractError("innr_tpu_torch::batch_knn_adaptive: warmup_dims must be > 0")
+    if batch.num_vectors == 0 or k == 0:
+        return _empty_result(q)
+    k = min(int(k), batch.num_vectors)
+    warmup_dims = min(int(warmup_dims), batch.dimension)
+    if not force_adaptive and not config.reference_forced():
+        return batch_knn(q, batch, k, prune=True)
+    vals, idx, alive = _adaptive_plain(_queries(q), batch.rows, k, warmup_dims)
+    keep = torch.gather(alive, 1, idx)
+    if q.dim() == 1:
+        return BatchKnnResult(
+            indices=idx[0][keep[0]].cpu().numpy().astype(np.int64),
+            scores=vals[0][keep[0]].cpu().numpy().astype(np.float32),
+        )
+    return BatchKnnResult(
+        indices=torch.where(keep, idx, -1).cpu().numpy().astype(np.int64),
+        scores=torch.where(keep, vals, torch.nan).cpu().numpy().astype(np.float32),
+    )

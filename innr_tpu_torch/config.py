@@ -26,7 +26,34 @@ _FORCE_REFERENCE: bool = os.environ.get("INNR_TPU_FORCE_REFERENCE", "0") == "1"
 NORM_EPSILON: float = 1e-9
 NORM_EPSILON_SQ: float = NORM_EPSILON * NORM_EPSILON
 
+# Relative slack on the tile-pruning dead-tile comparisons
+# (innr_tpu_torch/prune.py): the planner's triangle bounds and the scan's
+# norms^2 - 2 q.r scores are different f32 expansions, so a tile is dead
+# only when its optimistic bound fails the threshold by more than this
+# times a magnitude scale. The JAX package's value.
+PRUNE_BOUND_EPS: float = 1e-4
+
+# The JAX package's router threshold, kept for API parity: the pruned scan
+# here always reads the plan as it stands, so the value has no effect
+# (innr_tpu_torch/kernels/pruned_knn.py says why).
+_PRUNE_ROUTE_MIN_ELIDE: float = 0.10
+
 _MATMUL_PRECISION: str = "highest"
+
+
+def set_prune_route_min_elide(fraction: float) -> None:
+    """Set the JAX package's routing threshold, validated as there; no
+    effect on this package's pruned scan."""
+    global _PRUNE_ROUTE_MIN_ELIDE
+    f = float(fraction)
+    if not 0.0 <= f <= 1.0:
+        raise ValueError("prune route threshold must be in [0, 1]")
+    _PRUNE_ROUTE_MIN_ELIDE = f
+
+
+def prune_route_min_elide() -> float:
+    """Current routing threshold (fraction of tiles that must be elided)."""
+    return _PRUNE_ROUTE_MIN_ELIDE
 
 
 def set_matmul_precision(precision: str) -> None:

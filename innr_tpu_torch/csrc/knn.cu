@@ -50,6 +50,23 @@
 // way. Keys are unique composites, so the two-level selection equals one
 // sequential stream exactly.
 //
+// The pruned scan (innr_knn_scan_tiles) replaces the TPU kernels
+// innr_tpu/kernels/pruned_knn.py:_pruned_kernel (static grid) and
+// _pruned_outer_kernel (dynamic pipeline): the same knn_scan over a survivor
+// tile list (its kTiles instantiation). The live tiles order[0..*n_live)
+// are cut into chunks of 1024 rows, and the chunks are dealt in turn to one
+// wave of resident CTAs (the caller sizes the grid); each CTA runs the body
+// above over all its chunks as one load pipeline into one top-k buffer and
+// writes one partial list, and knn_merge merges them as for K1. n_live
+// stays on the device, so a plan made on the device never waits for the
+// host. Composites are unique, so the result equals the full scan's
+// whenever the plan keeps every tile that holds a top-k row. A CTA does
+// what K1 does per row, on about the surviving fraction of K1's rows, so
+// the pruned scan should take about that fraction of the full scan's time.
+// (One CTA and list per tile slot, the TPU grid's shape, measured 12% over
+// K1 reading every tile, and chunks dealt to K1's slab grid with a fresh
+// pipeline per chunk 25%: PERF.md.)
+//
 // What bounds it on the H100: each corpus byte is read once per query tile
 // of 32 and feeds 8 (f32), 16 (bf16) or 32 (u8) fp32 FMAs there, so at
 // Q = 32 the FP32 SIMT pipe, not HBM, is the limit: 41 G FMAs for 10M x 128
@@ -69,7 +86,8 @@
 #include <cstdint>
 #include <type_traits>
 
-#include "topk.cuh"  // composite, warp_insert, warp_offer
+#include "topk.cuh"  // total_key, composite, warp_insert, warp_offer
+#include "vec.cuh"   // widen, Vec16, vector_loads
 
 namespace {
 
@@ -84,10 +102,6 @@ constexpr int kRowStride = kRowTile + 1;     // padded: conflict-free transpose
 
 static_assert(kQueriesPerThread == 4, "the float4 query read assumes 4");
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float widen(uint8_t x) { return static_cast<float>(x); }
-
 // Queries join a bf16 corpus rounded to bf16 (products are then exact).
 template <typename T>
 __device__ __forceinline__ float query_value(float q) { return q; }
@@ -95,34 +109,6 @@ template <>
 __device__ __forceinline__ float query_value<__nv_bfloat16>(float q) {
   return __bfloat162float(__float2bfloat16_rn(q));
 }
-
-__device__ __forceinline__ int total_key(float s) {
-  int bits = (s != s) ? 0x7FC00000 : __float_as_int(s);
-  return bits ^ (bits < 0 ? 0x7FFFFFFF : 0);
-}
-
-// 16-byte vector unpacking: element j of a uint4 holding 4 f32, 8 bf16 or
-// 16 u8 values (little-endian), widened to f32.
-__device__ __forceinline__ unsigned word(const uint4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-template <typename T> struct Vec16;
-template <> struct Vec16<float> {
-  static constexpr int kElems = 4;
-  __device__ static float get(const uint4& v, int j) { return __uint_as_float(word(v, j)); }
-};
-template <> struct Vec16<__nv_bfloat16> {
-  static constexpr int kElems = 8;
-  __device__ static float get(const uint4& v, int j) {
-    return __uint_as_float((word(v, j >> 1) >> (16 * (j & 1))) << 16);
-  }
-};
-template <> struct Vec16<uint8_t> {
-  static constexpr int kElems = 16;
-  __device__ static float get(const uint4& v, int j) {
-    return static_cast<float>((word(v, j >> 2) >> (8 * (j & 3))) & 0xFFu);
-  }
-};
 
 // One (row tile, dimension chunk) of rows and queries, staged in registers
 // so that its global loads are in flight while the previous chunk computes.
@@ -186,12 +172,21 @@ struct Stage {
   }
 };
 
-template <typename T, bool kVector>
+// CTA x scans the slab of rows [x * slab_rows, (x + 1) * slab_rows). With
+// kTiles (the pruned scan) the work is instead the chunks of chunk_rows rows
+// of the live tiles order[0..*n_live) of slab_rows rows each, dealt to the
+// CTAs in turn (item i to CTA i % gridDim.x); a CTA keeps one top-k buffer
+// over all its items and writes one partial list, empty when it had none.
+// kTiles is a template parameter so that K1's instantiation carries none of
+// the tile list's state.
+template <typename T, bool kVector, bool kTiles>
 __global__ void __launch_bounds__(kThreads, 2) knn_scan(
     const float* __restrict__ qs, const T* __restrict__ rows,
     const float* __restrict__ aux, const float* __restrict__ mask,
-    const long long* __restrict__ excl, long long* __restrict__ partial,
-    int n_q, long long n, int d, int k, int score, long long slab_rows) {
+    const long long* __restrict__ excl, const int* __restrict__ order,
+    const int* __restrict__ n_live, long long* __restrict__ partial,
+    int n_q, long long n, int d, int k, int score, long long slab_rows,
+    long long chunk_rows) {
   extern __shared__ __align__(16) unsigned char smem[];
   long long* best = reinterpret_cast<long long*>(smem);             // [32][k]
   float* rows_s = reinterpret_cast<float*>(best + kQueryTile * k);  // [32][129]
@@ -200,10 +195,7 @@ __global__ void __launch_bounds__(kThreads, 2) knn_scan(
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q0 = blockIdx.y * kQueryTile;
   const int wq0 = q0 + warp * kQueriesPerThread;  // this warp's first query
-  const long long row_begin = static_cast<long long>(blockIdx.x) * slab_rows;
-  const long long row_end = min(n, row_begin + slab_rows);
   const int n_chunks = (d + kDimChunk - 1) / kDimChunk;
-
   for (int i = tid; i < kQueryTile * k; i += kThreads) best[i] = LLONG_MIN;
   long long bound[kQueriesPerThread];
 #pragma unroll
@@ -216,21 +208,46 @@ __global__ void __launch_bounds__(kThreads, 2) knn_scan(
 #pragma unroll
     for (int j = 0; j < kQueriesPerThread; ++j) acc[i][j] = 0.0f;
 
+  // One pipeline over all of the CTA's rows: the next chunk's loads, in
+  // the same row tile, the next one or (kTiles) the next item, are in flight
+  // while the current chunk computes. Without kTiles the rows are one slab.
   Stage<T, kVector> stage;
-  long long t0 = row_begin;
+  long long t0 = static_cast<long long>(blockIdx.x) * slab_rows;
+  long long row_end = min(n, t0 + slab_rows);
+  long long item = blockIdx.x, per_tile = 1, items = 0;
+  // This CTA's next non-empty item after `item` and its rows [t0, end), or
+  // an empty range when none is left.
+  auto next_item = [&](long long& t0, long long& end) {
+    t0 = end = 0;
+    for (item += gridDim.x; item < items; item += gridDim.x) {
+      const long long tile_begin = order[item / per_tile] * slab_rows;
+      t0 = tile_begin + item % per_tile * chunk_rows;
+      end = min(n, min(tile_begin + slab_rows, t0 + chunk_rows));
+      if (t0 < end) break;
+    }
+  };
+  if constexpr (kTiles) {
+    per_tile = (slab_rows + chunk_rows - 1) / chunk_rows;
+    items = static_cast<long long>(*n_live) * per_tile;
+    item -= gridDim.x;
+    next_item(t0, row_end);
+  }
   int ch = 0;
   if (t0 < row_end) stage.load(rows, qs, t0, row_end, 0, d, q0, n_q, tid);
   while (t0 < row_end) {
     stage.store(rows_s, q_s, tid);
     __syncthreads();
     int next_ch = ch + 1;
-    long long next_t0 = t0;
+    long long next_t0 = t0, next_end = row_end;
     if (next_ch == n_chunks) {
       next_ch = 0;
       next_t0 += kRowTile;
+      if constexpr (kTiles) {
+        if (next_t0 >= row_end) next_item(next_t0, next_end);
+      }
     }
-    if (next_t0 < row_end)
-      stage.load(rows, qs, next_t0, row_end, next_ch * kDimChunk, d, q0, n_q, tid);
+    if (next_t0 < next_end)
+      stage.load(rows, qs, next_t0, next_end, next_ch * kDimChunk, d, q0, n_q, tid);
 
     const int c_end = min(kDimChunk, d - ch * kDimChunk);
     for (int c = 0; c < c_end; ++c) {
@@ -270,6 +287,7 @@ __global__ void __launch_bounds__(kThreads, 2) knn_scan(
       }
     }
     t0 = next_t0;
+    row_end = next_end;
     ch = next_ch;
   }
   __syncthreads();
@@ -307,31 +325,82 @@ __global__ void __launch_bounds__(kThreads) knn_merge(
   for (int i = lane; i < k; i += 32) out[static_cast<size_t>(q) * k + i] = mine[i];
 }
 
-template <typename T, bool kVector>
+// The rows a launch scans and how they are cut: n_ctas slabs of slab_rows
+// rows, or (order != null) the chunks of chunk_rows rows of the tiles
+// order[0..*n_live) of slab_rows rows each, over n_ctas CTAs.
+struct Slabs {
+  const int* order;
+  const int* n_live;
+  long long slab_rows;
+  long long chunk_rows;
+  long long n_ctas;
+};
+
+template <typename T, bool kVector, bool kTiles>
 cudaError_t launch_scan_as(const float* qs, const T* rows, const float* aux, const float* mask,
                            const long long* excl, long long* partial, int n_q, long long n,
-                           int d, int k, int score, int slab_rows, cudaStream_t stream) {
+                           int d, int k, int score, Slabs slabs, cudaStream_t stream) {
   const size_t smem = sizeof(long long) * kQueryTile * k +
                       sizeof(float) * kDimChunk * (kRowStride + kQueryTile);
-  cudaError_t err = cudaFuncSetAttribute(
-      knn_scan<T, kVector>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  cudaError_t err = cudaFuncSetAttribute(knn_scan<T, kVector, kTiles>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const long long n_slabs = (n + slab_rows - 1) / slab_rows;
-  const dim3 grid(static_cast<unsigned>(n_slabs), (n_q + kQueryTile - 1) / kQueryTile);
-  knn_scan<T, kVector><<<grid, kThreads, smem, stream>>>(qs, rows, aux, mask, excl, partial,
-                                                         n_q, n, d, k, score, slab_rows);
+  const dim3 grid(static_cast<unsigned>(slabs.n_ctas), (n_q + kQueryTile - 1) / kQueryTile);
+  knn_scan<T, kVector, kTiles><<<grid, kThreads, smem, stream>>>(
+      qs, rows, aux, mask, excl, slabs.order, slabs.n_live, partial, n_q, n, d, k, score,
+      slabs.slab_rows, slabs.chunk_rows);
   return cudaGetLastError();
 }
 
+template <typename T, bool kTiles>
+cudaError_t launch_scan_tiled(const float* qs, const T* rows, const float* aux,
+                              const float* mask, const long long* excl, long long* partial,
+                              int n_q, long long n, int d, int k, int score, Slabs slabs,
+                              cudaStream_t stream) {
+  return vector_loads(rows, d)
+             ? launch_scan_as<T, true, kTiles>(qs, rows, aux, mask, excl, partial, n_q, n, d, k,
+                                               score, slabs, stream)
+             : launch_scan_as<T, false, kTiles>(qs, rows, aux, mask, excl, partial, n_q, n, d,
+                                                k, score, slabs, stream);
+}
+
 template <typename T>
-cudaError_t launch_scan(const float* qs, const T* rows, const float* aux, const float* mask,
+cudaError_t launch_scan(const float* qs, const void* rows_v, const float* aux, const float* mask,
                         const long long* excl, long long* partial, int n_q, long long n, int d,
-                        int k, int score, int slab_rows, cudaStream_t stream) {
-  const bool vector = d % Vec16<T>::kElems == 0 && reinterpret_cast<uintptr_t>(rows) % 16 == 0;
-  return vector ? launch_scan_as<T, true>(qs, rows, aux, mask, excl, partial, n_q, n, d, k,
-                                          score, slab_rows, stream)
-                : launch_scan_as<T, false>(qs, rows, aux, mask, excl, partial, n_q, n, d, k,
-                                           score, slab_rows, stream);
+                        int k, int score, Slabs slabs, cudaStream_t stream) {
+  const T* rows = static_cast<const T*>(rows_v);
+  return slabs.order != nullptr
+             ? launch_scan_tiled<T, true>(qs, rows, aux, mask, excl, partial, n_q, n, d, k,
+                                          score, slabs, stream)
+             : launch_scan_tiled<T, false>(qs, rows, aux, mask, excl, partial, n_q, n, d, k,
+                                           score, slabs, stream);
+}
+
+int scan(const void* qs, const void* rows, int dtype, const void* aux, const void* mask,
+         const void* excl, void* partial, int n_q, long long n, int d, int k, int score,
+         Slabs slabs, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto q = static_cast<const float*>(qs);
+  auto a = static_cast<const float*>(aux);
+  auto m = static_cast<const float*>(mask);
+  auto e = static_cast<const long long*>(excl);
+  auto p = static_cast<long long*>(partial);
+  cudaError_t err;
+  switch (dtype) {
+    case 0:
+      err = launch_scan<float>(q, rows, a, m, e, p, n_q, n, d, k, score, slabs, s);
+      break;
+    case 1:
+      err = launch_scan<__nv_bfloat16>(q, rows, a, m, e, p, n_q, n, d, k, score, slabs, s);
+      break;
+    case 2:
+      err = launch_scan<uint8_t>(q, rows, a, m, e, p, n_q, n, d, k, score, slabs, s);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -346,33 +415,30 @@ int innr_knn_scan(const void* qs, const void* rows, int dtype, const void* aux,
                   int d, int k, int score, int slab_rows, void* stream) {
   if (n_q <= 0 || n <= 0 || d <= 0 || k <= 0 || slab_rows <= 0 || slab_rows % kRowTile != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  auto q = static_cast<const float*>(qs);
-  auto a = static_cast<const float*>(aux);
-  auto m = static_cast<const float*>(mask);
-  auto e = static_cast<const long long*>(excl);
-  auto p = static_cast<long long*>(partial);
-  cudaError_t err;
-  switch (dtype) {
-    case 0:
-      err = launch_scan(q, static_cast<const float*>(rows), a, m, e, p, n_q, n, d, k, score,
-                        slab_rows, s);
-      break;
-    case 1:
-      err = launch_scan(q, static_cast<const __nv_bfloat16*>(rows), a, m, e, p, n_q, n, d, k,
-                        score, slab_rows, s);
-      break;
-    case 2:
-      err = launch_scan(q, static_cast<const uint8_t*>(rows), a, m, e, p, n_q, n, d, k, score,
-                        slab_rows, s);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  const Slabs slabs{nullptr, nullptr, slab_rows, slab_rows, (n + slab_rows - 1) / slab_rows};
+  return scan(qs, rows, dtype, aux, mask, excl, partial, n_q, n, d, k, score, slabs, stream);
 }
 
-// partial: (n_slabs, n_q, k) int64 from innr_knn_scan; out: (n_q, k) int64.
+// The pruned scan: the same scan over the tiles order[0..*n_live) of
+// tile_rows rows each (any tile_rows >= 1), cut into chunks of chunk_rows
+// rows and dealt to n_ctas CTAs; n_live is read on the device. order:
+// (n_tiles,) int32 tile ids, the live ones ascending; n_live: one int32 on
+// the device; excl may be null; partial: (n_ctas, n_q, k) int64, every list
+// written (empty for a CTA without work), for innr_knn_merge.
+int innr_knn_scan_tiles(const void* qs, const void* rows, int dtype, const void* aux,
+                        const void* mask, const void* excl, const void* order,
+                        const void* n_live, void* partial, int n_q, long long n, int d, int k,
+                        int score, long long tile_rows, long long chunk_rows, int n_ctas,
+                        void* stream) {
+  if (n_q <= 0 || n <= 0 || d <= 0 || k <= 0 || tile_rows <= 0 || chunk_rows <= 0 ||
+      n_ctas <= 0 || order == nullptr || n_live == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Slabs slabs{static_cast<const int*>(order), static_cast<const int*>(n_live), tile_rows,
+                    chunk_rows, n_ctas};
+  return scan(qs, rows, dtype, aux, mask, excl, partial, n_q, n, d, k, score, slabs, stream);
+}
+
+// partial: (n_slabs, n_q, k) int64 from either scan; out: (n_q, k) int64.
 int innr_knn_merge(const void* partial, void* out, int n_q, int n_slabs, int k, void* stream) {
   if (n_q <= 0 || n_slabs <= 0 || k <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = sizeof(long long) * kWarps * k;

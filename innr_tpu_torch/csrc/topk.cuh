@@ -1,5 +1,5 @@
 // Streaming top-k selection on int64 composites, shared by the kNN scans
-// (knn.cu, packed_knn.cu).
+// (knn.cu, packed_knn.cu) and the nearest-centroid pass (assign.cu).
 //
 // A candidate is one int64 composite
 //     (uint32)key << 32 | (0xFFFFFFFF - row)
@@ -16,6 +16,15 @@
 #include <climits>
 
 namespace {
+
+// The int32 total-order key of a score (larger is better). A NaN is made
+// the canonical quiet NaN 0x7FC00000 first: GPU arithmetic returns
+// canonical NaNs, CPUs propagate payloads and signs, and the plain PyTorch
+// versions canonicalise the same way.
+__device__ __forceinline__ int total_key(float s) {
+  int bits = (s != s) ? 0x7FC00000 : __float_as_int(s);
+  return bits ^ (bits < 0 ? 0x7FFFFFFF : 0);
+}
 
 __device__ __forceinline__ long long composite(int key, long long row) {
   unsigned long long hi = static_cast<unsigned long long>(static_cast<unsigned>(key)) << 32;

@@ -106,6 +106,17 @@ def load() -> ctypes.CDLL:
         lib.innr_knn_scan.restype = i32
         lib.innr_knn_merge.argtypes = [ptr, ptr, i32, i32, i32, ptr]
         lib.innr_knn_merge.restype = i32
+        lib.innr_knn_scan_tiles.argtypes = [
+            ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, i64, i64, i32,
+            ptr,
+        ]
+        lib.innr_knn_scan_tiles.restype = i32
+        lib.innr_threshold_scan.argtypes = [
+            ptr, ptr, i32, ptr, ptr, ptr, ptr, i64, i32, i64, i64, i32, ptr,
+        ]
+        lib.innr_threshold_scan.restype = i32
+        lib.innr_nearest_centroid.argtypes = [ptr, i32, ptr, ptr, ptr, i64, i32, i32, ptr]
+        lib.innr_nearest_centroid.restype = i32
         lib.innr_packed_scan.argtypes = [
             i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, i32, ptr,
         ]

@@ -1,0 +1,329 @@
+"""Tile-skipping kNN and threshold scans: the CUDA kernels and their plain
+versions.
+
+Replaces the TPU kernels of ``innr_tpu/kernels/pruned_knn.py``:
+
+- K14, ``_pruned_kernel`` (static grid, ``_pruned_raw``) and
+  ``_pruned_outer_kernel`` (dynamic pipeline, ``_pruned_raw_dynamic``):
+  one kernel here, K1's ``knn_scan`` over a survivor tile list
+  (``csrc/knn.cu``, ``innr_knn_scan_tiles``, then K1's ``knn_merge``);
+- K15, ``_threshold_kernel_1q`` and ``_threshold_outer_kernel``: one
+  kernel, ``threshold_scan`` (``csrc/pruned.cu``).
+
+A plan (:mod:`innr_tpu_torch.prune`) is ``(order, n_surv)`` on the device:
+the survivor tile ids ascending, then a padded tail. The kernels read
+``n_surv`` on the device, so a search never waits for the host between the
+plan and the scan. Their source notes say what bounds them on the H100.
+
+No router. The JAX package's ``routed_raw`` picks between its pruned
+pipeline and its full scan with a device-side ``lax.cond``, because the
+dynamic pipeline cost it 7-14% on the TPU when nothing prunes. Here the tile
+scan over every tile measured faster than K1's slab grid on the H100
+(``PERF.md`` §5), and swapping a plan for "every tile" would only add
+tiles, so the plan always stands: :func:`plan`, then :func:`pruned_keys`.
+``config.prune_route_min_elide`` is kept for API parity and has no effect
+here.
+
+k above K1's per-pass cap runs K1's exclusion-bounded multi-pass full scan,
+as the JAX package does.
+
+Dispatch: a CUDA tensor runs the kernels, or the call raises; a CPU tensor,
+or :func:`innr_tpu_torch.config.force_reference`, runs the plain versions.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from innr_tpu_torch import config
+from innr_tpu_torch.kernels import knn as _knn
+from innr_tpu_torch.prune import plan_survivors, plan_threshold_survivors
+from innr_tpu_torch.utils.asserts import ContractError
+from innr_tpu_torch.utils.order import invert_total_key, split_composite
+from innr_tpu_torch.utils.padding import round_up
+
+# Launches of the tile scan (knn_scan over a tile list, then knn_merge) and
+# of the threshold scan, in all and by corpus dtype. Incremented only where
+# the kernels launch.
+LAUNCHES = 0
+LAUNCHES_BY_DTYPE = {"float32": 0, "bfloat16": 0, "uint8": 0}
+THRESHOLD_LAUNCHES = 0
+THRESHOLD_LAUNCHES_BY_DTYPE = {"float32": 0, "bfloat16": 0}
+
+# Rows of the corpus the plain threshold version scores at a time.
+_PLAIN_CHUNK = 1 << 24
+# The kernels cut live tiles into chunks of these many rows and deal the
+# chunks to their CTAs in turn (csrc/knn.cu, csrc/pruned.cu). The tile scan
+# runs one wave of K1's resident CTAs (two, four waves, and chunks of 512
+# or 2048 rows measured slower on the H100: PERF.md); the threshold scan
+# this many CTAs per SM.
+_SCAN_CHUNK_ROWS = 1024
+_THRESHOLD_CHUNK_ROWS = 256
+_THRESHOLD_CTAS_PER_SM = 8
+
+
+def pruned_tile_n(n: int, d: int, dtype=torch.float32) -> int:
+    """Default tile height of a :class:`~innr_tpu_torch.prune.TileSummary`:
+    the JAX package's value (sized there for the TPU's scoped memory), so
+    that both packages build the same default summary. The CUDA tile scan
+    takes any height."""
+    bytes_el = 2 if dtype == torch.bfloat16 else 4
+    budget = 4 * 1024 * 1024
+    per_row = d * bytes_el + 12 * 32
+    tile = budget // max(per_row, 1)
+    tile = max(512, min(8192, tile))
+    return round_up(min(tile, max(n, 128)), 128)
+
+
+def _row_alive(order, n_surv, tile_n: int, n: int) -> torch.Tensor:
+    """(N,) bool: the rows of the tiles ``order[:n_surv]``."""
+    n_tiles = order.shape[0]
+    live = (torch.arange(n_tiles, device=order.device) < n_surv).to(torch.int32)
+    hits = torch.zeros(n_tiles, dtype=torch.int32, device=order.device)
+    hits.index_add_(0, order.long(), live)
+    return (hits > 0).repeat_interleave(tile_n)[:n]
+
+
+def _check_plan(order, n_surv, tile_n: int, rows, op: str):
+    """``order`` as contiguous int32 and ``n_surv`` as a one-element int32
+    tensor, both on the corpus's device."""
+    if order.dim() != 1 or order.device != rows.device:
+        raise ContractError(
+            f"innr_tpu_torch::{op}: order must be a 1-D tensor on {rows.device}, got "
+            f"{tuple(order.shape)} on {order.device}"
+        )
+    if int(tile_n) <= 0 or order.shape[0] * int(tile_n) < rows.shape[0]:
+        raise ContractError(
+            f"innr_tpu_torch::{op}: {order.shape[0]} tiles of {tile_n} rows do not "
+            f"cover {rows.shape[0]} rows"
+        )
+    n_surv = torch.as_tensor(n_surv, device=rows.device).to(torch.int32).reshape(1)
+    return order.to(torch.int32).contiguous(), n_surv
+
+
+def _plain_tiles(qs, rows, vals, mask, order, n_surv, tile_n, k, mode):
+    comp = _knn._plain_composites(qs, rows, vals, mask, mode)
+    alive = _row_alive(order, n_surv, tile_n, rows.shape[0])
+    comp = torch.where(alive[None, :], comp, _knn._EMPTY)
+    return split_composite(torch.topk(comp, k, dim=1).values)
+
+
+def pruned_knn_plain(qs, rows, aux, order, n_surv, tile_n: int, k: int, mode: str):
+    """The plain version of the tile scan: ``knn_plain`` over the rows of
+    the tiles ``order[:n_surv]`` only. Raw ``(keys, idx)`` int32 (Q, k),
+    best first; slots past the last live row hold ``(INT32_MIN, -1)``."""
+    vals, mask = _knn._split_aux(aux, mode, rows.shape[0])
+    _knn._check(qs, rows, vals, mask, k, "pruned_knn_plain")
+    order, n_surv = _check_plan(order, n_surv, tile_n, rows, "pruned_knn_plain")
+    return _plain_tiles(qs, rows, vals, mask, order, n_surv, tile_n, k, mode)
+
+
+def _scan_tiles(qs, rows, vals, mask, order, n_surv, tile_n, k, mode, bound):
+    """One tile-scan pass (knn_scan over the tiles, knn_merge of the live
+    slabs): (Q, k) int64 composites."""
+    global LAUNCHES
+    from innr_tpu_torch.kernels import _build
+
+    lib = _build.load()
+    n_q, d = qs.shape
+    n, n_tiles = rows.shape[0], order.shape[0]
+    dev = rows.device
+    # One wave of resident CTAs, or fewer when there are fewer chunks: one
+    # partial list each, whatever the plan keeps.
+    chunks = n_tiles * -(-int(tile_n) // _SCAN_CHUNK_ROWS)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    wave = max(1, sms * _knn._RESIDENT_CTAS // -(-n_q // _knn._QUERY_TILE))
+    n_ctas = min(wave, chunks)
+    with torch.cuda.device(dev):
+        partial = torch.empty((n_ctas, n_q, k), dtype=torch.int64, device=dev)
+        out = torch.empty((n_q, k), dtype=torch.int64, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.innr_knn_scan_tiles(
+            qs.data_ptr(), rows.data_ptr(), _knn._DTYPES[rows.dtype], _knn._ptr(vals),
+            _knn._ptr(mask), _knn._ptr(bound), order.data_ptr(), n_surv.data_ptr(),
+            partial.data_ptr(), n_q, n, d, k, _knn._MODES[mode][0], int(tile_n),
+            _SCAN_CHUNK_ROWS, n_ctas, stream,
+        )
+        if rc != 0:
+            raise RuntimeError(f"innr_tpu_torch: knn_scan_tiles launch failed, cudaError {rc}")
+        rc = lib.innr_knn_merge(partial.data_ptr(), out.data_ptr(), n_q, n_ctas, k, stream)
+        if rc != 0:
+            raise RuntimeError(f"innr_tpu_torch: knn_merge launch failed, cudaError {rc}")
+    LAUNCHES += 1
+    LAUNCHES_BY_DTYPE[str(rows.dtype).removeprefix("torch.")] += 1
+    return out
+
+
+def pruned_keys(qs, rows, aux, order, n_surv, tile_n: int, k: int, mode: str):
+    """Top-k over the tiles ``order[:n_surv]`` as raw int32 ``(keys, idx)``
+    (Q, k), K1's key contract: the tile kernel for CUDA tensors (k above
+    ``knn.single_pass_k`` in K1's exclusion-bounded passes), the plain
+    version for CPU tensors."""
+    qs, rows = qs.contiguous(), rows.contiguous()
+    vals, mask = _knn._split_aux(aux, mode, rows.shape[0])
+    _knn._check(qs, rows, vals, mask, k, "pruned_keys")
+    order, n_surv = _check_plan(order, n_surv, tile_n, rows, "pruned_keys")
+    if rows.device.type == "cpu" or config.reference_forced():
+        return _plain_tiles(qs, rows, vals, mask, order, n_surv, tile_n, k, mode)
+    if rows.device.type != "cuda":
+        raise ContractError(f"innr_tpu_torch::pruned_keys: unsupported device {rows.device}")
+    return split_composite(_knn._multi_pass(
+        lambda pass_k, bound: _scan_tiles(qs, rows, vals, mask, order, n_surv, tile_n,
+                                          pass_k, mode, bound),
+        k, _knn.single_pass_k(qs.shape[0])))
+
+
+def _fast_plan_ok(k: int, summary) -> bool:
+    """The masked-max plan needs a tile of >= k rows: every tile but the
+    last holds ``tile_n``."""
+    return k <= summary.tile_n or summary.n_tiles == 1
+
+
+_PLAN_MODES = {"cosine": "dot", "cosinem": "dot", "dotm": "dot", "l2m": "l2"}
+
+
+def plan(qs, rows, summary, k: int, mode: str):
+    """The survivor plan the pruned scan of ``mode`` reads: ``(order,
+    n_surv)`` on the device. ``qs`` are the queries as the scan gets them
+    (unit queries for cosine, against a ``normalized=True`` summary)."""
+    # Cosine plans as dot against the unit-row summary with unit queries;
+    # masked modes as their base mode (the summary counts valid rows only).
+    plan_mode = _PLAN_MODES.get(mode, mode)
+    # A bf16 corpus is scored against the bf16-rounded query (knn.cu), a
+    # perturbation the f32 slack cannot absorb: plan against the same
+    # rounded query, which is exact in f32.
+    qs_plan = qs.to(torch.bfloat16).float() if rows.dtype == torch.bfloat16 else qs
+    return plan_survivors(qs_plan, summary.centroids, summary.radii, summary.counts, k,
+                          plan_mode, fast=_fast_plan_ok(k, summary))
+
+
+def _pruned_run(qs, rows, aux, summary, k: int, mode: str):
+    """Plan and scan: ``(scores (Q, k), idx (Q, k))``, equal to K1's full
+    scan of the same mode."""
+    if summary.tile_n * summary.n_tiles < rows.shape[0]:
+        raise ValueError("TileSummary does not cover the corpus")
+    if k > _knn.single_pass_k(qs.shape[0]):
+        vals, idx = _knn._fused_knn(qs, rows, aux, k, mode)
+        if mode in ("l2", "l2m"):
+            vals = _knn._clamp_l2(vals, qs)
+        return vals, idx
+    order, n_surv = plan(qs, rows, summary, k, mode)
+    keys, idx = pruned_keys(qs, rows, aux, order, n_surv, summary.tile_n, k, mode)
+    if mode in ("l2", "l2m"):
+        keys = ~keys
+    vals = invert_total_key(keys)
+    if mode in ("l2", "l2m"):
+        vals = _knn._clamp_l2(vals, qs)
+    return vals, idx
+
+
+def fused_knn_dot_pruned_batch(qs, rows, summary, k: int):
+    """Exact top-k MIPS of a (Q, D) batch reading only the survivor tiles:
+    ``(scores (Q, k), idx (Q, k))``, equal to ``knn.fused_knn_dot_batch``.
+    ``summary``: a :class:`~innr_tpu_torch.prune.TileSummary` of ``rows``."""
+    return _pruned_run(qs.contiguous(), rows, None, summary, k, "dot")
+
+
+def fused_knn_l2_pruned_batch(qs, rows, summary, k: int, norms2=None):
+    """Exact top-k smallest L2^2 with tile skipping (see
+    :func:`fused_knn_dot_pruned_batch`)."""
+    if norms2 is None:
+        norms2 = _knn._norms2(rows)
+    return _pruned_run(qs.contiguous(), rows, norms2, summary, k, "l2")
+
+
+def fused_knn_cosine_pruned_batch(qs, rows, summary_norm, k: int, inv=None):
+    """Exact top-k cosine with tile skipping. ``summary_norm``: a summary
+    built with ``normalized=True``; the plan is the dot plan of the unit
+    queries, the scan streams inverse row norms like the full cosine scan
+    (a NaN row scores NaN and sorts first, as in K1 and the JAX kernels)."""
+    if inv is None:
+        inv = _knn.inv_norms(rows)
+    return _pruned_run(_knn._unit_queries(qs.contiguous()), rows, inv, summary_norm, k, "cosine")
+
+
+# ---------------------------------------------------------------------------
+# threshold scan
+# ---------------------------------------------------------------------------
+
+def threshold_plain(q, rows, norms2, order, n_surv, tile_n: int) -> torch.Tensor:
+    """The plain version of the threshold scan: (N,) float32 ``norms2 -
+    2 q.r`` on the rows of the tiles ``order[:n_surv]``, +inf elsewhere.
+    The query stays float32 against a bf16 corpus (widened), as in the JAX
+    kernel."""
+    order, n_surv = _check_plan(order, n_surv, tile_n, rows, "threshold_plain")
+    n, d = rows.shape
+    alive = _row_alive(order, n_surv, tile_n, n)
+    out = torch.full((n,), torch.inf, dtype=torch.float32, device=rows.device)
+    step = max(1, _PLAIN_CHUNK // max(1, d))
+    for s in range(0, n, step):
+        dists = norms2[s:s + step] - 2.0 * (rows[s:s + step].float() @ q)
+        out[s:s + step] = torch.where(alive[s:s + step], dists, torch.inf)
+    return out
+
+
+def _threshold_kernel(q, rows, norms2, order, n_surv, tile_n) -> torch.Tensor:
+    global THRESHOLD_LAUNCHES
+    from innr_tpu_torch.kernels import _build
+
+    lib = _build.load()
+    n, d = rows.shape
+    dev = rows.device
+    chunks = order.shape[0] * -(-int(tile_n) // _THRESHOLD_CHUNK_ROWS)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    with torch.cuda.device(dev):
+        out = torch.full((n,), torch.inf, dtype=torch.float32, device=dev)
+        rc = lib.innr_threshold_scan(
+            q.data_ptr(), rows.data_ptr(), 0 if rows.dtype == torch.float32 else 1,
+            norms2.data_ptr(), order.data_ptr(), n_surv.data_ptr(), out.data_ptr(), n, d,
+            int(tile_n), _THRESHOLD_CHUNK_ROWS, min(chunks, sms * _THRESHOLD_CTAS_PER_SM),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"innr_tpu_torch: threshold_scan launch failed, cudaError {rc}")
+    THRESHOLD_LAUNCHES += 1
+    THRESHOLD_LAUNCHES_BY_DTYPE[str(rows.dtype).removeprefix("torch.")] += 1
+    return out
+
+
+def threshold_dists(q, rows, norms2, order, n_surv, tile_n: int) -> torch.Tensor:
+    """(N,) float32 ``norms2 - 2 q.r`` on the rows of the tiles
+    ``order[:n_surv]``, +inf elsewhere: the kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    if rows.dim() != 2 or rows.dtype not in (torch.float32, torch.bfloat16):
+        raise ContractError(
+            f"innr_tpu_torch::threshold_dists: rows must be 2-D float32 or bfloat16, "
+            f"got {rows.dtype} of shape {tuple(rows.shape)}"
+        )
+    n, d = rows.shape
+    q = q.to(torch.float32).contiguous()
+    norms2 = norms2.to(torch.float32).contiguous()
+    if tuple(q.shape) != (d,) or tuple(norms2.shape) != (n,):
+        raise ContractError(
+            f"innr_tpu_torch::threshold_dists: query {tuple(q.shape)} / norms2 "
+            f"{tuple(norms2.shape)} do not fit rows {tuple(rows.shape)}"
+        )
+    for name, t in (("query", q), ("norms2", norms2)):
+        if t.device != rows.device:
+            raise ContractError(
+                f"innr_tpu_torch::threshold_dists: {name} on {t.device}, rows on {rows.device}"
+            )
+    rows = rows.contiguous()
+    if rows.device.type == "cpu" or config.reference_forced():
+        return threshold_plain(q, rows, norms2, order, n_surv, tile_n)
+    if rows.device.type != "cuda":
+        raise ContractError(f"innr_tpu_torch::threshold_dists: unsupported device {rows.device}")
+    order, n_surv = _check_plan(order, n_surv, tile_n, rows, "threshold_dists")
+    if n == 0:
+        return torch.empty(0, dtype=torch.float32, device=rows.device)
+    return _threshold_kernel(q, rows, norms2, order, n_surv, tile_n)
+
+
+def l2_squared_pruning_scan(q, rows, norms2, summary, threshold: float) -> torch.Tensor:
+    """(N,) float32 squared L2 distances of one query for the rows of
+    tiles whose lower bound can reach ``threshold``, +inf elsewhere (every
+    such row is provably above it). Dead tiles are never read."""
+    order, n_surv, _ = plan_threshold_survivors(
+        q[None, :], summary.centroids, summary.radii, threshold)
+    out = threshold_dists(q, rows, norms2, order, n_surv, summary.tile_n)
+    return out + (q * q).sum()

@@ -21,7 +21,8 @@ def test_imports_with_jax_blocked():
         "import innr_tpu_torch, innr_tpu_torch.kernels.knn, innr_tpu_torch.io, "
         "innr_tpu_torch.kernels.packed_knn, innr_tpu_torch.kernels.hamming, "
         "innr_tpu_torch.ops.quant, innr_tpu_torch.ops.binary, innr_tpu_torch.ops.ternary, "
-        "innr_tpu_torch.pipeline; "
+        "innr_tpu_torch.pipeline, innr_tpu_torch.prune, innr_tpu_torch.ivf, "
+        "innr_tpu_torch.kernels.assign, innr_tpu_torch.kernels.pruned_knn; "
         "assert 'innr_tpu' not in sys.modules"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -45,8 +46,9 @@ def test_build_without_nvcc_raises_naming_nvcc(monkeypatch):
 
 def test_sources_ship_with_the_package():
     assert sorted(p.name for p in (PKG / "csrc").glob("*.cu")) == [
-        "knn.cu", "packed.cu", "packed_knn.cu"]
-    assert sorted(p.name for p in (PKG / "csrc").glob("*.cuh")) == ["packed.cuh", "topk.cuh"]
+        "assign.cu", "knn.cu", "packed.cu", "packed_knn.cu", "pruned.cu"]
+    assert sorted(p.name for p in (PKG / "csrc").glob("*.cuh")) == [
+        "packed.cuh", "topk.cuh", "vec.cuh"]
     text = (ROOT / "pyproject.toml").read_text()
     assert 'innr_tpu_torch = ["csrc/*.cu", "csrc/*.cuh"]' in text
     assert 'include = ["innr_tpu*"]' in text  # picks up innr_tpu_torch too
