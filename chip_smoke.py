@@ -34,7 +34,17 @@ and imports nothing of JAX. Phases:
               - the threshold scan, f32 and bf16, D in {1, 127, 128, 768};
               - the nearest-centroid pass, f32 / bf16 / u8 rows, D in
                 {7, 128, 300}, KC in {1, 3, 256, 2049, 16896}, with exact
-                ties and an all-NaN row.
+                ties and an all-NaN row;
+              - the slot scan, uint16 and uint32, on slots from a 4-value
+                alphabet drawn over the full width (counts tie) with
+                planted duplicate rows, Q in {1, 5, 16, 33}, S in {1, 7,
+                128, 256}, k in {1, 10, cap + 3}; a raw (N, S) corpus too;
+              - the sparse scan on integer values: ids over the full 32
+                bits with sentinel padding and empty documents, duplicate
+                query ids, NaN / +-inf / -0.0 values on matched and
+                unmatched entries, Lq in {1, 64, 256, 300}, L in {1, 32,
+                200}, k in {1, 10, cap + 3}, Q in {1, 16} (one launch, some
+                queries padded with the sentinel).
 3. main     — the public entry points at full size, launch counters reset
               just before each path and read just after it:
               a. batch kNN: batch_knn_dot / batch_knn / batch_knn_cosine /
@@ -72,7 +82,19 @@ and imports nothing of JAX. Phases:
                  pass; VerticalBatch.cluster_reorder of the unordered corpus
                  (256 clusters), then prune=True mapped back through perm;
                  IVFIndex (16896 clusters, dot, n_iters=3) against
-                 batch_knn_dot.
+                 batch_knn_dot;
+              e. MinHash: slot_knn_u32_batch (Q=16), slot_knn_u32 (Q=1) and
+                 minhash_knn_batch (k=10) on a 10M x 128 uint32
+                 SketchCorpus of random slots with near-duplicate queries
+                 planted, then the same on a 10M x 128 uint16 corpus; counts
+                 and indices equal to the plain version's;
+              f. sparse: sparse_knn (a 64-entry query) and sparse_knn_batch
+                 (16 of them), k=10, on a SparseCorpus of 10M documents x
+                 32 entries, ids from a Zipf law (exponent 1) over the
+                 30,522-id WordPiece vocabulary, values |N(0, 1)|, repeats
+                 as sentinel padding; then on a corpus whose ids are hashed
+                 over the full 32 bits. Scores within tolerance of the plain
+                 version, indices equal where the score gap exceeds it.
 4. timing   — kernel, plain version and a same-bytes ``torch.sum`` read
               (CUDA events, median of 7 after warm-up; roofline fraction =
               read_ms / kernel_ms) for f32 10M x 128, bf16 20M x 128 and u8
@@ -88,7 +110,12 @@ and imports nothing of JAX. Phases:
               16896 against its plain version (3 runs at 16896); the host
               time of cluster_reorder and of an IVFIndex build in
               scan-equivalents of K1's full f32 scan, and of one
-              IVFIndex.search_batch of 32 queries.
+              IVFIndex.search_batch of 32 queries; the slot scans at Q = 16
+              and 1 and the sparse scan at Q = 1 and 16 at the sizes of 3e
+              and 3f, against their plain versions and same-bytes reads.
+              Every kernel's bound (the least time for its work: the bytes
+              over 3.35 TB/s or its operations over the unit's peak, the
+              larger) is printed beside its time.
 
 Every failed check raises, so the exit code is non-zero. The last two lines
 are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -110,10 +137,39 @@ K_DEMO, N_DEMO, Q_DEMO = 2, 10_000, 100
 # The pruning cells (3d): the clustered corpus's rows, and the IVFIndex
 # clusters (8 x the 2112 tiles of the default tiling at 10M x 128).
 N_PRUNE, IVF_CLUSTERS = 10_000_000, 16_896
+# The MinHash cells (3e): sketches x slots; the sparse cells (3f):
+# documents x entries, the WordPiece vocabulary, query entries.
+N_SKETCH, SLOTS = 10_000_000, 128
+N_SPARSE, ENTRIES, VOCAB, QUERY_NNZ = 10_000_000, 32, 30_522, 64
+
+# Published peaks of one H100 SXM (NVIDIA's H100 datasheet): HBM at
+# 3.35 TB/s, FP32 SIMT at 67 TFLOP/s, bf16 dense tensor cores at 989. The
+# integer and shared-memory rates follow the CUDA C++ Programming Guide's
+# per-SM throughput for compute capability 9.0 at the clock the FP32 peak
+# implies (256 FP32 flops per clock per SM on 132 SMs: 1.98 GHz): INT32
+# add / compare 64 per clock per SM, popcount 16, shared-memory loads 32.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"fp32": 67e12, "bf16": 989e12, "int32": 67e12 / 4, "popc": 67e12 / 16,
+                  "shared": 67e12 / 8}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def bound(n_bytes: float, **ops: float) -> tuple:
+    """``(ms, "bytes" or "operations")``: the least time the card could take
+    for work that moves ``n_bytes`` (each input read once, each output
+    written once) and does ``ops`` (unit -> count, e.g. ``fp32=2 Q N D``),
+    the larger of the bytes over the memory rate and each count over its
+    unit's peak."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max((n / PEAK_OPS_PER_S[unit] * 1e3 for unit, n in ops.items()), default=0.0)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_text(b: tuple) -> str:
+    return f"bound {b[0]!r} ms ({b[1]})"
 
 
 def _counted():
@@ -123,6 +179,8 @@ def _counted():
     from innr_tpu_torch.kernels import knn as tk
     from innr_tpu_torch.kernels import packed_knn as tp
     from innr_tpu_torch.kernels import pruned_knn as tpk
+    from innr_tpu_torch.kernels import slot_knn as tsl
+    from innr_tpu_torch.kernels import sparse_knn as tsp
 
     return (
         ("knn_scan+knn_merge", tk, "LAUNCHES", tk.LAUNCHES_BY_DTYPE),
@@ -131,6 +189,8 @@ def _counted():
         ("knn_scan_tiles+knn_merge", tpk, "LAUNCHES", tpk.LAUNCHES_BY_DTYPE),
         ("threshold_scan", tpk, "THRESHOLD_LAUNCHES", tpk.THRESHOLD_LAUNCHES_BY_DTYPE),
         ("nearest_centroid", ta, "LAUNCHES", ta.LAUNCHES_BY_DTYPE),
+        ("slot_scan", tsl, "LAUNCHES", tsl.LAUNCHES_BY_DTYPE),
+        ("sparse_scan", tsp, "LAUNCHES", None),  # one instance
     )
 
 
@@ -138,18 +198,25 @@ def reset_counts() -> None:
     """Every kernel's launch count to 0."""
     for _, mod, total, by in _counted():
         setattr(mod, total, 0)
-        for key in by:
+        for key in by or ():
             by[key] = 0
 
 
 def read_counts() -> dict:
-    """Launches per kernel instance, e.g. ``packed_scan<binary>``."""
-    return {f"{name}<{key}>": n for name, _, _, by in _counted() for key, n in by.items()}
+    """Launches per kernel instance, e.g. ``packed_scan<binary>``; a kernel
+    with one instance under its own name."""
+    counts = {}
+    for name, mod, total, by in _counted():
+        if by is None:
+            counts[name] = getattr(mod, total)
+        else:
+            counts.update({f"{name}<{key}>": n for key, n in by.items()})
+    return counts
 
 
 def launches_of(counts: dict, name: str) -> int:
     """All launches of one kernel, over its instances."""
-    return sum(n for key, n in counts.items() if key.startswith(f"{name}<"))
+    return sum(n for key, n in counts.items() if key == name or key.startswith(f"{name}<"))
 
 
 def gpu_name_and_power() -> str:
@@ -479,6 +546,117 @@ def phase_exact_pruned(dev) -> int:
     return checks + k15 + k13
 
 
+def unsigned_sort(x, dim: int):
+    """Sort int32 views of uint32 values as unsigned: ``(values, order)``
+    (a signed sort would put ids >= 2**31 and the sentinel first)."""
+    import torch
+
+    flip = torch.iinfo(torch.int32).min
+    keys, order = torch.sort(x ^ flip, dim=dim, stable=True)
+    return keys ^ flip, order
+
+
+def sparse_rows(ids, vals):
+    """Rows of (ids, values) sorted as unsigned, each repeated id (and the
+    given sentinels, id -1 = 0xFFFFFFFF) made sentinel padding with value
+    0.0 at the end of its row."""
+    import torch
+
+    ids, order = unsigned_sort(ids, 1)
+    vals = torch.gather(vals, 1, order)
+    rep = torch.zeros_like(ids, dtype=torch.bool)
+    rep[:, 1:] = ids[:, 1:] == ids[:, :-1]
+    ids, vals = torch.where(rep, -1, ids), torch.where(rep, 0.0, vals)
+    ids, order = unsigned_sort(ids, 1)
+    return ids, torch.gather(vals, 1, order)
+
+
+def phase_exact_slot_sparse(dev) -> int:
+    """The slot scan (K6/K7) and the sparse scan (K10) against their plain
+    versions, bit for bit (counts, and integer-valued sparse scores, are
+    exact in any summation order)."""
+    import torch
+
+    import innr_tpu_torch as itt
+    from innr_tpu_torch.kernels import knn as tk
+    from innr_tpu_torch.kernels import slot_knn as tsl
+    from innr_tpu_torch.kernels import sparse_knn as tsp
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    cap = tk.single_pass_k(1)
+    n = 3 * 1024 + 77
+    k_slot = 0
+    for dtype in (torch.int16, torch.int32):
+        info = torch.iinfo(dtype)
+        # Four slot values over the full width (the view's sign bit set in
+        # the first), so that counts tie often.
+        alphabet = torch.randint(info.min, info.max, (4,), generator=gen, device=dev, dtype=dtype)
+        alphabet[0] = info.min
+        name = f"slot_scan<uint{info.bits}>"
+        for s in (1, 7, 128, 256):
+            rows = alphabet[torch.randint(0, 4, (n, s), generator=gen, device=dev)]
+            rows[[100, 2000, n - 1]] = rows[5].clone()  # ties go to the lowest row
+            slots_t = rows.T.contiguous()
+            for n_q in (1, 5, 16, 33):
+                qs = alphabet[torch.randint(0, 4, (n_q, s), generator=gen, device=dev)]
+                qs[0] = rows[5]
+                for k in (1, 10, cap + 3):
+                    expect_equal(f"exact {name} s={s} q={n_q} k={k}",
+                                 tsl.fused_slot_keys_batch(qs, slots_t, k),
+                                 tsl.slot_knn_plain(qs, slots_t, k))
+                    k_slot += 1
+        # A raw (N, S) corpus on the card is transposed per call and still
+        # runs the kernel.
+        before = tsl.LAUNCHES
+        raw = itt.slot_knn_u16_batch if info.bits == 16 else itt.slot_knn_u32_batch
+        counts, idx = raw(qs, rows, 10)
+        if tsl.LAUNCHES == before:
+            raise AssertionError(f"{name}: a raw CUDA corpus did not launch the kernel")
+        expect_equal(f"exact {name} raw corpus", (-counts, idx), tsl.slot_knn_plain(qs, slots_t, 10))
+    torch.cuda.synchronize()
+    log(f"[exact] {k_slot} slot-scan checks agree bit for bit (and a raw corpus per width)")
+
+    # Ids over the full 32 bits (no sentinel among them), integer values:
+    # every product and sum below is exact.
+    vocab = torch.randint(-(2**31), 2**31, (512,), generator=gen, device=dev, dtype=torch.int32)
+    vocab[vocab == -1] = 0
+    k_sparse = 0
+    for l in (1, 32, 200):
+        ids = vocab[torch.randint(0, vocab.numel(), (n, l), generator=gen, device=dev)]
+        nnz = torch.randint(0, l + 1, (n, 1), generator=gen, device=dev)
+        ids = torch.where(torch.arange(l, device=dev) < nnz, ids, -1)  # sentinel padding
+        ids[0] = -1  # an empty document
+        vals = torch.randint(-4, 5, (n, l), generator=gen, device=dev).float()
+        ids, vals = sparse_rows(ids, vals)
+        for lq in (1, 64, 256, 300):
+            for n_q in (1, 16):
+                pick = torch.rand((n_q, vocab.numel()), generator=gen, device=dev).argsort(1)
+                q_idx = unsigned_sort(vocab[pick[:, :lq]], 1)[0]
+                q_val = torch.randint(-3, 4, (n_q, lq), generator=gen, device=dev).float()
+                if lq > 1:
+                    q_idx[:, 1] = q_idx[:, 0]  # a duplicate id: the first occurrence wins
+                if n_q > 1:  # shorter queries padded with the sentinel
+                    q_idx[1::2, lq // 2:], q_val[1::2, lq // 2:] = -1, 0.0
+                # NaN, +-inf and -0.0 on an entry that query 0 matches and
+                # on one that it does not.
+                hit = q_idx[0, 0]
+                miss = vocab[~torch.isin(vocab, q_idx[0])][0]
+                for d, (i, v) in enumerate(((hit, float("nan")), (miss, float("nan")),
+                                            (hit, float("inf")), (miss, -float("inf")),
+                                            (hit, -0.0), (miss, float("inf"))), start=10):
+                    ids[d], vals[d] = -1, 0.0
+                    ids[d, 0], vals[d, 0] = i, v
+                idx_t, val_t = ids.T.contiguous(), vals.T.contiguous()
+                for k in (1, 10, cap + 3):
+                    expect_equal(f"exact sparse_scan l={l} lq={lq} q={n_q} k={k}",
+                                 tsp.fused_sparse_keys_batch(q_idx, q_val, idx_t, val_t, k),
+                                 tsp.sparse_knn_plain(q_idx, q_val, idx_t, val_t, k))
+                    k_sparse += 1
+    torch.cuda.synchronize()
+    log(f"[exact] {k_sparse} sparse-scan checks agree bit for bit")
+    return k_slot + k_sparse
+
+
 # -- phase 3 ---------------------------------------------------------------
 
 def _tol_dot(qs, rows, chunk=1 << 21):
@@ -659,7 +837,7 @@ def _median_ms(fn, reps: int = 7) -> float:
     return statistics.median(times)
 
 
-def phase_timing(corpora: dict) -> dict:
+def phase_timing(corpora: dict, bounds: dict) -> dict:
     import torch
 
     from innr_tpu_torch.kernels import knn as tk
@@ -677,9 +855,16 @@ def phase_timing(corpora: dict) -> dict:
         read = _median_ms(lambda: rows.view(torch.float32).sum())
         out[name] = (kernel, plain, read)
         n, d = rows.shape
-        log(f"[timing] {name} {n} x {d}, Q={qs.shape[0]}, k=10: kernel {kernel!r} ms, "
+        n_q = qs.shape[0]
+        # f32 stays true f32 (no TF32); bf16 products are exact on the
+        # tensor cores; u8 codes meet f32 queries, so f32 again.
+        unit = "bf16" if name == "bfloat16" else "fp32"
+        b = bound(rows.numel() * rows.element_size() + qs.numel() * 4 + n_q * 10 * 8,
+                  **{unit: 2 * n_q * n * d})
+        bounds[f"knn_scan+knn_merge<{name}>"] = b
+        log(f"[timing] {name} {n} x {d}, Q={n_q}, k=10: kernel {kernel!r} ms, "
             f"plain {plain!r} ms, same-bytes read {read!r} ms, "
-            f"roofline fraction (read/kernel) {read / kernel!r}")
+            f"roofline fraction (read/kernel) {read / kernel!r}, {bound_text(b)}")
     return out
 
 
@@ -781,7 +966,7 @@ def _scan_equivalents(ms: float, full_ms: float) -> str:
     return f"{ms!r} ms = {ms / full_ms!r} scan-equivalents"
 
 
-def phase_prune(dev, full_ms: float, errs: dict) -> tuple[dict, dict]:
+def phase_prune(dev, full_ms: float, errs: dict, bounds: dict) -> tuple[dict, dict]:
     """3d and its timing: prune=True, batch_knn_adaptive,
     batch_l2_squared_pruning, cluster_reorder and IVFIndex at 10M x 128,
     each path with the counters reset just before it and read just after.
@@ -883,11 +1068,17 @@ def phase_prune(dev, full_ms: float, errs: dict) -> tuple[dict, dict]:
     read_all = _median_ms(lambda: rows.sum())
     read_surv = _median_ms(lambda: rows[:surv_rows].sum())
     times["knn_scan_tiles+knn_merge"] = (kernel, plain_ms)
+    # The surviving rows read once (the work this plan needs), the plan and
+    # the queries read, the (Q, k) result written.
+    bounds["knn_scan_tiles+knn_merge"] = bound(
+        4 * (surv_rows * 128 + n_q * 128 + s.n_tiles + 1) + 8 * n_q * k,
+        fp32=2 * n_q * surv_rows * 128)
     log(f"[timing] pruned scan, clustered {n} x 128 f32, Q={n_q}, k={k}: {int(n_surv)} of "
         f"{s.n_tiles} tiles ({surv_rows} rows) read; tile kernel {kernel!r} ms, prune=True "
         f"end to end {e2e!r} ms, plain {plain_ms!r} ms, K1 full scan {full_ms!r} ms "
         f"(speedup {full_ms / e2e!r} end to end), read of all rows {read_all!r} ms, of the "
-        f"surviving rows {read_surv!r} ms")
+        f"surviving rows {read_surv!r} ms, "
+        f"{bound_text(bounds['knn_scan_tiles+knn_merge'])}")
 
     t_surv_rows = min(n, int(t_surv) * s.tile_n)
     got = tpk.threshold_dists(q0, rows, norms2, t_order, t_surv, s.tile_n)
@@ -905,11 +1096,21 @@ def phase_prune(dev, full_ms: float, errs: dict) -> tuple[dict, dict]:
     all_n = torch.full((1,), s.n_tiles, dtype=torch.int32, device=dev)
     kernel_all = _median_ms(lambda: tpk.threshold_dists(q0, rows, norms2, every, all_n,
                                                         s.tile_n))
+    # Over every tile the scan is norms2 - 2 rows.q, one torch.addmv.
+    addmv_all = _median_ms(lambda: torch.addmv(norms2, rows, q0, alpha=-2.0))
     times["threshold_scan"] = (kernel, plain_ms)
+
+    def threshold_bound(read_rows):
+        """The rows read and their norms, the query, the (N,) result."""
+        return bound(4 * (read_rows * 129 + 128 + n), fp32=2 * 128 * read_rows)
+
+    bounds["threshold_scan"] = threshold_bound(t_surv_rows)
     log(f"[timing] threshold scan, clustered {n} x 128 f32, threshold {thr}: {int(t_surv)} "
         f"tiles ({t_surv_rows} rows); kernel {kernel!r} ms, plain {plain_ms!r} ms, read of "
-        f"the surviving rows {read_t!r} ms; every tile: kernel {kernel_all!r} ms, read "
-        f"{read_all!r} ms (read/kernel {read_all / kernel_all!r})")
+        f"the surviving rows {read_t!r} ms, {bound_text(bounds['threshold_scan'])}; every "
+        f"tile: kernel {kernel_all!r} ms, read {read_all!r} ms (read/kernel "
+        f"{read_all / kernel_all!r}), torch.addmv {addmv_all!r} ms, "
+        f"{bound_text(threshold_bound(n))}")
 
     cent256 = centers + 0.1 * torch.randn(centers.shape, generator=gen, device=dev)
     errs["nearest_centroid"] = _assign_check(
@@ -918,8 +1119,13 @@ def phase_prune(dev, full_ms: float, errs: dict) -> tuple[dict, dict]:
     kernel = _median_ms(lambda: ta.nearest_centroid(rows, cent256))
     plain_ms = _median_ms(lambda: ta.nearest_centroid_plain(rows, cent256))
     times["nearest_centroid"] = (kernel, plain_ms)
+
+    def assign_bound(kc):
+        return bound(4 * (n * 128 + kc * 128 + n), fp32=2 * n * kc * 128)
+
+    bounds["nearest_centroid"] = assign_bound(256)
     log(f"[timing] nearest_centroid {n} x 128, KC=256: kernel {kernel!r} ms, plain "
-        f"{plain_ms!r} ms")
+        f"{plain_ms!r} ms, {bound_text(bounds['nearest_centroid'])}")
     del vb, vb16, rows, full, plain, norms2
     torch.cuda.empty_cache()
 
@@ -982,7 +1188,7 @@ def phase_prune(dev, full_ms: float, errs: dict) -> tuple[dict, dict]:
     kernel = _median_ms(lambda: ta.nearest_centroid(rows, cent), reps=3)
     plain_ms = _median_ms(lambda: ta.nearest_centroid_plain(rows, cent), reps=3)
     log(f"[timing] nearest_centroid {n} x 128, KC={n_clusters}: kernel {kernel!r} ms, plain "
-        f"{plain_ms!r} ms (median of 3)")
+        f"{plain_ms!r} ms (median of 3), {bound_text(assign_bound(n_clusters))}")
     del rows, full
     torch.cuda.empty_cache()
     return total, times
@@ -1014,13 +1220,13 @@ def _assign_check(name: str, rows, cent, got, want) -> float:
     return float(gap.max())
 
 
-def _timed(name: str, kernel, plain, read, pops: int) -> tuple:
-    """Kernel, plain and same-bytes read medians; logs the roofline fraction
-    and popcounts per ms (``pops`` popcounts per call)."""
+def _timed(name: str, kernel, plain, read, pops: int, b: tuple) -> tuple:
+    """Kernel, plain and same-bytes read medians; logs the roofline fraction,
+    popcounts per ms (``pops`` popcounts per call) and the bound ``b``."""
     k_ms, p_ms, r_ms = _median_ms(kernel), _median_ms(plain), _median_ms(read)
     log(f"[timing] {name}: kernel {k_ms!r} ms, plain {p_ms!r} ms, same-bytes read "
         f"{r_ms!r} ms, roofline fraction (read/kernel) {r_ms / k_ms!r}, "
-        f"popcounts per ms {pops / k_ms!r}")
+        f"popcounts per ms {pops / k_ms!r}, {bound_text(b)}")
     return k_ms, p_ms, r_ms
 
 
@@ -1030,9 +1236,10 @@ def _check_path(path: str, launches: dict, names) -> None:
             raise AssertionError(f"the {path} path launched no {name}")
 
 
-def phase_packed(dev) -> tuple[dict, dict, dict]:
+def phase_packed(dev, bounds: dict) -> tuple[dict, dict, dict]:
     """3b and its timing: the packed families at full size. Returns the
-    path's launches, and per kernel its times and max abs error."""
+    path's launches, and per kernel its times and max abs error; fills
+    ``bounds``."""
     import numpy as np
     import torch
 
@@ -1103,38 +1310,51 @@ def phase_packed(dev) -> tuple[dict, dict, dict]:
                                    "packed_rows<binary>", "packed_rows<ternary>")}
 
     times = {}
+
+    def scan_bound(n, planes, n_q, k):
+        """Word planes read once, queries read, (Q, k) keys and rows written;
+        one popcount per word, plane and query (the scarcest unit)."""
+        return bound(4 * w * planes * (n + n_q) + 8 * n_q * k, popc=n * w * planes * n_q)
+
+    def rows_bound(n, planes):
+        return bound(4 * w * planes * (n + 1) + 4 * n, popc=n * w * planes)
+
+    bounds["packed_scan<binary>"] = scan_bound(30_000_000, 1, n_q, k)
+    bounds["packed_scan<ternary>"] = scan_bound(15_000_000, 2, n_q, k)
+    bounds["packed_rows<binary>"] = rows_bound(30_000_000, 1)
+    bounds["packed_rows<ternary>"] = rows_bound(15_000_000, 2)
     scan_pops = 30_000_000 * w * n_q  # ternary: 2 popcounts a word over half the rows
     times["packed_scan<binary>"] = _timed(
         f"packed_scan<binary> 30M x {d} bits, Q={n_q}, k={k}",
         lambda: tp.fused_packed_keys_batch((qb,), (bb.words_t,), k),
         lambda: tp.packed_knn_plain((qb,), (bb.words_t,), k),
-        lambda: bb.words_t.view(torch.float32).sum(), scan_pops)
+        lambda: bb.words_t.view(torch.float32).sum(), scan_pops, bounds["packed_scan<binary>"])
     times["packed_scan<ternary>"] = _timed(
         f"packed_scan<ternary> 15M x {d}, Q={n_q}, k={k}",
         lambda: tp.fused_packed_keys_batch((qtp, qtn), (tb.pos_t, tb.neg_t), k),
         lambda: tp.packed_knn_plain((qtp, qtn), (tb.pos_t, tb.neg_t), k),
         lambda: tb.pos_t.view(torch.float32).sum() + tb.neg_t.view(torch.float32).sum(),
-        scan_pops)
+        scan_pops, bounds["packed_scan<ternary>"])
     _timed(f"packed_scan<binary> 1M x {d} bits, Q=1, k={k1}",
            lambda: tp.fused_packed_keys_batch((qb[:1],), (bb1.words_t,), k1),
            lambda: tp.packed_knn_plain((qb[:1],), (bb1.words_t,), k1),
-           lambda: bb1.words_t.view(torch.float32).sum(), n1 * w)
+           lambda: bb1.words_t.view(torch.float32).sum(), n1 * w, scan_bound(n1, 1, 1, k1))
     _timed(f"packed_scan<ternary> 1M x {d}, Q=1, k={k1}",
            lambda: tp.fused_packed_keys_batch((qtp[:1], qtn[:1]), (tb1.pos_t, tb1.neg_t), k1),
            lambda: tp.packed_knn_plain((qtp[:1], qtn[:1]), (tb1.pos_t, tb1.neg_t), k1),
            lambda: tb1.pos_t.view(torch.float32).sum() + tb1.neg_t.view(torch.float32).sum(),
-           2 * n1 * w)
+           2 * n1 * w, scan_bound(n1, 2, 1, k1))
     times["packed_rows<binary>"] = _timed(
         f"packed_rows<binary> 30M x {d} bits",
         lambda: th.packed_rows((qb[0],), (bb.words,)),
         lambda: th.hamming_rows_plain((qb[0],), (bb.words,)),
-        lambda: bb.words.view(torch.float32).sum(), 30_000_000 * w)
+        lambda: bb.words.view(torch.float32).sum(), 30_000_000 * w, bounds["packed_rows<binary>"])
     times["packed_rows<ternary>"] = _timed(
         f"packed_rows<ternary> 15M x {d}",
         lambda: th.packed_rows((qtp[0], qtn[0]), (tb.pos, tb.neg)),
         lambda: th.hamming_rows_plain((qtp[0], qtn[0]), (tb.pos, tb.neg)),
         lambda: tb.pos.view(torch.float32).sum() + tb.neg.view(torch.float32).sum(),
-        2 * 15_000_000 * w)
+        2 * 15_000_000 * w, bounds["packed_rows<ternary>"])
     return launches, times, errs
 
 
@@ -1236,6 +1456,186 @@ def phase_pipeline(dev, errs: dict) -> dict:
     return launches
 
 
+def _random_slots(gen, n: int, s: int, dtype, dev):
+    """(n, s) slots drawn over the full width of the view type, in chunks."""
+    import torch
+
+    info = torch.iinfo(dtype)
+    out = torch.empty((n, s), dtype=dtype, device=dev)
+    for a in range(0, n, 1 << 20):
+        b = min(n, a + (1 << 20))
+        out[a:b] = torch.randint(info.min, info.max + 1, (b - a, s), generator=gen, device=dev,
+                                 dtype=dtype)
+    return out
+
+
+def phase_slot(dev, errs: dict, bounds: dict) -> tuple[dict, dict]:
+    """3e and its timing: MinHash retrieval on 10M x 128 uint32 and uint16
+    SketchCorpora, each path with the counters reset just before it and
+    read just after. Returns the paths' launches and each width's (ms,
+    plain ms) at Q = 16."""
+    import torch
+
+    import innr_tpu_torch as itt
+    from innr_tpu_torch.kernels import slot_knn as tsl
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    n, s, n_q, k = N_SKETCH, SLOTS, 16, 10
+    total, times = {}, {}
+    for dtype in (torch.int32, torch.int16):
+        bits = torch.iinfo(dtype).bits
+        name = f"slot_scan<uint{bits}>"
+        sketches = _random_slots(gen, n, s, dtype, dev)
+        # Near-duplicate queries: corpus rows with 13 of 128 slots redrawn
+        # (Jaccard about 0.9), each row also planted at a later row, so
+        # that two rows tie at the smallest count (the lower one first).
+        rows = torch.arange(n_q, device=dev) * (n // n_q) + 12_345
+        sketches[(rows + 1_000_003) % n] = sketches[rows]
+        qs = sketches[rows].clone()
+        qs[:, :13] = _random_slots(gen, n_q, 13, dtype, dev)
+        corpus = itt.SketchCorpus(sketches)
+        torch.cuda.synchronize()
+        reset_counts()
+        fn = itt.slot_knn_u32 if bits == 32 else itt.slot_knn_u16
+        fn_batch = itt.slot_knn_u32_batch if bits == 32 else itt.slot_knn_u16_batch
+        batch = fn_batch(qs, corpus, k)
+        one = fn(qs[0], corpus, k)
+        sims, sims_idx = itt.minhash_knn_batch(qs, corpus, k)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        _check_path(f"MinHash uint{bits}", counts, [name])
+        for key, v in counts.items():
+            total[key] = total.get(key, 0) + v
+        keys, idx = tsl.slot_knn_plain(qs, corpus.slots_t, k)
+        expect_equal(f"slot_knn_u{bits}_batch {n} x {s}", (-batch[0], batch[1]), (keys, idx))
+        expect_equal(f"slot_knn_u{bits}", (-one[0][None], one[1][None]), (keys[:1], idx[:1]))
+        want = 1.0 - (-keys).to(torch.float32) / torch.tensor(float(s), device=dev)
+        if not (torch.equal(sims_idx, idx) and bits_equal(sims, want)):
+            raise AssertionError(f"minhash_knn_batch uint{bits}: != 1 - plain count / S")
+        errs[name] = 0.0  # counts are exact
+        log(f"[main] MinHash {n} x {s} uint{bits}: slot_knn_u{bits}_batch (Q={n_q}), "
+            f"slot_knn_u{bits} and minhash_knn_batch (k={k}) equal the plain version; "
+            f"best counts {(-keys[:4, 0]).tolist()} at rows {idx[:4, 0].tolist()}, "
+            f"launches {counts[name]}")
+
+        def slot_bound(q):
+            size = bits // 8
+            return bound(size * (n * s + q * s) + 8 * q * k, int32=2 * n * s * q)
+
+        bounds[name] = slot_bound(n_q)
+        read = lambda: corpus.slots_t.view(torch.float32).sum()  # noqa: E731
+        for q, reps in ((n_q, 7), (1, 7)):
+            kernel = _median_ms(lambda: tsl.fused_slot_keys_batch(qs[:q], corpus.slots_t, k))
+            plain = _median_ms(lambda: tsl.slot_knn_plain(qs[:q], corpus.slots_t, k), reps=reps)
+            read_ms = _median_ms(read)
+            if q == n_q:
+                times[name] = (kernel, plain)
+            log(f"[timing] {name} {n} x {s}, Q={q}, k={k}: kernel {kernel!r} ms, plain "
+                f"{plain!r} ms, same-bytes read {read_ms!r} ms, roofline fraction "
+                f"(read/kernel) {read_ms / kernel!r}, compares per ms {n * s * q / kernel!r}, "
+                f"{bound_text(slot_bound(q))}")
+        del corpus, sketches
+        torch.cuda.empty_cache()
+    return total, times
+
+
+def _zipf_sparse_corpus(gen, dev, perm, cdf):
+    """N_SPARSE documents of ENTRIES ids drawn from the Zipf law ``cdf``
+    over ranks (``perm`` maps a rank to its id), values |N(0, 1)|, each row
+    sorted as unsigned with repeats as sentinel padding."""
+    import torch
+
+    ids = torch.empty((N_SPARSE, ENTRIES), dtype=torch.int32, device=dev)
+    vals = torch.empty((N_SPARSE, ENTRIES), dtype=torch.float32, device=dev)
+    for a in range(0, N_SPARSE, 1 << 20):
+        b = min(N_SPARSE, a + (1 << 20))
+        u = torch.rand((b - a, ENTRIES), generator=gen, device=dev)
+        ranks = torch.searchsorted(cdf, u).clamp_(max=VOCAB - 1)
+        v = torch.randn((b - a, ENTRIES), generator=gen, device=dev).abs_()
+        ids[a:b], vals[a:b] = sparse_rows(perm[ranks], v)
+    return ids, vals
+
+
+def phase_sparse(dev, errs: dict, bounds: dict) -> tuple[dict, dict]:
+    """3f and its timing: learned-sparse retrieval on two 10M x 32
+    SparseCorpora (WordPiece ids, then ids hashed over the full 32 bits),
+    each path with the counters reset just before it and read just after.
+    Returns the paths' launches and the sparse scan's (ms, plain ms) at
+    Q = 1 on the WordPiece corpus."""
+    import torch
+
+    import innr_tpu_torch as itt
+    from innr_tpu_torch.kernels import sparse_knn as tsp
+    from innr_tpu_torch.utils.order import invert_total_key
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    n, l, lq, n_q, k = N_SPARSE, ENTRIES, QUERY_NNZ, 16, 10
+    # Zipf's law with exponent 1 over the vocabulary's frequency ranks.
+    p = 1.0 / torch.arange(1, VOCAB + 1, dtype=torch.float64, device=dev)
+    cdf = (torch.cumsum(p, 0) / p.sum()).float()
+    perm = torch.randperm(VOCAB, generator=gen, device=dev).to(torch.int32)
+    ranks = torch.stack([torch.multinomial(p.float(), lq, replacement=False, generator=gen)
+                         for _ in range(n_q)])
+    q_val = torch.randn((n_q, lq), generator=gen, device=dev).abs_()
+    total, times = {}, {}
+    hashed = torch.randint(-(2**31), 2**31, (VOCAB,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    hashed[hashed == -1] = 0  # keep the sentinel out of the id space
+    for space in ("WordPiece", "hashed 32-bit"):
+        to_id = perm if space == "WordPiece" else hashed[perm.long()]
+        ids, vals = _zipf_sparse_corpus(gen, dev, to_id, cdf)
+        q_idx, order = unsigned_sort(to_id[ranks], 1)
+        qv = torch.gather(q_val, 1, order)
+        corpus = itt.SparseCorpus((ids, vals))
+        idx_t, val_t = corpus._transposed()
+        torch.cuda.synchronize()
+        reset_counts()
+        one = itt.sparse_knn((q_idx[0], qv[0]), corpus, k)
+        batch = itt.sparse_knn_batch((q_idx, qv), corpus, k)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        _check_path(f"sparse ({space})", counts, ["sparse_scan"])
+        for key, v in counts.items():
+            total[key] = total.get(key, 0) + v
+        pk, pi = tsp.sparse_knn_plain(q_idx, qv, idx_t, val_t, k + 1)
+        want = invert_total_key(pk)
+        # 32 eps of the largest possible sum of |products| (cond_tol).
+        tol = (32 * EPS32 * float(vals.abs().sum(1).max())
+               * qv.abs().max(1, keepdim=True).values.double())
+        err = check_close(f"sparse_knn_batch ({space})", *batch, want, pi, tol)
+        err = max(err, check_close(f"sparse_knn ({space})", one[0][None], one[1][None],
+                                   want[:1], pi[:1], tol[:1]))
+        errs["sparse_scan"] = max(errs.get("sparse_scan", 0.0), err)
+        padding = float((ids == -1).float().mean())
+        log(f"[main] sparse {n} x {l} ({space} ids, {padding!r} of entries padding): "
+            f"sparse_knn and sparse_knn_batch ({n_q} queries of {lq}, k={k}) agree with the "
+            f"plain version (max abs err {err!r}), launches {counts['sparse_scan']}")
+
+        def sparse_bound(q):
+            # The function's own least work, not this kernel's: one shared
+            # lookup per corpus entry serves the whole batch (a table of
+            # the batch's ids), and the matched products, fewer than
+            # n * l * q FMAs, stay far below the bytes at any q here.
+            return bound(8 * (n * l + q * lq) + 8 * q * k, shared=n * l)
+
+        read = lambda: idx_t.view(torch.float32).sum() + val_t.sum()  # noqa: E731
+        for q, reps in ((1, 7), (n_q, 3)):
+            kernel = _median_ms(lambda: tsp.fused_sparse_keys_batch(q_idx[:q], qv[:q], idx_t,
+                                                                    val_t, k))
+            plain = _median_ms(lambda: tsp.sparse_knn_plain(q_idx[:q], qv[:q], idx_t, val_t, k),
+                               reps=reps)
+            read_ms = _median_ms(read)
+            if q == 1 and space == "WordPiece":
+                times["sparse_scan"] = (kernel, plain)
+                bounds["sparse_scan"] = sparse_bound(1)
+            log(f"[timing] sparse_scan {n} x {l} ({space}), Q={q}, Lq={lq}, k={k}: kernel "
+                f"{kernel!r} ms, plain {plain!r} ms, same-bytes read {read_ms!r} ms, roofline "
+                f"fraction (read/kernel) {read_ms / kernel!r}, {bound_text(sparse_bound(q))}")
+        del corpus, ids, vals, idx_t, val_t
+        torch.cuda.empty_cache()
+    return total, times
+
+
 def main() -> int:
     if not (ROOT / "innr_tpu_torch").is_dir():
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -1250,24 +1650,33 @@ def main() -> int:
     phase_exact(dev)
     phase_exact_packed(dev)
     phase_exact_pruned(dev)
-    corpora, errs = {}, {}
+    phase_exact_slot_sparse(dev)
+    corpora, errs, bounds = {}, {}, {}
     launches = phase_main(dev, corpora, errs)
     _check_path("batch-kNN", launches,
                 [f"knn_scan+knn_merge<{name}>" for name in ("float32", "bfloat16", "uint8")])
-    times = {f"knn_scan+knn_merge<{name}>": t for name, t in phase_timing(corpora).items()}
+    times = {f"knn_scan+knn_merge<{name}>": t
+             for name, t in phase_timing(corpora, bounds).items()}
     full_ms = times["knn_scan+knn_merge<float32>"][0]
     gauss_launches, _ = phase_gaussian_prune(dev, corpora, full_ms)
     corpora.clear()
     torch.cuda.empty_cache()
-    packed_launches, packed_times, packed_errs = phase_packed(dev)
+    packed_launches, packed_times, packed_errs = phase_packed(dev, bounds)
     times.update(packed_times)
     torch.cuda.empty_cache()
     pipeline_launches = phase_pipeline(dev, errs)
     torch.cuda.empty_cache()
     prune_errs = {}
-    prune_launches, prune_times = phase_prune(dev, full_ms, prune_errs)
+    prune_launches, prune_times = phase_prune(dev, full_ms, prune_errs, bounds)
     times.update(prune_times)
-    for counts in (gauss_launches, packed_launches, pipeline_launches, prune_launches):
+    torch.cuda.empty_cache()
+    slot_launches, slot_times = phase_slot(dev, prune_errs, bounds)
+    times.update(slot_times)
+    torch.cuda.empty_cache()
+    sparse_launches, sparse_times = phase_sparse(dev, prune_errs, bounds)
+    times.update(sparse_times)
+    for counts in (gauss_launches, packed_launches, pipeline_launches, prune_launches,
+                   slot_launches, sparse_launches):
         for name, n in counts.items():
             launches[name] += n
     for name in prune_times:
@@ -1285,7 +1694,14 @@ def main() -> int:
         ("knn_scan_tiles+knn_merge", "knn.cu", "pruned_knn.py:80,162"),
         ("threshold_scan", "pruned.cu", "pruned_knn.py:483,566"),
         ("nearest_centroid", "assign.cu", "assign.py:71"),
+        ("slot_scan<uint32>", "slot_knn.cu", "slot_knn.py:83,145"),
+        ("slot_scan<uint16>", "slot_knn.cu", "slot_knn.py:83,145"),
+        ("sparse_scan", "sparse_knn.cu", "sparse_knn.py:73"),
     ]
+    # No single PyTorch call computes any of these functions: the scans
+    # need a product (or a count) and a selection, and torch has no
+    # popcount; over every tile the threshold scan is one torch.addmv,
+    # which phase 4 times beside it.
     record = {"kernels": [
         {
             "name": name,
@@ -1296,6 +1712,9 @@ def main() -> int:
             "max_abs_err": errs[name],
             "ms": times[name][0],
             "plain_ms": times[name][1],
+            "bound_ms": bounds[name][0],
+            "bound_by": bounds[name][1],
+            "library_ms": None,
         }
         for name, source, replaces in kernels
     ]}

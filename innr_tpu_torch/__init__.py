@@ -17,10 +17,20 @@ module names. Ported so far:
   layout passes (``cluster_order``, ``cluster_reorder``) and
   :class:`IVFIndex`, on the pruned tile scan (``csrc/knn.cu``), the
   threshold scan (``csrc/pruned.cu``) and the nearest-centroid pass
-  (``csrc/assign.cu``).
+  (``csrc/assign.cu``);
+- MinHash / b-bit slot sketches (:class:`SketchCorpus`, ``slot_knn_u16``,
+  ``slot_knn_u32``, ``minhash_knn`` and their ``_batch`` forms, the
+  pairwise slot ops) on the slot scan (``csrc/slot_knn.cu``);
+- learned-sparse retrieval (:class:`SparseCorpus`, ``sparse_knn``,
+  ``sparse_knn_batch``) on the sparse scan (``csrc/sparse_knn.cu``), the
+  sparse MaxSim functions and :mod:`innr_tpu_torch.ops.sparse_ext` (plain
+  torch, as in the JAX package).
 
 Corpora on a CUDA device run the hand-written kernels; corpora on the CPU
-run their plain PyTorch versions.
+run their plain PyTorch versions. Host data (numpy, lists, JAX arrays)
+given without a ``device`` goes to :func:`config.default_device`, the
+card, and raises without one; pass ``device="cpu"`` or
+``config.set_default_device("cpu")`` to run on the CPU.
 
 Contracts: dispatching functions raise :class:`ContractError` on shape
 mismatch; cosine returns 0.0 for effectively-zero norms (< 1e-9); orderings
@@ -81,6 +91,35 @@ from innr_tpu_torch.ops.scalar import (
     mixed_dot_u8_f32,
     quantize_u8,
     query_context,
+)
+from innr_tpu_torch.ops.slot import (
+    SketchCorpus,
+    SlotCounts,
+    batch_slot_hamming_u32,
+    jaccard_distance,
+    minhash_jaccard,
+    minhash_knn,
+    minhash_knn_batch,
+    slot_compare_counts,
+    slot_hamming,
+    slot_hamming_u16,
+    slot_hamming_u32,
+    slot_hamming_u64,
+    slot_knn_u16,
+    slot_knn_u16_batch,
+    slot_knn_u32,
+    slot_knn_u32_batch,
+)
+from innr_tpu_torch.ops.sparse import (
+    SparseCorpus,
+    pad_sparse,
+    pad_sparse_docs,
+    sparse_dot,
+    sparse_knn,
+    sparse_knn_batch,
+    sparse_maxsim,
+    sparse_maxsim_batch,
+    sparse_maxsim_knn,
 )
 from innr_tpu_torch.ops.ternary import (
     PackedTernary,

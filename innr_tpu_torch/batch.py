@@ -39,6 +39,7 @@ from innr_tpu_torch.prune import build_tile_summary, cluster_reorder, suggest_ti
 from innr_tpu_torch.utils.asserts import ContractError
 from innr_tpu_torch.utils.order import composite_keys, top_k_total, total_order_key_f32
 from innr_tpu_torch.utils.padding import round_up
+from innr_tpu_torch.utils.tensors import host_device
 
 __all__ = [
     "VerticalBatch",
@@ -79,8 +80,8 @@ class VerticalBatch:
     ``rows``: an (N, D) float32 or bfloat16 tensor. ``dtype=torch.bfloat16``
     stores the corpus in half precision: scans read half the bytes, and
     scores carry bf16 input rounding (~1e-2 relative). Host data goes to
-    ``device`` (default CPU); a tensor stays on its device unless
-    ``device`` is given.
+    ``device``, default :func:`innr_tpu_torch.config.default_device` (the
+    card); a tensor stays on its device unless ``device`` is given.
     """
 
     __slots__ = ("rows", "_norms2", "_inv_norms", "_tile_summary", "_tile_summary_norm",
@@ -94,10 +95,10 @@ class VerticalBatch:
         else:
             arr = np.asarray(rows)
             if arr.dtype.name == "bfloat16":
-                rows = _bf16_from_numpy(arr).to(device=device or "cpu", dtype=dtype)
+                rows = _bf16_from_numpy(arr).to(device=host_device(device), dtype=dtype)
             else:
                 rows = torch.as_tensor(
-                    np.asarray(arr, dtype=np.float32), device=device or "cpu"
+                    np.asarray(arr, dtype=np.float32), device=host_device(device)
                 ).to(dtype)
         if rows.dim() != 2:
             raise ContractError(

@@ -7,6 +7,13 @@ time. Without it, a CUDA tensor always goes to the hand-written kernel and a
 CPU tensor to the plain version: there is no size gate in this package yet
 (whether one pays on the GPU is an open, to-be-measured question).
 
+Default device: host data (numpy arrays, sequences, JAX arrays) given to a
+constructor or loader without a ``device`` goes to :func:`default_device`,
+the CUDA card, as the JAX package puts host arrays on its accelerator.
+Without a card that raises; a caller reaches the CPU only by asking for it
+(``device="cpu"``, or :func:`set_default_device`). A tensor the caller
+passes keeps its device.
+
 Matmul precision: "highest" (the default) means true fp32. It sets
 ``torch.backends.cuda.matmul.allow_tf32 = False`` and float32 matmul
 precision "highest", so the plain version's ``torch.matmul`` on the card
@@ -39,6 +46,22 @@ PRUNE_BOUND_EPS: float = 1e-4
 _PRUNE_ROUTE_MIN_ELIDE: float = 0.10
 
 _MATMUL_PRECISION: str = "highest"
+
+_DEFAULT_DEVICE: torch.device = torch.device("cuda")
+
+
+def default_device() -> torch.device:
+    """Where host data goes when no ``device`` is given (the CUDA card
+    unless :func:`set_default_device` said otherwise)."""
+    return _DEFAULT_DEVICE
+
+
+def set_default_device(device) -> torch.device:
+    """Set the default device for host data; returns the previous one, so
+    that a caller (a context manager, a test fixture) can restore it."""
+    global _DEFAULT_DEVICE
+    previous, _DEFAULT_DEVICE = _DEFAULT_DEVICE, torch.device(device)
+    return previous
 
 
 def set_prune_route_min_elide(fraction: float) -> None:

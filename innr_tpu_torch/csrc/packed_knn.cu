@@ -25,15 +25,16 @@
 // row's words (word w of neighbouring rows is contiguous in the (W, N)
 // layout, so a warp's loads are coalesced) and popcounts each against the
 // tile's queries, which sit in shared memory (every lane reads the same
-// address: a broadcast). The QT keys of each row go to shared memory; then
-// each warp owns max(QT, 8) / 8 top-k buffers and offers the tile's rows to
-// them (topk.cuh: a one-compare reject against the k-th best, a
-// warp-parallel sorted insert for the rare improving row). With QT < 8,
-// the G = 8 / QT warps of one query each keep a buffer over their own share
-// of the rows, so no warp idles, and fold them into one at the end. The
-// slab's top k per query goes to partial[(slab, q, k)], and knn_merge
-// (knn.cu) selects the final top k from all slabs. Composites are unique,
-// so the two-level selection equals one sequential stream exactly.
+// address: a broadcast). The QT keys of each row go through the CTA top-k
+// steps of row_scan.cuh, which slot_scan and sparse_scan share: each warp
+// owns max(QT, 8) / 8 top-k buffers and offers the tile's rows to them
+// (topk.cuh: a one-compare reject against the k-th best, a warp-parallel
+// sorted insert for the rare improving row). With QT < 8, the G = 8 / QT
+// warps of one query each keep a buffer over their own share of the rows,
+// so no warp idles, and fold them into one at the end. The slab's top k
+// per query goes to partial[(slab, q, k)], and knn_merge (knn.cu) selects
+// the final top k from all slabs. Composites are unique, so the two-level
+// selection equals one sequential stream exactly.
 //
 // What bounds it on the H100: population count issues at 16 per clock per
 // SM on compute capability 9.0, a quarter of the rate of the bitwise ops
@@ -47,68 +48,35 @@
 // wider loads, and batched inserts for large k.
 
 #include <cuda_runtime.h>
-#include <climits>
 
-#include "packed.cuh"  // kBinary, kTernary, word_score
-#include "topk.cuh"    // composite, warp_offer
+#include "packed.cuh"    // kBinary, kTernary, word_score
+#include "row_scan.cuh"  // TileTopK, load_query_words, kScan*
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowTile = kThreads;  // one corpus row per thread per tile
-constexpr int kChunks = kRowTile / 32;
-constexpr int kMaxQueryTile = 16;
-
-// QT consecutive query words from shared memory; 16-byte loads when QT is
-// a multiple of 4 (the caller aligns the rows of q_s to 16 bytes).
-template <int QT>
-__device__ __forceinline__ void load_query_words(const unsigned* q, unsigned (&out)[QT]) {
-  if constexpr (QT % 4 == 0) {
-#pragma unroll
-    for (int v = 0; v < QT / 4; ++v) {
-      const uint4 t = reinterpret_cast<const uint4*>(q)[v];
-      out[4 * v] = t.x;
-      out[4 * v + 1] = t.y;
-      out[4 * v + 2] = t.z;
-      out[4 * v + 3] = t.w;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < QT; ++j) out[j] = q[j];
-  }
-}
-
 template <int kKind, int QT>
-__global__ void __launch_bounds__(kThreads, 2) packed_scan(
+__global__ void __launch_bounds__(kScanThreads, 2) packed_scan(
     const unsigned* __restrict__ qp, const unsigned* __restrict__ qn,
     const unsigned* __restrict__ pos_t, const unsigned* __restrict__ neg_t,
     const long long* __restrict__ excl, long long* __restrict__ partial,
     int n_q, long long n, int w, int k, long long slab_rows) {
-  constexpr int G = QT >= kWarps ? 1 : kWarps / QT;  // buffers (warps) per query
-  constexpr int kBufs = QT * G;                      // max(QT, 8)
   extern __shared__ __align__(16) unsigned char smem[];
-  long long* best = reinterpret_cast<long long*>(smem);           // [kBufs][k]
-  long long* bound_s = best + kBufs * k;                           // [16]
-  int* keys_s = reinterpret_cast<int*>(bound_s + kMaxQueryTile);   // [QT][256]
-  unsigned* q_s = reinterpret_cast<unsigned*>(keys_s + QT * kRowTile);  // [planes][w][QT]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q0 = blockIdx.y * QT;
+  TileTopK<QT> top;
+  unsigned* q_s = reinterpret_cast<unsigned*>(top.init(smem, k, excl, q0, n_q));  // [planes][w][QT]
+  const int tid = threadIdx.x;
   const long long row_begin = static_cast<long long>(blockIdx.x) * slab_rows;
   const long long row_end = min(n, row_begin + slab_rows);
 
-  for (int i = tid; i < w * QT; i += kThreads) {
+  for (int i = tid; i < w * QT; i += kScanThreads) {
     const int wd = i / QT, q = q0 + i % QT;
     const bool ok = q < n_q;
     q_s[i] = ok ? qp[static_cast<size_t>(q) * w + wd] : 0u;
     if constexpr (kKind == kTernary) q_s[w * QT + i] = ok ? qn[static_cast<size_t>(q) * w + wd] : 0u;
   }
-  for (int i = tid; i < kBufs * k; i += kThreads) best[i] = LLONG_MIN;
-  if (tid < QT) bound_s[tid] = (excl != nullptr && q0 + tid < n_q) ? excl[q0 + tid] : LLONG_MAX;
   __syncthreads();
 
-  for (long long t0 = row_begin; t0 < row_end; t0 += kRowTile) {
+  for (long long t0 = row_begin; t0 < row_end; t0 += kScanRowTile) {
     const long long row = t0 + tid;
     int acc[QT];
 #pragma unroll
@@ -127,42 +95,12 @@ __global__ void __launch_bounds__(kThreads, 2) packed_scan(
       }
     }
 #pragma unroll
-    for (int j = 0; j < QT; ++j) keys_s[j * kRowTile + tid] = kKind == kBinary ? -acc[j] : acc[j];
+    for (int j = 0; j < QT; ++j)
+      top.keys[j * kScanRowTile + tid] = kKind == kBinary ? -acc[j] : acc[j];
     __syncthreads();
-
-    // Buffer bf holds query bf / G over the chunks of 32 rows c = g, g + G, ...
-    for (int bf = warp; bf < kBufs; bf += kWarps) {
-      const int j = bf / G, g = bf % G;
-      if (q0 + j >= n_q) continue;  // uniform across the warp
-      for (int c = g; c < kChunks; c += G) {
-        const int r = c * 32 + lane;
-        long long cand = LLONG_MIN;
-        if (t0 + r < row_end) {
-          cand = composite(keys_s[j * kRowTile + r], t0 + r);
-          if (cand >= bound_s[j]) cand = LLONG_MIN;
-        }
-        warp_offer(best + bf * k, k, cand, lane);
-      }
-    }
-    __syncthreads();
+    top.offer(k, t0, row_end, q0, n_q);
   }
-
-  if constexpr (G > 1) {  // one buffer per warp: fold a query's G into its first
-    const int j = warp / G;
-    if (warp % G == 0 && q0 + j < n_q) {
-      for (int bf = warp + 1; bf < warp + G; ++bf)
-        for (int base = 0; base < k; base += 32) {
-          const int i = base + lane;
-          warp_offer(best + warp * k, k, i < k ? best[bf * k + i] : LLONG_MIN, lane);
-        }
-    }
-    __syncthreads();
-  }
-  for (int f = tid; f < QT * k; f += kThreads) {
-    const int j = f / k, q = q0 + j;
-    if (q < n_q)
-      partial[(static_cast<size_t>(blockIdx.x) * n_q + q) * k + f % k] = best[j * G * k + f % k];
-  }
+  top.write(k, q0, n_q, partial);
 }
 
 template <int kKind, int QT>
@@ -170,19 +108,17 @@ cudaError_t launch_scan_as(const unsigned* qp, const unsigned* qn, const unsigne
                            const unsigned* neg_t, const long long* excl, long long* partial,
                            int n_q, long long n, int w, int k, int slab_rows,
                            cudaStream_t stream) {
-  constexpr int kBufs = QT >= kWarps ? QT : kWarps;
   constexpr int kPlanes = kKind == kTernary ? 2 : 1;
-  const size_t smem = sizeof(long long) * (static_cast<size_t>(kBufs) * k + kMaxQueryTile) +
-                      sizeof(int) * QT * kRowTile +
-                      sizeof(unsigned) * static_cast<size_t>(kPlanes) * w * QT;
+  const size_t smem =
+      topk_smem_bytes<QT>(k) + sizeof(unsigned) * static_cast<size_t>(kPlanes) * w * QT;
   cudaError_t err = cudaFuncSetAttribute(packed_scan<kKind, QT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const long long n_slabs = (n + slab_rows - 1) / slab_rows;
   const dim3 grid(static_cast<unsigned>(n_slabs), (n_q + QT - 1) / QT);
-  packed_scan<kKind, QT><<<grid, kThreads, smem, stream>>>(qp, qn, pos_t, neg_t, excl, partial,
-                                                           n_q, n, w, k, slab_rows);
+  packed_scan<kKind, QT><<<grid, kScanThreads, smem, stream>>>(qp, qn, pos_t, neg_t, excl,
+                                                               partial, n_q, n, w, k, slab_rows);
   return cudaGetLastError();
 }
 
@@ -213,7 +149,7 @@ extern "C" {
 int innr_packed_scan(int kind, const void* qp, const void* qn, const void* pos_t,
                      const void* neg_t, const void* excl, void* partial, int n_q, long long n,
                      int w, int k, int query_tile, int slab_rows, void* stream) {
-  if (n_q <= 0 || n <= 0 || w <= 0 || k <= 0 || slab_rows <= 0 || slab_rows % kRowTile != 0)
+  if (n_q <= 0 || n <= 0 || w <= 0 || k <= 0 || slab_rows <= 0 || slab_rows % kScanRowTile != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (kind == kTernary && (qn == nullptr || neg_t == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);

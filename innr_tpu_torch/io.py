@@ -5,8 +5,9 @@ package loads in the other: ``kind`` plus ``rows`` (float32),
 ``rows_bf16`` (bfloat16 bits as uint16) or ``codes`` (uint8) for the dense
 kinds, and ``words`` or ``pos`` / ``neg`` (uint32 words, the JAX package's
 type; this package holds them as bit-identical int32) with ``dimension``
-for the packed kinds. The ``SketchCorpus``, ``SparseCorpus`` and
-``SegmentedCorpus`` kinds are not ported yet and raise
+for the packed kinds, ``sketches`` (uint16 or uint32) for ``SketchCorpus``
+and ``indices`` (uint32) with ``values`` (float32) for ``SparseCorpus``.
+The ``SegmentedCorpus`` kind is not ported yet and raises
 :class:`ContractError`.
 """
 
@@ -18,13 +19,16 @@ import torch
 from innr_tpu_torch.batch import VerticalBatch
 from innr_tpu_torch.ops.binary import PackedBinary, PackedBinaryBatch
 from innr_tpu_torch.ops.scalar import QuantizedU8Batch
+from innr_tpu_torch.ops.slot import SketchCorpus
+from innr_tpu_torch.ops.sparse import SparseCorpus
 from innr_tpu_torch.ops.ternary import PackedTernary, PackedTernaryBatch
 from innr_tpu_torch.utils.asserts import ContractError
-from innr_tpu_torch.utils.bits import words_to_numpy
+from innr_tpu_torch.utils.bits import unsigned_to_numpy, words_to_numpy
+from innr_tpu_torch.utils.tensors import host_device
 
 __all__ = ["save_npz", "load_npz"]
 
-_NOT_PORTED = {"SketchCorpus", "SparseCorpus", "SegmentedCorpus"}
+_NOT_PORTED = {"SegmentedCorpus"}
 
 
 def save_npz(path: str, obj) -> None:
@@ -43,20 +47,27 @@ def save_npz(path: str, obj) -> None:
                  neg=words_to_numpy(obj.neg), dimension=obj.dimension)
     elif isinstance(obj, QuantizedU8Batch):
         np.savez(path, kind="QuantizedU8Batch", codes=obj.codes.cpu().numpy())
+    elif isinstance(obj, SketchCorpus):
+        np.savez(path, kind="SketchCorpus", sketches=unsigned_to_numpy(obj.sketches))
+    elif isinstance(obj, SparseCorpus):
+        np.savez(path, kind="SparseCorpus", indices=unsigned_to_numpy(obj.indices),
+                 values=obj.values.cpu().numpy())
     else:
         raise ContractError(f"save_npz: unsupported container {type(obj).__name__}")
 
 
 def load_npz(path: str, device=None):
     """Load a container written by :func:`save_npz` or ``innr_tpu.io.save_npz``
-    onto ``device`` (default CPU). bf16 rows and packed words keep their
+    onto ``device`` (default :func:`innr_tpu_torch.config.default_device`,
+    the card). bf16 rows, packed words, slots and sparse indices keep their
     exact bits."""
     with np.load(path) as z:
         kind = str(z["kind"])
         if kind == "VerticalBatch":
             if "rows_bf16" in z:
                 bits = torch.from_numpy(np.ascontiguousarray(z["rows_bf16"]))
-                return VerticalBatch(bits.view(torch.bfloat16), dtype=torch.bfloat16, device=device)
+                return VerticalBatch(bits.view(torch.bfloat16), dtype=torch.bfloat16,
+                                     device=host_device(device))
             return VerticalBatch.from_numpy(z["rows"], device=device)
         if kind == "QuantizedU8Batch":
             return QuantizedU8Batch.from_numpy(z["codes"], device=device)
@@ -66,6 +77,10 @@ def load_npz(path: str, device=None):
         if kind in ("PackedTernary", "PackedTernaryBatch"):
             cls = PackedTernary if kind == "PackedTernary" else PackedTernaryBatch
             return cls.from_numpy(z["pos"], z["neg"], int(z["dimension"]), device=device)
+        if kind == "SketchCorpus":
+            return SketchCorpus(z["sketches"], device=device)
+        if kind == "SparseCorpus":
+            return SparseCorpus((z["indices"], z["values"]), device=device)
         if kind in _NOT_PORTED:
             raise ContractError(f"load_npz: container kind {kind!r} not yet ported")
         raise ContractError(f"load_npz: unknown container kind {kind!r}")

@@ -81,8 +81,9 @@ class IVFIndex:
     ``metric``: "dot" (scores descending), "l2" (squared distances
     ascending) or "cosine" (descending; zero-norm rows and queries score
     0.0). ``dtype=torch.bfloat16`` stores the padded corpus in half
-    precision. Host data goes to ``device`` (default CPU); a tensor stays
-    on its device unless ``device`` is given.
+    precision. Host data goes to ``device`` (default
+    :func:`innr_tpu_torch.config.default_device`, the card); a tensor
+    stays on its device unless ``device`` is given.
     """
 
     __slots__ = ("metric", "rows", "orig_idx", "tile_n", "n_true",

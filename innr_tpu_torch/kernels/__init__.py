@@ -7,7 +7,18 @@ wrapper runs the plain version only for tensors on the CPU (or when
 launches the kernel or raises — never a silent fallback.
 
 - :mod:`innr_tpu_torch.kernels.knn` — fused score + streaming top-k
-  (``csrc/knn.cu``).
+  (``csrc/knn.cu``);
+- :mod:`~innr_tpu_torch.kernels.packed_knn`, :mod:`~innr_tpu_torch.kernels.hamming`
+  — packed binary / ternary scans (``csrc/packed_knn.cu``, ``csrc/packed.cu``);
+- :mod:`~innr_tpu_torch.kernels.pruned_knn`, :mod:`~innr_tpu_torch.kernels.assign`
+  — the tile and threshold scans, the nearest-centroid pass
+  (``csrc/knn.cu``, ``csrc/pruned.cu``, ``csrc/assign.cu``);
+- :mod:`~innr_tpu_torch.kernels.slot_knn`, :mod:`~innr_tpu_torch.kernels.sparse_knn`
+  — the slot-sketch and sparse scans (``csrc/slot_knn.cu``,
+  ``csrc/sparse_knn.cu``);
+- :mod:`~innr_tpu_torch.kernels.row_scan` — the query tile of the three
+  one-row-per-thread scans (``packed_scan``, ``slot_scan``,
+  ``sparse_scan``), which share ``csrc/row_scan.cuh``.
 
 Sources are compiled at first use by :mod:`innr_tpu_torch.kernels._build`;
 importing this package needs neither a GPU nor nvcc.

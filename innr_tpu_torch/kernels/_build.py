@@ -123,5 +123,11 @@ def load() -> ctypes.CDLL:
         lib.innr_packed_scan.restype = i32
         lib.innr_packed_rows.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i64, i32, ptr]
         lib.innr_packed_rows.restype = i32
+        lib.innr_slot_scan.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, i32, ptr]
+        lib.innr_slot_scan.restype = i32
+        lib.innr_sparse_scan.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, i32, i32, ptr,
+        ]
+        lib.innr_sparse_scan.restype = i32
         _LIB = lib
     return _LIB

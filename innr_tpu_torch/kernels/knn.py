@@ -26,6 +26,7 @@ import torch
 from innr_tpu_torch import config
 from innr_tpu_torch.utils.asserts import ContractError
 from innr_tpu_torch.utils.order import (
+    canonical_nan,
     composite_keys,
     invert_total_key,
     split_composite,
@@ -130,8 +131,7 @@ def _plain_composites(qs, rows, vals, mask, mode: str) -> torch.Tensor:
         s = vals - 2.0 * s
     elif score == 2:
         s = s * vals
-    nan = torch.tensor(0x7FC00000, dtype=torch.int32, device=s.device).view(torch.float32)
-    keys = total_order_key_f32(torch.where(torch.isnan(s), nan, s))
+    keys = total_order_key_f32(canonical_nan(s))
     if score == 1:
         keys = ~keys
     if mask is not None:
@@ -181,23 +181,12 @@ def _scan_pass(qs, rows, vals, mask, k: int, mode: str, bound) -> torch.Tensor:
     lib = _build.load()
     n_q, d = qs.shape
     n = rows.shape[0]
-    dev = rows.device
-    slab_rows = _slab_rows(n, -(-n_q // _QUERY_TILE), k, dev, _ROW_TILE)
-    n_slabs = -(-n // slab_rows)
-    with torch.cuda.device(dev):
-        partial = torch.empty((n_slabs, n_q, k), dtype=torch.int64, device=dev)
-        out = torch.empty((n_q, k), dtype=torch.int64, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.innr_knn_scan(
-            qs.data_ptr(), rows.data_ptr(), _DTYPES[rows.dtype], _ptr(vals),
-            _ptr(mask), _ptr(bound), partial.data_ptr(), n_q, n, d, k,
-            _MODES[mode][0], slab_rows, stream,
-        )
-        if rc != 0:
-            raise RuntimeError(f"innr_tpu_torch: knn_scan launch failed, cudaError {rc}")
-        rc = lib.innr_knn_merge(partial.data_ptr(), out.data_ptr(), n_q, n_slabs, k, stream)
-        if rc != 0:
-            raise RuntimeError(f"innr_tpu_torch: knn_merge launch failed, cudaError {rc}")
+    out = _scan_and_merge(
+        "knn_scan",
+        lambda partial, slab_rows, stream: lib.innr_knn_scan(
+            qs.data_ptr(), rows.data_ptr(), _DTYPES[rows.dtype], _ptr(vals), _ptr(mask),
+            _ptr(bound), partial, n_q, n, d, k, _MODES[mode][0], slab_rows, stream),
+        n_q, n, k, _QUERY_TILE, _ROW_TILE, rows.device)
     LAUNCHES += 1
     LAUNCHES_BY_DTYPE[str(rows.dtype).removeprefix("torch.")] += 1
     return out
@@ -225,6 +214,47 @@ def fused_knn_keys_batch(qs, rows, aux, k: int, mode: str):
         k, single_pass_k(qs.shape[0]),
     )
     return split_composite(comp)
+
+
+def _chunked_top(keys_of, n: int, step: int, k: int, bound, dev) -> torch.Tensor:
+    """The plain scans' selection: (Q, k) int64 composites, best first, of
+    the int32 keys ``keys_of(s, e)`` ((Q, e - s), larger is better) of
+    corpus rows [s, e), taken ``step`` rows at a time and merged into a
+    running top-k, so that no (Q, N) intermediate is larger than a chunk's.
+    ``bound``: optional (Q,) composites; only candidates below it stay."""
+    best = None
+    for s in range(0, n, step):
+        keys = keys_of(s, min(n, s + step))
+        comp = composite_keys(keys, torch.arange(s, s + keys.shape[1], device=dev))
+        if bound is not None:
+            comp = torch.where(comp < bound[:, None], comp, _EMPTY)
+        if best is not None:
+            comp = torch.cat([best, comp], dim=1)
+        best = torch.topk(comp, min(k, comp.shape[1]), dim=1).values
+    return best
+
+
+def _scan_and_merge(name: str, scan, n_q: int, n: int, k: int, q_tile: int, row_tile: int,
+                    dev) -> torch.Tensor:
+    """One kernel pass of a slab scan, then knn_merge: (Q, k) int64
+    composites. ``scan(partial_ptr, slab_rows, stream)`` launches the scan
+    into partial (n_slabs, Q, k) and returns its launcher's cudaError."""
+    from innr_tpu_torch.kernels import _build
+
+    lib = _build.load()
+    slab_rows = _slab_rows(n, -(-n_q // q_tile), k, dev, row_tile)
+    n_slabs = -(-n // slab_rows)
+    with torch.cuda.device(dev):
+        partial = torch.empty((n_slabs, n_q, k), dtype=torch.int64, device=dev)
+        out = torch.empty((n_q, k), dtype=torch.int64, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = scan(partial.data_ptr(), slab_rows, stream)
+        if rc != 0:
+            raise RuntimeError(f"innr_tpu_torch: {name} launch failed, cudaError {rc}")
+        rc = lib.innr_knn_merge(partial.data_ptr(), out.data_ptr(), n_q, n_slabs, k, stream)
+        if rc != 0:
+            raise RuntimeError(f"innr_tpu_torch: knn_merge launch failed, cudaError {rc}")
+    return out
 
 
 def _multi_pass(run_pass, k: int, cap: int) -> torch.Tensor:

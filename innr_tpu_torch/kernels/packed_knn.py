@@ -30,15 +30,11 @@ import torch
 
 from innr_tpu_torch import config
 from innr_tpu_torch.kernels import knn as _knn
+from innr_tpu_torch.kernels import row_scan
 from innr_tpu_torch.utils.asserts import ContractError
 from innr_tpu_torch.utils.bits import word_scores
 from innr_tpu_torch.utils.order import composite_keys, split_composite
 
-# Rows per tile (one per thread of a 256-thread CTA) and the largest query
-# tile: kRowTile and kMaxQueryTile in csrc/packed_knn.cu. Slabs are whole
-# tiles.
-_ROW_TILE = 256
-_MAX_QUERY_TILE = 16
 # int32 elements per intermediate of the plain version, which runs over
 # corpus rows in chunks of this size with a running top-k.
 _PLAIN_CHUNK = 1 << 25
@@ -47,15 +43,6 @@ _PLAIN_CHUNK = 1 << 25
 # in all and by kind. Incremented only where the kernels launch.
 LAUNCHES = 0
 LAUNCHES_BY_KIND = {"binary": 0, "ternary": 0}
-
-
-def query_tile(n_q: int) -> int:
-    """Queries per CTA for an ``n_q``-query batch: the smallest power of two
-    >= n_q, at most 16 (a template parameter of the kernel)."""
-    tile = 1
-    while tile < min(n_q, _MAX_QUERY_TILE):
-        tile *= 2
-    return tile
 
 
 def _check(queries, planes_t, k: int, op: str):
@@ -91,22 +78,14 @@ def _plain_top(queries, planes_t, k: int, bound=None) -> torch.Tensor:
     merged into a running top-k."""
     n_q, w = queries[0].shape
     n = planes_t[0].shape[1]
-    dev = planes_t[0].device
-    step = max(_ROW_TILE, _PLAIN_CHUNK // (n_q * w * len(planes_t)))
+    step = max(row_scan.ROW_TILE, _PLAIN_CHUNK // max(1, n_q * w * len(planes_t)))
     qs = [q[:, :, None] for q in queries]
-    best = None
-    for s in range(0, n, step):
-        keys = word_scores(qs, [p[None, :, s:s + step] for p in planes_t]).sum(
-            dim=1, dtype=torch.int32)
-        if len(planes_t) == 1:
-            keys = -keys
-        comp = composite_keys(keys, torch.arange(s, s + keys.shape[1], device=dev))
-        if bound is not None:
-            comp = torch.where(comp < bound[:, None], comp, _knn._EMPTY)
-        if best is not None:
-            comp = torch.cat([best, comp], dim=1)
-        best = torch.topk(comp, min(k, comp.shape[1]), dim=1).values
-    return best
+
+    def keys_of(s, e):
+        keys = word_scores(qs, [p[None, :, s:e] for p in planes_t]).sum(dim=1, dtype=torch.int32)
+        return -keys if len(planes_t) == 1 else keys
+
+    return _knn._chunked_top(keys_of, n, step, k, bound, planes_t[0].device)
 
 
 def packed_knn_plain(queries, planes_t, k: int, excl=None):
@@ -130,26 +109,16 @@ def _scan_pass(queries, planes_t, k: int, bound) -> torch.Tensor:
     lib = _build.load()
     n_q, w = queries[0].shape
     n = planes_t[0].shape[1]
-    dev = planes_t[0].device
     binary = len(planes_t) == 1
-    tile = query_tile(n_q)
-    slab_rows = _knn._slab_rows(n, -(-n_q // tile), k, dev, _ROW_TILE)
-    n_slabs = -(-n // slab_rows)
-    with torch.cuda.device(dev):
-        partial = torch.empty((n_slabs, n_q, k), dtype=torch.int64, device=dev)
-        out = torch.empty((n_q, k), dtype=torch.int64, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.innr_packed_scan(
+    tile = row_scan.row_scan_tile(n_q, k, 4 * len(planes_t) * w, "packed_scan")
+    out = _knn._scan_and_merge(
+        "packed_scan",
+        lambda partial, slab_rows, stream: lib.innr_packed_scan(
             0 if binary else 1, queries[0].data_ptr(),
             None if binary else queries[1].data_ptr(), planes_t[0].data_ptr(),
             None if binary else planes_t[1].data_ptr(), _knn._ptr(bound),
-            partial.data_ptr(), n_q, n, w, k, tile, slab_rows, stream,
-        )
-        if rc != 0:
-            raise RuntimeError(f"innr_tpu_torch: packed_scan launch failed, cudaError {rc}")
-        rc = lib.innr_knn_merge(partial.data_ptr(), out.data_ptr(), n_q, n_slabs, k, stream)
-        if rc != 0:
-            raise RuntimeError(f"innr_tpu_torch: knn_merge launch failed, cudaError {rc}")
+            partial, n_q, n, w, k, tile, slab_rows, stream),
+        n_q, n, k, tile, row_scan.ROW_TILE, planes_t[0].device)
     LAUNCHES += 1
     LAUNCHES_BY_KIND["binary" if binary else "ternary"] += 1
     return out

@@ -1,0 +1,183 @@
+"""Fused sparse-dot kNN: the CUDA kernel and its plain version.
+
+Replaces the TPU kernel ``innr_tpu/kernels/sparse_knn.py:_sparse_kernel``
+(launched by ``fused_sparse_knn``): the k largest sparse dots of sorted
+``(index, value)`` queries against a sparse corpus. The kernel is
+``csrc/sparse_knn.cu`` (``sparse_scan``, then ``knn_merge`` from
+``csrc/knn.cu``): a binary search of each corpus entry into the query in
+shared memory, where the TPU swept the query with compare-selects. Its
+source note says what bounds it on the H100.
+
+Semantics are the JAX package's join (``innr_tpu/ops/sparse.py:
+_join_scores``), :func:`join_scores` here: query indices sorted ascending
+(as unsigned), a duplicate query index matches its first occurrence,
+sentinel-padded corpus entries (index 0xFFFFFFFF, value 0.0) contribute
+nothing, a NaN or inf value counts only when its entry matches, and a
+document with no match scores +0.0. Indices are ``uint32`` held as
+bit-identical ``int32`` views (:mod:`innr_tpu_torch.utils.bits`): the
+plain version searches on ``idx & 0xFFFFFFFF`` as int64 and the kernel
+compares as unsigned, so indices >= 2**31 (hashed index spaces, the
+sentinel) order as the JAX package's ``uint32`` do.
+
+The corpus is entry-major, ``(L, N)``, the JAX package's cached transposes
+(``SparseCorpus._transposed``). Selection runs on K1's composites of the
+score's total-order key (NaN canonicalised): the k largest, NaN first,
+ties to the lowest document. Any k runs through K1's exclusion-bounded
+multi-pass driver (:func:`.knn._multi_pass`).
+
+Dispatch: a CUDA tensor runs the kernel, or the call raises; a CPU tensor,
+or :func:`innr_tpu_torch.config.force_reference`, runs the plain version.
+Any query that fits in shared memory runs in the kernel (thousands of
+entries; :func:`.row_scan.row_scan_tile` raises above that).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from innr_tpu_torch import config
+from innr_tpu_torch.kernels import knn as _knn
+from innr_tpu_torch.kernels import row_scan
+from innr_tpu_torch.utils.asserts import ContractError
+from innr_tpu_torch.utils.order import (
+    canonical_nan,
+    composite_keys,
+    invert_total_key,
+    split_composite,
+    total_order_key_f32,
+)
+
+# The JAX package's longest query for its fused kernel (longer ones go to
+# its XLA join, which has the same contract). Kept for API parity: the
+# kernel here takes any query that fits in shared memory.
+MAX_QUERY_NNZ = 256
+
+# Corpus entries per chunk of the plain version, which runs over documents
+# in chunks with a running top-k.
+_PLAIN_CHUNK = 1 << 24
+_LOW32 = 0xFFFFFFFF
+
+# Kernel passes launched (each pass launches sparse_scan, then knn_merge).
+# Incremented only where the kernels launch.
+LAUNCHES = 0
+
+
+def join_scores(q_idx, q_val, idx, val, dim: int = -1) -> torch.Tensor:
+    """One sorted (Lq,) query joined into index / value tensors of any
+    shape, the dot taken over ``dim``: the JAX package's ``_join_scores``.
+    Indices are int32 views of uint32, searched as unsigned."""
+    lq = q_idx.shape[-1]
+    if lq == 0 or idx.shape[dim] == 0:
+        return torch.zeros_like(val, dtype=torch.float32).sum(dim=dim)
+    qk = q_idx.to(torch.int64) & _LOW32
+    ck = (idx.to(torch.int64) & _LOW32).contiguous()
+    pos = torch.searchsorted(qk, ck).clamp_(max=lq - 1)
+    matched = qk[pos] == ck
+    # "+ 0.0" turns a -0.0 sum into +0.0: the JAX reduction and the kernel
+    # both start from +0.0.
+    return torch.where(matched, val * q_val[pos], 0.0).sum(dim=dim) + 0.0
+
+
+def _check(q_idx, q_val, idx_t, val_t, k: int, op: str) -> None:
+    if (idx_t.dim() != 2 or idx_t.dtype != torch.int32 or val_t.dtype != torch.float32
+            or val_t.shape != idx_t.shape):
+        raise ContractError(
+            f"innr_tpu_torch::{op}: the corpus must be (L, N) int32 indices and float32 values, "
+            f"got {idx_t.dtype} {tuple(idx_t.shape)} / {val_t.dtype} {tuple(val_t.shape)}")
+    if (q_idx.dim() != 2 or q_idx.dtype != torch.int32 or q_val.dtype != torch.float32
+            or q_val.shape != q_idx.shape):
+        raise ContractError(
+            f"innr_tpu_torch::{op}: queries must be (Q, Lq) int32 indices and float32 values, "
+            f"got {q_idx.dtype} {tuple(q_idx.shape)} / {q_val.dtype} {tuple(q_val.shape)}")
+    devs = {t.device for t in (q_idx, q_val, idx_t, val_t)}
+    if len(devs) != 1:
+        raise ContractError(f"innr_tpu_torch::{op}: tensors on several devices {devs}")
+    n = idx_t.shape[1]
+    if n > _knn._MAX_ROWS:
+        raise ContractError(f"innr_tpu_torch::{op}: {n} documents; indices are int32")
+    if not 1 <= k <= n:
+        raise ContractError(f"innr_tpu_torch::{op}: k={k} outside [1, {n}]")
+
+
+def _plain_top(q_idx, q_val, idx_t, val_t, k: int, bound=None) -> torch.Tensor:
+    """(Q, k) int64 composites of the scores' total-order keys, best first."""
+    l, n = idx_t.shape
+    step = max(row_scan.ROW_TILE, _PLAIN_CHUNK // max(1, l))
+
+    def keys_of(a, b):
+        scores = torch.stack([join_scores(qi, qv, idx_t[:, a:b], val_t[:, a:b], dim=0)
+                              for qi, qv in zip(q_idx, q_val)])
+        return total_order_key_f32(canonical_nan(scores))
+
+    return _knn._chunked_top(keys_of, n, step, k, bound, idx_t.device)
+
+
+def sparse_knn_plain(q_idx, q_val, idx_t, val_t, k: int, excl=None):
+    """The plain version of the kernel. ``q_idx`` / ``q_val``: (Q, Lq)
+    int32 / float32, each row sorted ascending as unsigned; ``idx_t`` /
+    ``val_t``: the (L, N) corpus. Returns raw ``(keys, idx)`` int32 (Q, k),
+    best first, keys the scores' total-order keys.
+
+    ``excl``: optional per-query ``(keys, idx)`` bound; only candidates
+    strictly after it in (key desc, idx asc) order are kept."""
+    _check(q_idx, q_val, idx_t, val_t, k, "sparse_knn_plain")
+    bound = None if excl is None else composite_keys(excl[0], excl[1])
+    return split_composite(_plain_top(q_idx, q_val, idx_t, val_t, k, bound))
+
+
+def _scan_pass(q_idx, q_val, idx_t, val_t, k: int, bound) -> torch.Tensor:
+    """One kernel pass (sparse_scan + knn_merge): (Q, k) int64 composites."""
+    global LAUNCHES
+    from innr_tpu_torch.kernels import _build
+
+    lib = _build.load()
+    n_q, lq = q_idx.shape
+    l, n = idx_t.shape
+    tile = row_scan.row_scan_tile(n_q, k, 8 * lq, "sparse_scan")
+    out = _knn._scan_and_merge(
+        "sparse_scan",
+        lambda partial, slab_rows, stream: lib.innr_sparse_scan(
+            q_idx.data_ptr(), q_val.data_ptr(), idx_t.data_ptr(), val_t.data_ptr(),
+            _knn._ptr(bound), partial, n_q, n, l, lq, k, tile, slab_rows, stream),
+        n_q, n, k, tile, row_scan.ROW_TILE, idx_t.device)
+    LAUNCHES += 1
+    return out
+
+
+def fused_sparse_keys_batch(q_idx, q_val, idx_t, val_t, k: int):
+    """Top-k raw int32 total-order keys of the scores and int32 document
+    indices, both (Q, k), for any k in [1, N]."""
+    _check(q_idx, q_val, idx_t, val_t, k, "fused_sparse_keys_batch")
+    dev = idx_t.device
+    if dev.type == "cpu" or config.reference_forced():
+        run_pass = _plain_top
+    elif dev.type == "cuda":
+        q_idx, q_val = q_idx.contiguous(), q_val.contiguous()
+        idx_t, val_t = idx_t.contiguous(), val_t.contiguous()
+        run_pass = _scan_pass
+    else:
+        raise ContractError(f"innr_tpu_torch::sparse_knn: unsupported device {dev}")
+    comp = _knn._multi_pass(
+        lambda pass_k, bound: run_pass(q_idx, q_val, idx_t, val_t, pass_k, bound),
+        k, _knn.single_pass_k(q_idx.shape[0]),
+    )
+    return split_composite(comp)
+
+
+def fused_sparse_knn_batch(q_idx, q_val, idx_t, val_t, k: int):
+    """Top-k largest sparse dots of (Q, Lq) padded queries against an
+    entry-major corpus: ``(scores (Q, k) float32 descending under IEEE total
+    order, indices (Q, k) int32)``."""
+    keys, idx = fused_sparse_keys_batch(q_idx, q_val, idx_t, val_t, k)
+    return invert_total_key(keys), idx
+
+
+def fused_sparse_knn(q_idx, q_val, idx_t, val_t, k: int, fast: bool = False):
+    """One sorted (Lq,) query: ``(scores (k,), indices (k,))``.
+
+    ``fast`` is the JAX package's all-finite sweep flag, kept for API
+    parity: the binary search needs no match tracker, so one path is exact
+    for every corpus and the flag selects nothing."""
+    del fast
+    scores, idx = fused_sparse_knn_batch(q_idx[None, :], q_val[None, :], idx_t, val_t, k)
+    return scores[0], idx[0]

@@ -1,1 +1,3 @@
-"""Quantized similarity ops: :mod:`innr_tpu_torch.ops.scalar` (uint8)."""
+"""Similarity ops by family: quantized (``scalar``, ``quant``, ``binary``,
+``ternary``), slot sketches (``slot``) and sparse vectors (``sparse``,
+``sparse_ext``)."""

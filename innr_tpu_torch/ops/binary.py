@@ -38,7 +38,7 @@ from innr_tpu_torch.utils.bits import (
     popcount32,
     words_to_numpy,
 )
-from innr_tpu_torch.utils.tensors import as_tensor
+from innr_tpu_torch.utils.tensors import as_tensor, host_device
 
 __all__ = [
     "PackedBinary",
@@ -79,7 +79,8 @@ class PackedBinary:
 
     @classmethod
     def zeros(cls, dimension: int, device=None) -> "PackedBinary":
-        return cls(torch.zeros(num_words(dimension), dtype=torch.int32), dimension, device)
+        z = torch.zeros(num_words(dimension), dtype=torch.int32, device=host_device(device))
+        return cls(z, dimension)
 
     @classmethod
     def from_numpy(cls, words, dimension: int, device=None) -> "PackedBinary":

@@ -41,7 +41,7 @@ from innr_tpu_torch.utils.bits import (
     unpack_bits,
     word_scores,
 )
-from innr_tpu_torch.utils.tensors import as_tensor
+from innr_tpu_torch.utils.tensors import as_tensor, host_device
 
 __all__ = [
     "PackedTernary",
@@ -93,8 +93,8 @@ class PackedTernary:
 
     @classmethod
     def zeros(cls, dimension: int, device=None) -> "PackedTernary":
-        z = torch.zeros(num_words(dimension), dtype=torch.int32)
-        return cls(z, z, dimension, device)
+        z = torch.zeros(num_words(dimension), dtype=torch.int32, device=host_device(device))
+        return cls(z, z, dimension)
 
     @classmethod
     def from_numpy(cls, pos, neg, dimension: int, device=None) -> "PackedTernary":

@@ -69,7 +69,8 @@ class TwoStageIndex:
     """Coarse-quantized scan + exact f32 rerank over an (N, D) corpus.
 
     ``rows``: an (N, D) tensor (it stays on its device unless ``device`` is
-    given) or host data (placed on ``device``, default CPU)."""
+    given) or host data (placed on ``device``, default
+    :func:`innr_tpu_torch.config.default_device`, the card)."""
 
     def __init__(self, rows, coarse: CoarseConfig | str = "binary", rerank_factor: int = 4,
                  device=None):

@@ -33,6 +33,7 @@ import torch
 from innr_tpu_torch import config
 from innr_tpu_torch.kernels.assign import nearest_centroid
 from innr_tpu_torch.utils.padding import round_up
+from innr_tpu_torch.utils.tensors import host_device
 
 __all__ = [
     "TileSummary",
@@ -64,9 +65,12 @@ class TileSummary:
     @classmethod
     def from_numpy(cls, tile_n, centroids, radii, counts, n_rows, device=None) -> "TileSummary":
         """From host arrays, e.g. ``np.asarray`` of an ``innr_tpu``
-        summary's ``centroids``, ``radii`` and ``counts``."""
+        summary's ``centroids``, ``radii`` and ``counts``, onto ``device``
+        (default: the default device, the card)."""
+        dev = host_device(device)
+
         def t(a, dtype):
-            return torch.as_tensor(np.array(a), device=device or "cpu").to(dtype)
+            return torch.as_tensor(np.array(a), device=dev).to(dtype)
 
         return cls(tile_n, t(centroids, torch.float32), t(radii, torch.float32),
                    t(counts, torch.int32), n_rows)
@@ -226,7 +230,7 @@ def plan_threshold_survivors(qs, cent, rad, threshold):
 def _as_rows(rows) -> torch.Tensor:
     if isinstance(rows, torch.Tensor):
         return rows
-    return torch.as_tensor(np.asarray(rows, dtype=np.float32))
+    return torch.as_tensor(np.asarray(rows, dtype=np.float32), device=host_device())
 
 
 def _kmeans_params(rows, n_clusters: int, sample: int):

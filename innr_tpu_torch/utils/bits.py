@@ -1,11 +1,14 @@
-"""Packed-bit helpers for int32 words: popcount, pack, unpack.
+"""Packed-bit helpers for int32 words (popcount, pack, unpack) and the
+signed views of unsigned values.
 
 The JAX package keeps packed vectors as ``uint32`` words (bit ``i % 32`` of
 word ``i // 32``). PyTorch's ``uint32`` has no ``>>`` and no ``topk`` on the
 CPU, so this package holds the same words as bit-identical ``int32`` views:
 bit 31 is the sign bit. ``>>`` on ``int32`` is arithmetic (it copies the
 sign bit down), so a shift below either runs on a non-negative word or is
-followed by a mask.
+followed by a mask. MinHash slots (``uint16`` / ``uint32`` / ``uint64``)
+and sparse indices (``uint32``) are held the same way, as ``int16`` /
+``int32`` / ``int64`` views (:func:`as_unsigned`).
 
 torch has no popcount op; :func:`popcount32` and :func:`popcount8` are SWAR
 (SIMD-within-a-register) bit counts for the plain versions of the packed
@@ -16,6 +19,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from innr_tpu_torch.utils.tensors import host_device
 
 WORD_BITS = 32
 
@@ -113,18 +118,77 @@ def words_from_numpy(arr) -> torch.Tensor:
 
 
 def as_words(x, device=None) -> torch.Tensor:
-    """Packed words as an int32 tensor: an int32 tensor as it is, another
-    integer tensor by its low 32 bits, anything else through
-    :func:`words_from_numpy`. Moved to ``device`` when one is given (host
-    data defaults to the CPU)."""
+    """Packed words as an int32 tensor: :func:`as_unsigned` at 32 bits."""
+    return as_unsigned(x, 32, device)
+
+
+# uint16 / uint32 / uint64 values (slots, sparse indices) are held as
+# bit-identical int16 / int32 / int64 views, as packed words are: a
+# comparison for equality is unchanged; an ordering must not use the signed
+# view (compare on the host, or mask to the low bits in a wider type).
+_UNSIGNED_NP = {16: np.uint16, 32: np.uint32, 64: np.uint64}
+_SIGNED_NP = {16: np.int16, 32: np.int32, 64: np.int64}
+VIEW_DTYPES = {16: torch.int16, 32: torch.int32, 64: torch.int64}
+_TORCH_UNSIGNED = {
+    bits: getattr(torch, f"uint{bits}") for bits in (16, 32, 64) if hasattr(torch, f"uint{bits}")
+}
+
+
+def unsigned_bits(dtype) -> int | None:
+    """The width of the unsigned values a dtype holds: a numpy unsigned
+    type's own width; for torch, this package's views (int16 / int32 /
+    int64) and torch's own uint16 / uint32 / uint64 by their width; None
+    for anything else."""
+    if isinstance(dtype, torch.dtype):
+        for bits, view in VIEW_DTYPES.items():
+            if dtype in (view, _TORCH_UNSIGNED.get(bits)):
+                return bits
+        return None
+    try:
+        dt = np.dtype(dtype)
+    except TypeError:
+        return None
+    return dt.itemsize * 8 if dt.kind == "u" and dt.itemsize >= 2 else None
+
+
+def as_unsigned(x, bits: int, device=None) -> torch.Tensor:
+    """``uint{bits}`` values as an ``int{bits}`` tensor with the same bits.
+
+    A tensor of the view type stays as it is, a torch unsigned tensor of the
+    same width is viewed; another tensor keeps the low ``bits`` bits of its
+    value, where a view or unsigned tensor of another width holds the
+    unsigned value of its own width (an int16 view of 65535 widens to
+    65535). Host data (numpy, sequences, JAX arrays) is cast to
+    ``uint{bits}`` as numpy casts and goes to
+    :func:`~innr_tpu_torch.utils.tensors.host_device`. Moved to ``device``
+    when one is given. Callers that must not narrow check the input's width
+    first."""
+    view = VIEW_DTYPES[bits]
     if isinstance(x, torch.Tensor):
-        if x.dtype != torch.int32:
-            x = x.to(torch.int64) & 0xFFFFFFFF
-            x = torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+        if x.dtype == _TORCH_UNSIGNED.get(bits):
+            x = x.view(view)
+        elif x.dtype != view:
+            src_bits = unsigned_bits(x.dtype)
+            if x.dtype in _TORCH_UNSIGNED.values():
+                x = x.view(VIEW_DTYPES[src_bits])
+            x = x.to(torch.int64)
+            if src_bits is not None and src_bits < 64:
+                x = x & ((1 << src_bits) - 1)
+            if bits < 64:
+                x = x & ((1 << bits) - 1)
+                x = torch.where(x >= 1 << (bits - 1), x - (1 << bits), x)
+            x = x.to(view)
         return x if device is None else x.to(device)
-    return words_from_numpy(x).to(device or "cpu")
+    dev = host_device(device)
+    a = np.ascontiguousarray(np.asarray(x).astype(_UNSIGNED_NP[bits]))
+    return torch.from_numpy(a.view(_SIGNED_NP[bits]).copy()).to(dev)
 
 
-def words_to_numpy(words: torch.Tensor) -> np.ndarray:
-    """int32 word tensor -> uint32 numpy array with the same bits."""
-    return words.detach().cpu().contiguous().numpy().view(np.uint32)
+def unsigned_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """An int16 / int32 / int64 view -> the uint16 / uint32 / uint64 numpy
+    array with the same bits."""
+    return t.detach().cpu().contiguous().numpy().view(_UNSIGNED_NP[t.element_size() * 8])
+
+
+# Packed words are uint32 values: int32 word tensor -> uint32 numpy array.
+words_to_numpy = unsigned_to_numpy

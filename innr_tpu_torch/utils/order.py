@@ -27,6 +27,14 @@ def total_order_key_f32(x: torch.Tensor) -> torch.Tensor:
     return bits ^ mask
 
 
+def canonical_nan(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with every NaN made the quiet NaN 0x7FC00000, the NaN a CUDA
+    kernel returns (CPUs propagate payloads and signs), so that NaN scores
+    key alike on every device."""
+    nan = torch.tensor(0x7FC00000, dtype=torch.int32, device=x.device).view(torch.float32)
+    return torch.where(torch.isnan(x), nan, x)
+
+
 def invert_total_key(keys: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`total_order_key_f32` (the map is an involution)."""
     mask = torch.where(keys < 0, 0x7FFFFFFF, 0).to(torch.int32)

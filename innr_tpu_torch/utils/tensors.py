@@ -5,11 +5,28 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from innr_tpu_torch import config
+
+
+def host_device(device=None) -> torch.device:
+    """The device host data goes to: ``device`` when given, else
+    :func:`innr_tpu_torch.config.default_device` (the card). A CUDA device
+    without a card raises here, before anything is copied; nothing falls
+    back to the CPU."""
+    dev = torch.device(device) if device is not None else config.default_device()
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"innr_tpu_torch: host data goes to {dev}, but no CUDA device is "
+            "available; pass device='cpu' or call "
+            "innr_tpu_torch.config.set_default_device('cpu') to run on the CPU"
+        )
+    return dev
+
 
 def as_tensor(values, dtype, device=None) -> torch.Tensor:
     """``values`` as a ``dtype`` tensor: a tensor stays on its device unless
     ``device`` is given; host data (numpy, sequences, JAX arrays) goes to
-    ``device``, default the CPU."""
+    :func:`host_device` (``device``, else the default device, the card)."""
     if isinstance(values, torch.Tensor):
         return values.to(device=device if device is not None else values.device, dtype=dtype)
-    return torch.as_tensor(np.asarray(values), device=device or "cpu").to(dtype)
+    return torch.as_tensor(np.asarray(values), device=host_device(device)).to(dtype)

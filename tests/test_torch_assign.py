@@ -22,6 +22,16 @@ import ml_dtypes  # noqa: E402
 from innr_tpu.kernels import assign as ja  # noqa: E402
 from innr_tpu_torch.kernels import assign as ta  # noqa: E402
 from innr_tpu_torch.utils.asserts import ContractError  # noqa: E402
+from innr_tpu_torch import config  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _cpu_default_device():
+    """Host data goes to the card by default; these tests ask for the CPU."""
+    previous = config.set_default_device("cpu")
+    yield
+    config.set_default_device(previous)
+
 
 EPS = float(np.finfo(np.float32).eps)
 

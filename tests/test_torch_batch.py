@@ -17,6 +17,15 @@ import innr_tpu_torch as itt  # noqa: E402
 from innr_tpu_torch import backend, config  # noqa: E402
 from test_torch_knn import EPS, assert_topk_agrees  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def _cpu_default_device():
+    """Host data goes to the card by default; these tests ask for the CPU."""
+    previous = config.set_default_device("cpu")
+    yield
+    config.set_default_device(previous)
+
+
 KNN = ("batch_knn", "batch_knn_dot", "batch_knn_cosine")
 
 
@@ -258,3 +267,71 @@ class TestDispatch:
         assert torch.backends.cuda.matmul.allow_tf32 is False
         with pytest.raises(ValueError):
             config.set_matmul_precision("fast")
+
+
+def _host_constructors():
+    """Constructors and loaders given host data and no device."""
+    import innr_tpu_torch.io as tio
+
+    rows = np.arange(12, dtype=np.float32).reshape(3, 4)
+    words = np.arange(6, dtype=np.uint32).reshape(3, 2)
+
+    def load(tmp_path):
+        path = str(tmp_path / "s.npz")
+        np.savez(path, kind="SketchCorpus", sketches=words)
+        return tio.load_npz(path).sketches
+
+    return {
+        "VerticalBatch": lambda _: itt.VerticalBatch(rows).rows,
+        "VerticalBatch.from_rows": lambda _: itt.VerticalBatch.from_rows(rows.tolist()).rows,
+        "PackedBinaryBatch": lambda _: itt.PackedBinaryBatch.from_numpy(words, 64).words,
+        "PackedTernary.zeros": lambda _: itt.PackedTernary.zeros(40).pos,
+        "QuantizedU8Batch": lambda _: itt.QuantizedU8Batch(rows.astype(np.uint8)).codes,
+        "TileSummary": lambda _: itt.TileSummary.from_numpy(128, rows, rows[:, 0], [1, 1, 1],
+                                                            3).centroids,
+        "SketchCorpus": lambda _: itt.SketchCorpus(words).slots_t,
+        "SparseCorpus": lambda _: itt.SparseCorpus([([1, 5], [1.0, 2.0])]).indices,
+        "load_npz": load,
+    }
+
+
+class TestDefaultDevice:
+    """Host data without a device goes to the card, as the JAX package puts
+    host arrays on its accelerator; without a card that raises, with no
+    fallback. A tensor keeps its device."""
+
+    @pytest.mark.parametrize("name", sorted(_host_constructors()))
+    def test_host_data_goes_to_the_card_or_raises(self, tmp_path, name):
+        make = _host_constructors()[name]
+        previous = config.set_default_device("cuda")
+        try:
+            if torch.cuda.is_available():
+                assert make(tmp_path).device.type == "cuda"
+            else:
+                with pytest.raises(RuntimeError, match="no CUDA device"):
+                    make(tmp_path)
+        finally:
+            config.set_default_device(previous)
+
+    def test_numpy_vertical_batch_raises_without_a_card(self, rng):
+        if torch.cuda.is_available():
+            pytest.skip("a card is present: host data lands there (previous test)")
+        assert config.set_default_device("cuda") == torch.device("cpu")
+        try:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                itt.VerticalBatch(rng.standard_normal((4, 3)).astype(np.float32))
+            cpu = torch.ones(4, 3)
+            assert itt.VerticalBatch(cpu).rows.device == cpu.device  # a tensor stays
+        finally:
+            config.set_default_device("cpu")
+
+    def test_explicit_device_and_the_default(self):
+        assert config.default_device() == torch.device("cpu")  # this file's fixture
+        rows = np.ones((2, 3), np.float32)
+        assert itt.VerticalBatch(rows).rows.device.type == "cpu"
+        assert itt.VerticalBatch(rows, device="cpu").rows.device.type == "cpu"
+        previous = config.set_default_device("meta")
+        try:
+            assert itt.VerticalBatch(rows).rows.device.type == "meta"
+        finally:
+            assert config.set_default_device(previous) == torch.device("meta")

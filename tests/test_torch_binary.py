@@ -20,6 +20,15 @@ from innr_tpu_torch.ops import binary as tb  # noqa: E402
 from innr_tpu_torch.utils.asserts import ContractError  # noqa: E402
 from innr_tpu_torch.utils.bits import words_to_numpy  # noqa: E402
 from test_torch_packed_knn import N, words  # noqa: E402
+from innr_tpu_torch import config  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _cpu_default_device():
+    """Host data goes to the card by default; these tests ask for the CPU."""
+    previous = config.set_default_device("cpu")
+    yield
+    config.set_default_device(previous)
 
 
 def u32(t):

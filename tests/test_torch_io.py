@@ -13,6 +13,15 @@ import innr_tpu as it  # noqa: E402
 import innr_tpu.io as jio  # noqa: E402
 import innr_tpu_torch as itt  # noqa: E402
 import innr_tpu_torch.io as tio  # noqa: E402
+from innr_tpu_torch import config  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _cpu_default_device():
+    """Host data goes to the card by default; these tests ask for the CPU."""
+    previous = config.set_default_device("cpu")
+    yield
+    config.set_default_device(previous)
 
 
 @pytest.fixture
@@ -115,9 +124,55 @@ def test_packed_kinds_cross_load(tmp_path, rng, kind, dimension):
         np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("dtype", [np.uint16, np.uint32])
+def test_sketch_corpus_cross_load(tmp_path, rng, dtype):
+    """Slots over the full width (the sign bit of the port's views) keep
+    their bits and width both ways, and the loaded corpora give the same
+    kNN results."""
+    bits = np.dtype(dtype).itemsize * 8
+    sketches = rng.integers(0, 2**bits, (2100, 9), dtype=np.uint64).astype(dtype)
+    path, back = str(tmp_path / "j.npz"), str(tmp_path / "t.npz")
+    jio.save_npz(path, it.SketchCorpus(sketches))
+    tobj = tio.load_npz(path)
+    assert isinstance(tobj, itt.SketchCorpus) and tobj.bits == bits
+    np.testing.assert_array_equal(tobj.sketches.numpy().view(dtype), sketches)
+    tio.save_npz(back, tobj)
+    jobj = jio.load_npz(back)
+    assert isinstance(jobj, it.SketchCorpus) and np.asarray(jobj.sketches).dtype == dtype
+    np.testing.assert_array_equal(np.asarray(jobj.sketches), sketches)
+    name = f"slot_knn_u{bits}_batch"
+    want = getattr(it, name)(sketches[:3], jobj, 5)
+    got = getattr(itt, name)(sketches[:3], tobj, 5)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy().astype(np.int64), np.asarray(w).astype(np.int64))
+
+
+def test_sparse_corpus_cross_load(tmp_path, rng):
+    """uint32 indices >= 2**31 and the sentinel keep their bits both ways,
+    and the loaded corpora give the same kNN results."""
+    vocab = np.unique(rng.integers(0, 2**32, 64, dtype=np.uint64).astype(np.uint32))
+    docs = [(np.sort(rng.choice(vocab, n, replace=False)), rng.integers(-4, 5, n).astype(
+        np.float32)) for n in rng.integers(1, 6, 2100)]
+    path, back = str(tmp_path / "j.npz"), str(tmp_path / "t.npz")
+    jio.save_npz(path, it.SparseCorpus(docs))
+    tobj = tio.load_npz(path)
+    assert isinstance(tobj, itt.SparseCorpus)
+    jref = it.SparseCorpus(docs)
+    np.testing.assert_array_equal(tobj.indices.numpy().view(np.uint32), np.asarray(jref.indices))
+    np.testing.assert_array_equal(tobj.values.numpy(), np.asarray(jref.values))
+    tio.save_npz(back, tobj)
+    jobj = jio.load_npz(back)
+    np.testing.assert_array_equal(np.asarray(jobj.indices), np.asarray(jref.indices))
+    q = docs[5]
+    js, ji = it.sparse_knn(q, jobj, 6)
+    ts, ti = itt.sparse_knn(q, tobj, 6)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
 def test_unported_kinds_raise(tmp_path):
     path = str(tmp_path / "b.npz")
-    jio.save_npz(path, it.SketchCorpus(np.zeros((3, 2), np.uint32)))
+    jio.save_npz(path, it.SegmentedCorpus(4))
     with pytest.raises(itt.ContractError, match="not yet ported"):
         tio.load_npz(path)
     np.savez(str(tmp_path / "x.npz"), kind="Mystery")

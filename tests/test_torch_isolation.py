@@ -10,6 +10,16 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from innr_tpu_torch.kernels import _build  # noqa: E402
+from innr_tpu_torch import config  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _cpu_default_device():
+    """Host data goes to the card by default; these tests ask for the CPU."""
+    previous = config.set_default_device("cpu")
+    yield
+    config.set_default_device(previous)
+
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "innr_tpu_torch"
@@ -22,7 +32,10 @@ def test_imports_with_jax_blocked():
         "innr_tpu_torch.kernels.packed_knn, innr_tpu_torch.kernels.hamming, "
         "innr_tpu_torch.ops.quant, innr_tpu_torch.ops.binary, innr_tpu_torch.ops.ternary, "
         "innr_tpu_torch.pipeline, innr_tpu_torch.prune, innr_tpu_torch.ivf, "
-        "innr_tpu_torch.kernels.assign, innr_tpu_torch.kernels.pruned_knn; "
+        "innr_tpu_torch.kernels.assign, innr_tpu_torch.kernels.pruned_knn, "
+        "innr_tpu_torch.kernels.slot_knn, innr_tpu_torch.kernels.sparse_knn, "
+        "innr_tpu_torch.kernels.row_scan, "
+        "innr_tpu_torch.ops.slot, innr_tpu_torch.ops.sparse, innr_tpu_torch.ops.sparse_ext; "
         "assert 'innr_tpu' not in sys.modules"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -46,9 +59,10 @@ def test_build_without_nvcc_raises_naming_nvcc(monkeypatch):
 
 def test_sources_ship_with_the_package():
     assert sorted(p.name for p in (PKG / "csrc").glob("*.cu")) == [
-        "assign.cu", "knn.cu", "packed.cu", "packed_knn.cu", "pruned.cu"]
+        "assign.cu", "knn.cu", "packed.cu", "packed_knn.cu", "pruned.cu", "slot_knn.cu",
+        "sparse_knn.cu"]
     assert sorted(p.name for p in (PKG / "csrc").glob("*.cuh")) == [
-        "packed.cuh", "topk.cuh", "vec.cuh"]
+        "packed.cuh", "row_scan.cuh", "topk.cuh", "vec.cuh"]
     text = (ROOT / "pyproject.toml").read_text()
     assert 'innr_tpu_torch = ["csrc/*.cu", "csrc/*.cuh"]' in text
     assert 'include = ["innr_tpu*"]' in text  # picks up innr_tpu_torch too

@@ -21,6 +21,16 @@ import innr_tpu_torch as tt  # noqa: E402
 from innr_tpu_torch.kernels import knn as tk  # noqa: E402
 from innr_tpu_torch.kernels import pruned_knn as tpk  # noqa: E402
 from innr_tpu_torch.utils.asserts import ContractError  # noqa: E402
+from innr_tpu_torch import config  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _cpu_default_device():
+    """Host data goes to the card by default; these tests ask for the CPU."""
+    previous = config.set_default_device("cpu")
+    yield
+    config.set_default_device(previous)
+
 
 EPS = float(np.finfo(np.float32).eps)
 FULL = {"dot": tt.batch_knn_dot, "l2": tt.batch_knn, "cosine": tt.batch_knn_cosine}

@@ -25,7 +25,17 @@ import ml_dtypes  # noqa: E402
 
 from innr_tpu.kernels import knn as jk  # noqa: E402
 from innr_tpu_torch.kernels import knn as tk  # noqa: E402
+from innr_tpu_torch import config  # noqa: E402
 from innr_tpu_torch.utils.asserts import ContractError  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _cpu_default_device():
+    """Host data goes to the card by default; these tests ask for the CPU."""
+    previous = config.set_default_device("cpu")
+    yield
+    config.set_default_device(previous)
+
 
 N = 2100  # >= innr_tpu.config.MIN_ROWS_PALLAS, not a multiple of any tile
 EPS = float(np.finfo(np.float32).eps)

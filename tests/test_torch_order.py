@@ -10,6 +10,16 @@ import jax.numpy as jnp  # noqa: E402
 
 from innr_tpu.utils import order as jo  # noqa: E402
 from innr_tpu_torch.utils import order as to  # noqa: E402
+from innr_tpu_torch import config  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _cpu_default_device():
+    """Host data goes to the card by default; these tests ask for the CPU."""
+    previous = config.set_default_device("cpu")
+    yield
+    config.set_default_device(previous)
+
 
 SPECIALS = np.array(
     [np.nan, -np.nan, np.inf, -np.inf, 0.0, -0.0, 1.0, -1.0, 1e-45, -1e-45,

@@ -21,8 +21,19 @@ from innr_tpu.kernels import packed_knn as jpk  # noqa: E402
 from innr_tpu_torch.kernels import hamming as th  # noqa: E402
 from innr_tpu_torch.kernels import knn as tk  # noqa: E402
 from innr_tpu_torch.kernels import packed_knn as tpk  # noqa: E402
+from innr_tpu_torch.kernels import row_scan  # noqa: E402
+from innr_tpu_torch import config  # noqa: E402
 from innr_tpu_torch.utils.asserts import ContractError  # noqa: E402
 from innr_tpu_torch.utils.bits import words_from_numpy as T  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _cpu_default_device():
+    """Host data goes to the card by default; these tests ask for the CPU."""
+    previous = config.set_default_device("cpu")
+    yield
+    config.set_default_device(previous)
+
 
 N = 2100  # >= innr_tpu.config.MIN_ROWS_PALLAS, not a multiple of any tile
 # (W, Q): W = 8 is one full sublane chunk of the TPU kernels, 9 a ragged one.
@@ -208,7 +219,7 @@ class TestDispatchAndContracts:
 
     @pytest.mark.parametrize("n_q,tile", [(1, 1), (2, 2), (3, 4), (5, 8), (16, 16), (33, 16)])
     def test_query_tile(self, n_q, tile):
-        assert tpk.query_tile(n_q) == tile
+        assert row_scan.query_tile(n_q) == tile
 
 
 @pytest.fixture

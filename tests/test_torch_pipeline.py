@@ -27,6 +27,16 @@ from innr_tpu_torch.kernels import knn as tk  # noqa: E402
 from innr_tpu_torch.utils.asserts import ContractError  # noqa: E402
 from test_torch_knn import EPS, assert_topk_agrees  # noqa: E402
 from test_torch_packed_knn import N  # noqa: E402
+from innr_tpu_torch import config as tconfig  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _cpu_default_device():
+    """Host data goes to the card by default; these tests ask for the CPU."""
+    previous = tconfig.set_default_device("cpu")
+    yield
+    tconfig.set_default_device(previous)
+
 
 D, Q, K = 96, 5, 7
 KINDS = [("binary", 8), ("ternary", 8), ("u8", 3), ("matryoshka", 3)]

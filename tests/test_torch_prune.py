@@ -28,6 +28,15 @@ from innr_tpu_torch import config as tconfig  # noqa: E402
 from innr_tpu_torch import prune as tp  # noqa: E402
 from innr_tpu_torch.kernels import pruned_knn as tpk  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def _cpu_default_device():
+    """Host data goes to the card by default; these tests ask for the CPU."""
+    previous = tconfig.set_default_device("cpu")
+    yield
+    tconfig.set_default_device(previous)
+
+
 EPS = float(np.finfo(np.float32).eps)
 
 

@@ -35,6 +35,15 @@ from innr_tpu_torch.kernels import knn as tk  # noqa: E402
 from innr_tpu_torch.kernels import pruned_knn as tpk  # noqa: E402
 from innr_tpu_torch.utils.asserts import ContractError  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def _cpu_default_device():
+    """Host data goes to the card by default; these tests ask for the CPU."""
+    previous = tconfig.set_default_device("cpu")
+    yield
+    tconfig.set_default_device(previous)
+
+
 N = 2100  # >= innr_tpu.config.MIN_ROWS_PALLAS, ragged against every tile height
 EPS = float(np.finfo(np.float32).eps)
 MODES = ("dot", "l2", "cosine", "dotm", "l2m", "cosinem")

@@ -16,6 +16,15 @@ import innr_tpu.ops.quant as jq  # noqa: E402
 import innr_tpu_torch.ops.quant as tq  # noqa: E402
 from innr_tpu_torch.utils import bits  # noqa: E402
 from innr_tpu_torch.utils.asserts import ContractError  # noqa: E402
+from innr_tpu_torch import config  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _cpu_default_device():
+    """Host data goes to the card by default; these tests ask for the CPU."""
+    previous = config.set_default_device("cpu")
+    yield
+    config.set_default_device(previous)
 
 
 def test_popcount32_over_all_bits(rng):

@@ -22,6 +22,15 @@ from innr_tpu_torch.ops import ternary as tt  # noqa: E402
 from innr_tpu_torch.utils.asserts import ContractError  # noqa: E402
 from test_torch_binary import u32  # noqa: E402
 from test_torch_packed_knn import N, ternary_data  # noqa: E402
+from innr_tpu_torch import config  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _cpu_default_device():
+    """Host data goes to the card by default; these tests ask for the CPU."""
+    previous = config.set_default_device("cpu")
+    yield
+    config.set_default_device(previous)
 
 
 def planes_of(obj):
