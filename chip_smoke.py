@@ -44,7 +44,14 @@ and imports nothing of JAX. Phases:
                 query ids, NaN / +-inf / -0.0 values on matched and
                 unmatched entries, Lq in {1, 64, 256, 300}, L in {1, 32,
                 200}, k in {1, 10, cap + 3}, Q in {1, 16} (one launch, some
-                queries padded with the sentinel).
+                queries padded with the sentinel);
+              - the MaxSim scan on integer-valued tokens, f32 and bf16
+                documents, Tq in {1, 7, 32, 33}, Td in {1, 5, 180}, D in
+                {1, 96, 128, 130}, B in {1, 3, 16, 17}, N = 1037, no mask,
+                ragged masks with a fully masked document and scattered
+                masks, planted NaN / +inf / -inf tokens, an inf in query 1
+                of each batch (every query's row equals its single-query
+                launch: ROADMAP R7) and the top-k with tied documents.
 3. main     — the public entry points at full size, launch counters reset
               just before each path and read just after it:
               a. batch kNN: batch_knn_dot / batch_knn / batch_knn_cosine /
@@ -94,7 +101,14 @@ and imports nothing of JAX. Phases:
                  30,522-id WordPiece vocabulary, values |N(0, 1)|, repeats
                  as sentinel padding; then on a corpus whose ids are hashed
                  over the full 32 bits. Scores within tolerance of the plain
-                 version, indices equal where the score gap exceeds it.
+                 version, indices equal where the score gap exceeds it;
+              g. MaxSim: maxsim_knn (Q=1) and maxsim_knn_batch (B=16), k=10,
+                 over 200K documents x 180 x 128 f32 tokens (ColBERTv2's
+                 widths; lengths clip(round(N(80, 30)), 8, 180) as a bool
+                 mask), queries of 32 noisy tokens of a planted document,
+                 and the kernel module's fused_maxsim_knn_batch on the same
+                 corpus in bf16: within tolerance of the plain version, every
+                 planted document first.
 4. timing   — kernel, plain version and a same-bytes ``torch.sum`` read
               (CUDA events, median of 7 after warm-up; roofline fraction =
               read_ms / kernel_ms) for f32 10M x 128, bf16 20M x 128 and u8
@@ -112,7 +126,11 @@ and imports nothing of JAX. Phases:
               scan-equivalents of K1's full f32 scan, and of one
               IVFIndex.search_batch of 32 queries; the slot scans at Q = 16
               and 1 and the sparse scan at Q = 1 and 16 at the sizes of 3e
-              and 3f, against their plain versions and same-bytes reads.
+              and 3f, against their plain versions and same-bytes reads; the
+              MaxSim scan at Q = 1 and B = 16 (f32) and B = 16 (bf16) at the
+              size of 3g against its plain version and a read of the valid
+              tokens' bytes, the host time of each public call, and the TPU
+              record's small cell (1 x 32 tokens, 256 x 128 tokens, d=128).
               Every kernel's bound (the least time for its work: the bytes
               over 3.35 TB/s or its operations over the unit's peak, the
               larger) is printed beside its time.
@@ -141,6 +159,10 @@ N_PRUNE, IVF_CLUSTERS = 10_000_000, 16_896
 # documents x entries, the WordPiece vocabulary, query entries.
 N_SKETCH, SLOTS = 10_000_000, 128
 N_SPARSE, ENTRIES, VOCAB, QUERY_NNZ = 10_000_000, 32, 30_522, 64
+# The MaxSim cell (3g): ColBERTv2's published widths (stanford-futuredata/
+# ColBERT, colbert/infra/config/settings.py: dim 128, query_maxlen 32,
+# doc_maxlen 180) over 200K documents, a TREC-COVID-sized BEIR corpus.
+N_MAXSIM, MAXSIM_TD, MAXSIM_D, MAXSIM_TQ = 200_000, 180, 128, 32
 
 # Published peaks of one H100 SXM (NVIDIA's H100 datasheet): HBM at
 # 3.35 TB/s, FP32 SIMT at 67 TFLOP/s, bf16 dense tensor cores at 989. The
@@ -177,6 +199,7 @@ def _counted():
     from innr_tpu_torch.kernels import assign as ta
     from innr_tpu_torch.kernels import hamming as th
     from innr_tpu_torch.kernels import knn as tk
+    from innr_tpu_torch.kernels import maxsim_kernel as tm
     from innr_tpu_torch.kernels import packed_knn as tp
     from innr_tpu_torch.kernels import pruned_knn as tpk
     from innr_tpu_torch.kernels import slot_knn as tsl
@@ -191,6 +214,7 @@ def _counted():
         ("nearest_centroid", ta, "LAUNCHES", ta.LAUNCHES_BY_DTYPE),
         ("slot_scan", tsl, "LAUNCHES", tsl.LAUNCHES_BY_DTYPE),
         ("sparse_scan", tsp, "LAUNCHES", None),  # one instance
+        ("maxsim_scores", tm, "LAUNCHES", tm.LAUNCHES_BY_DTYPE),
     )
 
 
@@ -966,12 +990,14 @@ def _scan_equivalents(ms: float, full_ms: float) -> str:
     return f"{ms!r} ms = {ms / full_ms!r} scan-equivalents"
 
 
-def phase_prune(dev, full_ms: float, errs: dict, bounds: dict) -> tuple[dict, dict]:
+def phase_prune(dev, full_ms: float, errs: dict, bounds: dict,
+                library: dict) -> tuple[dict, dict]:
     """3d and its timing: prune=True, batch_knn_adaptive,
     batch_l2_squared_pruning, cluster_reorder and IVFIndex at 10M x 128,
     each path with the counters reset just before it and read just after.
     ``full_ms``: K1's full f32 scan (phase 4), the unit of the build costs.
-    Returns the paths' launches and each new kernel's (ms, plain ms)."""
+    Returns the paths' launches and each new kernel's (ms, plain ms); puts
+    the threshold scan's torch.addmv over every tile in ``library``."""
     import numpy as np
     import torch
 
@@ -1099,6 +1125,7 @@ def phase_prune(dev, full_ms: float, errs: dict, bounds: dict) -> tuple[dict, di
     # Over every tile the scan is norms2 - 2 rows.q, one torch.addmv.
     addmv_all = _median_ms(lambda: torch.addmv(norms2, rows, q0, alpha=-2.0))
     times["threshold_scan"] = (kernel, plain_ms)
+    library["threshold_scan"] = addmv_all
 
     def threshold_bound(read_rows):
         """The rows read and their norms, the query, the (N,) result."""
@@ -1636,6 +1663,195 @@ def phase_sparse(dev, errs: dict, bounds: dict) -> tuple[dict, dict]:
     return total, times
 
 
+def _int_tokens(gen, shape, lo, hi, dev):
+    """float32 tokens with integer values in [lo, hi]."""
+    import torch
+
+    return torch.randint(lo, hi + 1, shape, generator=gen, device=dev).float()
+
+
+def phase_exact_maxsim(dev) -> int:
+    """The MaxSim scan (K11/K12) against its plain version, bit for bit, on
+    integer-valued tokens (every dot and sum is then exact in any order):
+    f32 and bf16 documents, no mask / ragged masks with a fully masked
+    document / random masks, planted NaN, +inf and -inf tokens, the R7
+    input (an inf in one query of the batch), and top_k_total ties."""
+    import torch
+
+    from innr_tpu_torch.kernels import maxsim_kernel as tm
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    n = 1024 + 13
+    checks = 0
+
+    def expect_scores(name, got, want):
+        if not bits_equal(got, want):
+            bad = ~((got == want) | (torch.isnan(got) & torch.isnan(want)))
+            b, j = (int(v) for v in bad.nonzero()[0])
+            raise AssertionError(f"{name}: query {b} doc {j}: kernel {float(got[b, j])!r} "
+                                 f"plain {float(want[b, j])!r}")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for td, d in ((1, 1), (5, 96), (5, 130), (180, 128), (1, 128), (180, 1)):
+            docs = _int_tokens(gen, (n, td, d), -4, 4, dev)
+            docs[3, 0, 0] = float("nan")
+            docs[17, td - 1, 0] = float("inf")
+            docs[40, :, 0] = -float("inf")
+            docs[[100, n - 1]] = docs[5].clone()  # ties go to the lowest document
+            docs = docs.to(dtype)
+            lengths = torch.randint(1, td + 1, (n,), generator=gen, device=dev)
+            lengths[7] = 0  # a fully masked document
+            ragged = torch.arange(td, device=dev)[None, :] < lengths[:, None]
+            ragged[[100, n - 1]] = ragged[5].clone()
+            scattered = torch.rand((n, td), generator=gen, device=dev) < 0.6
+            for mask_name, mask in (("no mask", None), ("ragged", ragged),
+                                    ("scattered", scattered)):
+                for tq in (1, 7, 32, 33):
+                    for n_b in (1, 3, 16, 17):
+                        qs = _int_tokens(gen, (n_b, tq, d), -3, 3, dev)
+                        if n_b > 1:
+                            qs[1, 0, 0] = float("inf")  # R7: query 1 only
+                        name = f"exact maxsim_scores<{str(dtype)[6:]}> td={td} d={d} tq={tq} " \
+                               f"b={n_b} {mask_name}"
+                        before = tm.LAUNCHES
+                        got = tm.fused_maxsim_scores_batch(qs, docs, mask)
+                        if tm.LAUNCHES != before + 1:
+                            raise AssertionError(f"{name}: the kernel did not launch")
+                        expect_scores(name, got, tm.maxsim_scores_plain(qs, docs, mask))
+                        checks += 1
+                        if n_b > 1 and tq == 7:
+                            # Each query scored on its own: the batch row of
+                            # every query equals its single-query launch.
+                            for b in (0, 1, n_b - 1):
+                                one = tm.fused_maxsim_scores(qs[b], docs, mask)
+                                expect_scores(f"{name} R7 query {b}", got[b:b + 1], one[None])
+                            if not bool(torch.isfinite(got[0]).any()):
+                                raise AssertionError(f"{name}: query 0 took query 1's inf")
+                            checks += 1
+                        if tq == 32 and n_b in (1, 16):
+                            for k in (1, 10):
+                                vals, idx = tm.fused_maxsim_knn_batch(qs, docs, k, mask)
+                                pv, pi = tm._top(tm.maxsim_scores_plain(qs, docs, mask), k)
+                                if not (bits_equal(vals, pv) and torch.equal(idx, pi)):
+                                    raise AssertionError(f"{name} k={k}: top-k != plain")
+                                checks += 1
+    torch.cuda.synchronize()
+    log(f"[exact] {checks} MaxSim checks agree bit for bit (scores, R7 rows, top-k ties)")
+    return checks
+
+
+def _colbert_corpus(gen, dev):
+    """N_MAXSIM documents of MAXSIM_TD unit-norm MAXSIM_D-dim f32 token
+    embeddings, lengths clip(round(N(80, 30)), 8, 180) as a bool mask; the
+    padded tokens hold random data, which the mask must keep out."""
+    import torch
+
+    n, td, d = N_MAXSIM, MAXSIM_TD, MAXSIM_D
+    docs = torch.empty((n, td, d), dtype=torch.float32, device=dev)
+    for a in range(0, n, 1 << 14):
+        b = min(n, a + (1 << 14))
+        x = torch.randn((b - a, td, d), generator=gen, device=dev)
+        docs[a:b] = x / x.norm(dim=2, keepdim=True)
+    lengths = (torch.randn(n, generator=gen, device=dev) * 30 + 80).round().clamp(8, td).long()
+    mask = torch.arange(td, device=dev)[None, :] < lengths[:, None]
+    return docs, mask, lengths
+
+
+def phase_maxsim(dev, errs: dict, bounds: dict) -> tuple[dict, dict]:
+    """3g and its timing: ColBERT retrieval through the public maxsim_knn
+    (Q=1) and maxsim_knn_batch (B=16), and the kernel module's batch call
+    on the same corpus in bf16, counters reset just before and read just
+    after. Returns the path's launches and each dtype's (ms, plain ms) at
+    B=16."""
+    import torch
+
+    import innr_tpu_torch as itt
+    from innr_tpu_torch.kernels import maxsim_kernel as tm
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    n, td, d, tq, n_b, k = N_MAXSIM, MAXSIM_TD, MAXSIM_D, MAXSIM_TQ, 16, 10
+    docs, mask, lengths = _colbert_corpus(gen, dev)
+    # Near-duplicate queries: 32 tokens drawn from the valid tokens of a
+    # planted document, plus noise, renormalized.
+    planted = torch.arange(n_b, device=dev) * (n // n_b) + n // (2 * n_b)
+    pick = (torch.rand((n_b, tq), generator=gen, device=dev) * lengths[planted, None]).long()
+    qs = docs[planted[:, None], pick] + 0.1 * torch.randn((n_b, tq, d), generator=gen, device=dev)
+    qs = qs / qs.norm(dim=2, keepdim=True)
+    docs16 = docs.to(torch.bfloat16)
+    torch.cuda.synchronize()
+
+    reset_counts()
+    one = itt.maxsim_knn(qs[0], docs, k, doc_mask=mask)
+    batch = itt.maxsim_knn_batch(qs, docs, k, doc_mask=mask)
+    batch16 = tm.fused_maxsim_knn_batch(qs, docs16, k, mask)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    _check_path("MaxSim", counts, ["maxsim_scores<float32>", "maxsim_scores<bfloat16>"])
+
+    # 32 eps of the largest sum of |products| a score can hold: per query
+    # token |q_i| max |d_j| (Cauchy-Schwarz), summed over the tokens.
+    max_d = max(float(docs[a:a + (1 << 14)].norm(dim=2).max()) for a in range(0, n, 1 << 14))
+    tol = (64 * EPS32 * max_d * qs.norm(dim=2).sum(dim=1, keepdim=True)).double()
+    pv, pi = tm._top(tm.maxsim_scores_plain(qs, docs, mask), k + 1)
+    err = check_close("maxsim_knn_batch", *batch, pv, pi, tol)
+    err = max(err, check_close("maxsim_knn", one[0][None], one[1][None], pv[:1], pi[:1],
+                               tol[:1]))
+    # Scores within tol, and the indices exactly the plain version's: the
+    # planted answers stand far apart, and the seeded corpus is fixed.
+    if not (torch.equal(batch[1], pi[:, :k]) and torch.equal(one[1], pi[0, :k])):
+        raise AssertionError("maxsim_knn(_batch): indices differ from the plain version's")
+    if not torch.equal(batch[1][:, 0], planted.to(torch.int32)):
+        raise AssertionError(f"maxsim_knn_batch: planted documents {planted.tolist()} not "
+                             f"first: {batch[1][:, 0].tolist()}")
+    errs["maxsim_scores<float32>"] = err
+    pv16, pi16 = tm._top(tm.maxsim_scores_plain(qs, docs16, mask), k + 1)
+    errs["maxsim_scores<bfloat16>"] = check_close("fused_maxsim_knn_batch bf16", *batch16,
+                                                  pv16, pi16, tol)
+    valid = int(lengths.sum())
+    log(f"[main] MaxSim {n} x {td} x {d} ({valid} valid tokens, mean length "
+        f"{valid / n!r}): maxsim_knn and maxsim_knn_batch ({n_b} queries of {tq}, k={k}) agree "
+        f"with the plain version (max abs err {err!r}, indices identical), every "
+        f"planted document first; bf16 fused_maxsim_knn_batch agrees (max abs err "
+        f"{errs['maxsim_scores<bfloat16>']!r}); launches {counts['maxsim_scores<float32>']} "
+        f"f32, {counts['maxsim_scores<bfloat16>']} bf16")
+
+    def maxsim_bound(q, elem, unit):
+        """The valid tokens' bytes, the mask, the queries and the scores;
+        2 q Tq D FMA operations per valid token."""
+        return bound(elem * valid * d + n * td + 4 * q * tq * d + 4 * q * n,
+                     **{unit: 2 * q * tq * valid * d})
+
+    times = {}
+    cells = (("float32", docs, 1, 7), ("float32", docs, n_b, 3), ("bfloat16", docs16, n_b, 3))
+    for name, corpus, q, reps in cells:
+        elem = corpus.element_size()
+        flat = corpus.view(-1)[: valid * d].view(torch.float32)  # the valid tokens' bytes
+        kernel = _median_ms(lambda: tm.fused_maxsim_scores_batch(qs[:q], corpus, mask))
+        plain = _median_ms(lambda: tm.maxsim_scores_plain(qs[:q], corpus, mask), reps=reps)
+        read_ms = _median_ms(lambda: flat.sum())
+        b = maxsim_bound(q, elem, "fp32" if name == "float32" else "bf16")
+        if q == n_b:
+            times[f"maxsim_scores<{name}>"] = (kernel, plain)
+            bounds[f"maxsim_scores<{name}>"] = b
+        log(f"[timing] maxsim_scores<{name}> {n} x {td} x {d}, B={q}, Tq={tq}: kernel "
+            f"{kernel!r} ms, plain {plain!r} ms, same-bytes read {read_ms!r} ms, roofline "
+            f"fraction (read/kernel) {read_ms / kernel!r}, {bound_text(b)}, bound/kernel "
+            f"{b[0] / kernel!r}")
+    host1 = _median_host_ms(lambda: itt.maxsim_knn(qs[0], docs, k, doc_mask=mask)[0].cpu())
+    host16 = _median_host_ms(lambda: itt.maxsim_knn_batch(qs, docs, k, doc_mask=mask)[0].cpu())
+    log(f"[timing] public call host time (top-k and host copy included): maxsim_knn "
+        f"{host1!r} ms, maxsim_knn_batch (B={n_b}) {host16!r} ms")
+    del docs, docs16, mask
+    torch.cuda.empty_cache()
+    # The TPU record's small cell: 1 x 32 tokens against 256 docs x 128
+    # tokens, d = 128: a latency line.
+    small = torch.randn((256, 128, 128), generator=gen, device=dev)
+    small_ms = _median_ms(lambda: tm.fused_maxsim_scores_batch(qs[:1], small))
+    log(f"[timing] maxsim_scores<float32> 256 x 128 x 128, B=1, Tq=32: kernel {small_ms!r} ms, "
+        f"{bound_text(bound(4 * small.numel() + 4 * 256, fp32=2 * 32 * 256 * 128 * 128))}")
+    return counts, times
+
+
 def main() -> int:
     if not (ROOT / "innr_tpu_torch").is_dir():
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -1651,6 +1867,7 @@ def main() -> int:
     phase_exact_packed(dev)
     phase_exact_pruned(dev)
     phase_exact_slot_sparse(dev)
+    phase_exact_maxsim(dev)
     corpora, errs, bounds = {}, {}, {}
     launches = phase_main(dev, corpora, errs)
     _check_path("batch-kNN", launches,
@@ -1667,7 +1884,8 @@ def main() -> int:
     pipeline_launches = phase_pipeline(dev, errs)
     torch.cuda.empty_cache()
     prune_errs = {}
-    prune_launches, prune_times = phase_prune(dev, full_ms, prune_errs, bounds)
+    library = {}
+    prune_launches, prune_times = phase_prune(dev, full_ms, prune_errs, bounds, library)
     times.update(prune_times)
     torch.cuda.empty_cache()
     slot_launches, slot_times = phase_slot(dev, prune_errs, bounds)
@@ -1675,8 +1893,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     sparse_launches, sparse_times = phase_sparse(dev, prune_errs, bounds)
     times.update(sparse_times)
+    torch.cuda.empty_cache()
+    maxsim_launches, maxsim_times = phase_maxsim(dev, prune_errs, bounds)
+    times.update(maxsim_times)
     for counts in (gauss_launches, packed_launches, pipeline_launches, prune_launches,
-                   slot_launches, sparse_launches):
+                   slot_launches, sparse_launches, maxsim_launches):
         for name, n in counts.items():
             launches[name] += n
     for name in prune_times:
@@ -1697,11 +1918,13 @@ def main() -> int:
         ("slot_scan<uint32>", "slot_knn.cu", "slot_knn.py:83,145"),
         ("slot_scan<uint16>", "slot_knn.cu", "slot_knn.py:83,145"),
         ("sparse_scan", "sparse_knn.cu", "sparse_knn.py:73"),
+        ("maxsim_scores<float32>", "maxsim.cu", "maxsim_kernel.py:41,166"),
+        ("maxsim_scores<bfloat16>", "maxsim.cu", "maxsim_kernel.py:41,166"),
     ]
-    # No single PyTorch call computes any of these functions: the scans
-    # need a product (or a count) and a selection, and torch has no
-    # popcount; over every tile the threshold scan is one torch.addmv,
-    # which phase 4 times beside it.
+    # No single PyTorch call computes the other functions: the scans need a
+    # product (or a count) and a selection, torch has no popcount, and
+    # MaxSim needs a product, a masked max and a sum. Over every tile the
+    # threshold scan is one torch.addmv, which phase 4 times beside it.
     record = {"kernels": [
         {
             "name": name,
@@ -1714,7 +1937,7 @@ def main() -> int:
             "plain_ms": times[name][1],
             "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1],
-            "library_ms": None,
+            "library_ms": library.get(name),
         }
         for name, source, replaces in kernels
     ]}

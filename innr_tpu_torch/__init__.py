@@ -24,7 +24,15 @@ module names. Ported so far:
 - learned-sparse retrieval (:class:`SparseCorpus`, ``sparse_knn``,
   ``sparse_knn_batch``) on the sparse scan (``csrc/sparse_knn.cu``), the
   sparse MaxSim functions and :mod:`innr_tpu_torch.ops.sparse_ext` (plain
-  torch, as in the JAX package).
+  torch, as in the JAX package);
+- ColBERT MaxSim late interaction (``maxsim``, ``maxsim_cosine``,
+  ``batch_maxsim``) and MaxSim retrieval (``maxsim_knn``,
+  ``maxsim_knn_batch``) on the MaxSim scan (``csrc/maxsim.cu``);
+- the pair ops, plain torch as in the JAX package: dense f32
+  (:mod:`~innr_tpu_torch.ops.dense`), float64
+  (:mod:`~innr_tpu_torch.ops.dense_f64`), the bit-hack rsqrt
+  (:mod:`~innr_tpu_torch.ops.fast_math`), the host :class:`TopK` tracker,
+  the :mod:`~innr_tpu_torch.distance` metrics and the backend report.
 
 Corpora on a CUDA device run the hand-written kernels; corpora on the CPU
 run their plain PyTorch versions. Host data (numpy, lists, JAX arrays)
@@ -37,7 +45,16 @@ mismatch; cosine returns 0.0 for effectively-zero norms (< 1e-9); orderings
 follow IEEE total order with ties to the lowest index.
 """
 
-from innr_tpu_torch import backend, batch, config, io, pipeline, prune
+from innr_tpu_torch import backend, batch, config, distance, io, pipeline, prune
+from innr_tpu_torch.distance import (
+    Distance,
+    DistCosine,
+    DistDot,
+    DistHamming,
+    DistL1,
+    DistL2,
+    DistSlotU32,
+)
 from innr_tpu_torch.pipeline import CoarseConfig, TwoStageIndex
 from innr_tpu_torch.ivf import IVFIndex
 from innr_tpu_torch.prune import (
@@ -77,6 +94,41 @@ from innr_tpu_torch.ops.binary import (
     binary_knn,
     encode_binary,
     encode_binary_batch,
+)
+from innr_tpu_torch.ops.dense import (
+    angular_distance,
+    cosine,
+    dot,
+    l1_distance,
+    l2_distance,
+    l2_distance_squared,
+    matryoshka_cosine,
+    matryoshka_dot,
+    norm,
+    normalize,
+    normalize_with_norm,
+)
+from innr_tpu_torch.ops.dense_f64 import (
+    cosine_f64,
+    dot_f64,
+    l1_distance_f64,
+    l2_distance_f64,
+    l2_distance_squared_f64,
+    norm_f64,
+    normalize_f64,
+)
+from innr_tpu_torch.ops.fast_math import (
+    fast_cosine,
+    fast_cosine_dispatch,
+    fast_rsqrt,
+    fast_rsqrt_precise,
+)
+from innr_tpu_torch.ops.maxsim import (
+    batch_maxsim,
+    maxsim,
+    maxsim_cosine,
+    maxsim_knn,
+    maxsim_knn_batch,
 )
 from innr_tpu_torch.ops.quant import batch_dot_u8, batch_hamming, dot_u8, hamming_distance
 from innr_tpu_torch.ops.scalar import (
@@ -134,6 +186,7 @@ from innr_tpu_torch.ops.ternary import (
     ternary_hamming,
     ternary_knn,
 )
+from innr_tpu_torch.ops.topk import TopK
 from innr_tpu_torch.utils.asserts import ContractError
 
 __version__ = "0.1.0"

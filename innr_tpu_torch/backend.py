@@ -12,7 +12,7 @@ import torch
 
 from innr_tpu_torch import config
 
-__all__ = ["Backend", "batch_backend"]
+__all__ = ["Backend", "dense_backend", "batch_backend", "slot_backend"]
 
 
 class Backend(enum.Enum):
@@ -27,6 +27,20 @@ class Backend(enum.Enum):
 
     def __str__(self) -> str:
         return self.value
+
+
+def dense_backend(length: int) -> Backend:
+    """Path the single-pair dense f32 ops take for ``length``-dim vectors:
+    plain PyTorch on the inputs' device at every length (the JAX package's
+    single pairs are XLA reductions; neither package has a kernel for them)."""
+    del length
+    return Backend.REFERENCE if config.reference_forced() else Backend.TORCH
+
+
+def slot_backend(length: int) -> Backend:
+    """Path the pairwise slot-Hamming ops take for ``length``-slot sketches:
+    plain PyTorch, as for :func:`dense_backend`."""
+    return dense_backend(length)
 
 
 def batch_backend(num_rows: int, device) -> Backend:

@@ -16,6 +16,8 @@ launches the kernel or raises — never a silent fallback.
 - :mod:`~innr_tpu_torch.kernels.slot_knn`, :mod:`~innr_tpu_torch.kernels.sparse_knn`
   — the slot-sketch and sparse scans (``csrc/slot_knn.cu``,
   ``csrc/sparse_knn.cu``);
+- :mod:`~innr_tpu_torch.kernels.maxsim_kernel` — MaxSim scores of a query
+  batch over multi-vector documents (``csrc/maxsim.cu``);
 - :mod:`~innr_tpu_torch.kernels.row_scan` — the query tile of the three
   one-row-per-thread scans (``packed_scan``, ``slot_scan``,
   ``sparse_scan``), which share ``csrc/row_scan.cuh``.

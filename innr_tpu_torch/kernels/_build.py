@@ -129,5 +129,9 @@ def load() -> ctypes.CDLL:
             ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, i32, i32, ptr,
         ]
         lib.innr_sparse_scan.restype = i32
+        lib.innr_maxsim_scores.argtypes = [
+            i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i64, i32, i32, i32, i32, ptr,
+        ]
+        lib.innr_maxsim_scores.restype = i32
         _LIB = lib
     return _LIB

@@ -1,3 +1,4 @@
-"""Similarity ops by family: quantized (``scalar``, ``quant``, ``binary``,
-``ternary``), slot sketches (``slot``) and sparse vectors (``sparse``,
-``sparse_ext``)."""
+"""Similarity ops by family: dense pairs (``dense``, ``dense_f64``,
+``fast_math``), quantized (``scalar``, ``quant``, ``binary``, ``ternary``),
+slot sketches (``slot``), sparse vectors (``sparse``, ``sparse_ext``), late
+interaction (``maxsim``) and the host top-K tracker (``topk``)."""

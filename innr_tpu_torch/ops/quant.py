@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from innr_tpu_torch.utils.asserts import ContractError
+from innr_tpu_torch.utils.asserts import check_same_length
 from innr_tpu_torch.utils.bits import popcount8
 from innr_tpu_torch.utils.tensors import as_tensor
 
@@ -32,18 +32,11 @@ __all__ = [
 ]
 
 
-def _check_same_length(a, b, op: str) -> None:
-    if a.shape[-1] != b.shape[-1]:
-        raise ContractError(
-            f"innr_tpu_torch::{op}: length mismatch ({a.shape[-1]} vs {b.shape[-1]})"
-        )
-
-
 def dot_u8(a, b) -> torch.Tensor:
     """u8 dot product (reference ``src/quant.rs:55``), as an int64 scalar."""
     a = as_tensor(a, torch.uint8)
     b = as_tensor(b, torch.uint8, a.device)
-    _check_same_length(a, b, "dot_u8")
+    check_same_length(a, b, "dot_u8")
     return (a.to(torch.int64) * b.to(torch.int64)).sum()
 
 
@@ -52,7 +45,7 @@ def hamming_distance(a, b) -> torch.Tensor:
     as an int32 scalar."""
     a = as_tensor(a, torch.uint8)
     b = as_tensor(b, torch.uint8, a.device)
-    _check_same_length(a, b, "hamming_distance")
+    check_same_length(a, b, "hamming_distance")
     return popcount8(a ^ b).sum(dtype=torch.int32)
 
 
@@ -61,14 +54,14 @@ def batch_hamming(query, corpus) -> torch.Tensor:
     (N,) int32."""
     corpus = as_tensor(corpus, torch.uint8)
     query = as_tensor(query, torch.uint8, corpus.device)
-    _check_same_length(query, corpus, "batch_hamming")
+    check_same_length(query, corpus, "batch_hamming")
     return popcount8(corpus ^ query[None, :]).sum(dim=1, dtype=torch.int32)
 
 
 def _dot_u8_rows(query, corpus, op: str) -> torch.Tensor:
     corpus = as_tensor(corpus, torch.uint8)
     query = as_tensor(query, torch.uint8, corpus.device)
-    _check_same_length(query, corpus, op)
+    check_same_length(query, corpus, op)
     return (corpus.to(torch.float64) @ query.to(torch.float64)).to(torch.int64)
 
 

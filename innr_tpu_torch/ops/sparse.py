@@ -32,7 +32,7 @@ from innr_tpu_torch.kernels.sparse_knn import join_scores
 from innr_tpu_torch.utils.asserts import ContractError
 from innr_tpu_torch.utils.bits import as_unsigned
 from innr_tpu_torch.utils.order import top_k_total
-from innr_tpu_torch.utils.tensors import as_tensor, host_device
+from innr_tpu_torch.utils.tensors import as_tensor, empty_topk, host_device
 
 __all__ = [
     "sparse_dot",
@@ -188,11 +188,6 @@ def _query_pair(query, name: str, device):
     return _check_pair(query[0], query[1], "query", device)
 
 
-def _empty(shape, dev):
-    return (torch.zeros(shape, dtype=torch.float32, device=dev),
-            torch.zeros(shape, dtype=torch.int32, device=dev))
-
-
 def sparse_knn(query, corpus: SparseCorpus, k: int):
     """Top-k documents by sparse dot product (descending, IEEE total order,
     ties to the lowest document). ``query``: an ``(indices, values)`` pair,
@@ -201,7 +196,7 @@ def sparse_knn(query, corpus: SparseCorpus, k: int):
     q_idx, q_val = _query_pair(query, "sparse_knn", dev)
     n = corpus.num_docs
     if n == 0 or k <= 0:
-        return _empty((0,), dev)
+        return empty_topk((0,), dev)
     idx_t, val_t = corpus._transposed()
     return _sparse.fused_sparse_knn(q_idx, q_val, idx_t, val_t, min(int(k), n))
 
@@ -215,10 +210,10 @@ def sparse_knn_batch(queries, corpus: SparseCorpus, k: int):
     q_idx, q_val = pair if pair is not None else pad_sparse(queries, device=dev)
     n, n_q = corpus.num_docs, int(q_idx.shape[0])
     if n == 0 or k <= 0:
-        return _empty((n_q, 0), dev)
+        return empty_topk((n_q, 0), dev)
     k = min(int(k), n)
     if n_q == 0:
-        return _empty((0, k), dev)
+        return empty_topk((0, k), dev)
     idx_t, val_t = corpus._transposed()
     return _sparse.fused_sparse_knn_batch(q_idx, q_val, idx_t, val_t, k)
 
@@ -338,6 +333,6 @@ def sparse_maxsim_knn(query_tokens, docs, k: int):
     scores = sparse_maxsim_batch(query_tokens, docs)
     n = int(scores.shape[0])
     if n == 0 or k <= 0:
-        return _empty((0,), scores.device)
+        return empty_topk((0,), scores.device)
     vals, idx = top_k_total(scores, min(int(k), n), largest=True)
     return vals, idx.to(torch.int32)

@@ -30,3 +30,9 @@ def as_tensor(values, dtype, device=None) -> torch.Tensor:
     if isinstance(values, torch.Tensor):
         return values.to(device=device if device is not None else values.device, dtype=dtype)
     return torch.as_tensor(np.asarray(values), device=host_device(device)).to(dtype)
+
+
+def empty_topk(shape, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """An empty top-k result of ``shape``: float32 scores, int32 indices."""
+    return (torch.zeros(shape, dtype=torch.float32, device=device),
+            torch.zeros(shape, dtype=torch.int32, device=device))

@@ -26,21 +26,23 @@ PKG = ROOT / "innr_tpu_torch"
 
 
 def test_imports_with_jax_blocked():
+    """Every module found under the package imports with JAX blocked and
+    pulls in nothing of innr_tpu."""
     code = (
-        "import sys; sys.modules['jax'] = None; "
-        "import innr_tpu_torch, innr_tpu_torch.kernels.knn, innr_tpu_torch.io, "
-        "innr_tpu_torch.kernels.packed_knn, innr_tpu_torch.kernels.hamming, "
-        "innr_tpu_torch.ops.quant, innr_tpu_torch.ops.binary, innr_tpu_torch.ops.ternary, "
-        "innr_tpu_torch.pipeline, innr_tpu_torch.prune, innr_tpu_torch.ivf, "
-        "innr_tpu_torch.kernels.assign, innr_tpu_torch.kernels.pruned_knn, "
-        "innr_tpu_torch.kernels.slot_knn, innr_tpu_torch.kernels.sparse_knn, "
-        "innr_tpu_torch.kernels.row_scan, "
-        "innr_tpu_torch.ops.slot, innr_tpu_torch.ops.sparse, innr_tpu_torch.ops.sparse_ext; "
-        "assert 'innr_tpu' not in sys.modules"
+        "import sys, importlib, pkgutil; sys.modules['jax'] = None; "
+        "import innr_tpu_torch as pkg; "
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'innr_tpu_torch.')]; "
+        "[importlib.import_module(n) for n in names]; "
+        "assert 'innr_tpu' not in sys.modules; "
+        "print(len(names), ' '.join(names))"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+    count, names = proc.stdout.split(maxsplit=1)
+    on_disk = {p.relative_to(ROOT).with_suffix("").as_posix().replace("/", ".").removesuffix(
+        ".__init__") for p in PKG.rglob("*.py")} - {"innr_tpu_torch"}
+    assert set(names.split()) == on_disk and int(count) == len(on_disk)
 
 
 def test_no_module_imports_jax_or_innr_tpu():
@@ -59,8 +61,8 @@ def test_build_without_nvcc_raises_naming_nvcc(monkeypatch):
 
 def test_sources_ship_with_the_package():
     assert sorted(p.name for p in (PKG / "csrc").glob("*.cu")) == [
-        "assign.cu", "knn.cu", "packed.cu", "packed_knn.cu", "pruned.cu", "slot_knn.cu",
-        "sparse_knn.cu"]
+        "assign.cu", "knn.cu", "maxsim.cu", "packed.cu", "packed_knn.cu", "pruned.cu",
+        "slot_knn.cu", "sparse_knn.cu"]
     assert sorted(p.name for p in (PKG / "csrc").glob("*.cuh")) == [
         "packed.cuh", "row_scan.cuh", "topk.cuh", "vec.cuh"]
     text = (ROOT / "pyproject.toml").read_text()
