@@ -34,7 +34,10 @@ and imports nothing of JAX. Phases:
               - the threshold scan, f32 and bf16, D in {1, 127, 128, 768};
               - the nearest-centroid pass, f32 / bf16 / u8 rows, D in
                 {7, 128, 300}, KC in {1, 3, 256, 2049, 16896}, with exact
-                ties and an all-NaN row;
+                ties and an all-NaN row; and its tensor-core shortlist on
+                dots exact in FP32 but not in TF32 (centroids on the 2^-12
+                grid, near ties 1-2 grid units apart), D in {8, 128, 130},
+                KC in {1, 255, 256, 16896}, with the shortlist sizes;
               - the slot scan, uint16 and uint32, on slots from a 4-value
                 alphabet drawn over the full width (counts tie) with
                 planted duplicate rows, Q in {1, 5, 16, 33}, S in {1, 7,
@@ -121,9 +124,10 @@ and imports nothing of JAX. Phases:
               and on the Gaussian one (the nothing-prunes overhead); the
               threshold scan against its plain version and a read of its
               surviving rows; the nearest-centroid pass at KC = 256 and
-              16896 against its plain version (3 runs at 16896); the host
-              time of cluster_reorder and of an IVFIndex build in
-              scan-equivalents of K1's full f32 scan, and of one
+              16896 against its plain version (3 runs at 16896), with its
+              shortlist sizes; the host time of cluster_reorder and of an
+              IVFIndex build in scan-equivalents of K1's full f32 scan, the
+              k-means++ seeding's host time apart, and of one
               IVFIndex.search_batch of 32 queries; the slot scans at Q = 16
               and 1 and the sparse scan at Q = 1 and 16 at the sizes of 3e
               and 3f, against their plain versions and same-bytes reads; the
@@ -165,14 +169,15 @@ N_SPARSE, ENTRIES, VOCAB, QUERY_NNZ = 10_000_000, 32, 30_522, 64
 N_MAXSIM, MAXSIM_TD, MAXSIM_D, MAXSIM_TQ = 200_000, 180, 128, 32
 
 # Published peaks of one H100 SXM (NVIDIA's H100 datasheet): HBM at
-# 3.35 TB/s, FP32 SIMT at 67 TFLOP/s, bf16 dense tensor cores at 989. The
+# 3.35 TB/s, FP32 SIMT at 67 TFLOP/s, dense tensor cores at 989 TFLOP/s in
+# bf16 and 495 in TF32. The
 # integer and shared-memory rates follow the CUDA C++ Programming Guide's
 # per-SM throughput for compute capability 9.0 at the clock the FP32 peak
 # implies (256 FP32 flops per clock per SM on 132 SMs: 1.98 GHz): INT32
 # add / compare 64 per clock per SM, popcount 16, shared-memory loads 32.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"fp32": 67e12, "bf16": 989e12, "int32": 67e12 / 4, "popc": 67e12 / 16,
-                  "shared": 67e12 / 8}
+PEAK_OPS_PER_S = {"fp32": 67e12, "bf16": 989e12, "tf32": 495e12, "int32": 67e12 / 4,
+                  "popc": 67e12 / 16, "shared": 67e12 / 8}
 
 
 def log(msg: str) -> None:
@@ -567,7 +572,47 @@ def phase_exact_pruned(dev) -> int:
                 k13 += 1
     torch.cuda.synchronize()
     log(f"[exact] {k13} nearest-centroid checks agree exactly")
+    k13 += _exact_tf32_near_ties(gen, n, dev)
     return checks + k15 + k13
+
+
+def _exact_tf32_near_ties(gen, n: int, dev) -> int:
+    """The nearest-centroid kernel's tensor-core shortlist on exact
+    arithmetic that TF32 cannot represent: integer rows in [-3, 3] ([0, 3]
+    for u8) and centroids on the 2^-12 grid below 4 in magnitude, so every
+    FP32 dot is exact in any order but the centroids round in TF32; in each
+    group of three centroids two differ from the first by 1 or 2 units of
+    2^-12 in one coordinate (near ties). Kernel equal to plain, f32, bf16
+    and u8, D in {8, 128, 130}, KC in {1, 255, 256, 16896}."""
+    import torch
+
+    from innr_tpu_torch.kernels import assign as ta
+
+    checks = 0
+    for d in (8, 128, 130):
+        for kc in (1, 255, 256, 16_896):
+            grid = torch.randint(-16_383, 16_384, (kc, d), generator=gen, device=dev)
+            grid = grid[torch.arange(kc, device=dev) // 3 * 3]
+            step = torch.randint(1, 3, (kc,), generator=gen, device=dev)
+            step = step * torch.where(torch.rand(kc, generator=gen, device=dev) < 0.5, -1, 1)
+            step = step * (torch.arange(kc, device=dev) % 3 != 0)
+            j = torch.randint(0, d, (kc,), generator=gen, device=dev)
+            grid[torch.arange(kc, device=dev), j] += step
+            cent = grid.clamp(-16_383, 16_383).float() / 4096.0
+            for dtype in (torch.float32, torch.bfloat16, torch.uint8):
+                lo = 0 if dtype == torch.uint8 else -3
+                rows = torch.randint(lo, 4, (n, d), generator=gen, device=dev).to(dtype)
+                got = ta.nearest_centroid(rows, cent)
+                if not torch.equal(got, ta.nearest_centroid_plain(rows, cent)):
+                    raise AssertionError(f"exact TF32 near ties nearest_centroid {dtype} d={d} "
+                                         f"kc={kc}: kernel != plain")
+                checks += 1
+            rows_n, total, top = ta.shortlist_stats()
+            log(f"[exact] TF32 near ties d={d} kc={kc} (u8 rows): shortlist mean "
+                f"{total / rows_n!r}, largest {top} per row")
+    torch.cuda.synchronize()
+    log(f"[exact] {checks} nearest-centroid TF32 near-tie checks agree exactly")
+    return checks
 
 
 def unsigned_sort(x, dim: int):
@@ -1005,7 +1050,7 @@ def phase_prune(dev, full_ms: float, errs: dict, bounds: dict,
     from innr_tpu_torch.kernels import assign as ta
     from innr_tpu_torch.kernels import knn as tk
     from innr_tpu_torch.kernels import pruned_knn as tpk
-    from innr_tpu_torch.prune import plan_threshold_survivors
+    from innr_tpu_torch.prune import SEED_CHUNK, kmeanspp_seed, plan_threshold_survivors
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     n, n_q, k = N_PRUNE, 32, 10
@@ -1143,14 +1188,22 @@ def phase_prune(dev, full_ms: float, errs: dict, bounds: dict,
     errs["nearest_centroid"] = _assign_check(
         f"nearest_centroid {n} x 128, KC=256", rows, cent256, ta.nearest_centroid(rows, cent256),
         ta.nearest_centroid_plain(rows, cent256))
+    shortlist = _shortlist_log(f"nearest_centroid {n} x 128, KC=256")
     kernel = _median_ms(lambda: ta.nearest_centroid(rows, cent256))
     plain_ms = _median_ms(lambda: ta.nearest_centroid_plain(rows, cent256))
     times["nearest_centroid"] = (kernel, plain_ms)
 
-    def assign_bound(kc):
-        return bound(4 * (n * 128 + kc * 128 + n), fp32=2 * n * kc * 128)
+    def assign_bound(kc, pairs):
+        """Rows, centroids and the result moved once; 2 N KC D TF32
+        tensor-core operations and the re-scored pairs' 2 D FP32 FMA
+        operations (this run's shortlist), each over its own unit's peak.
+        PR 5's FP32-only figure is logged beside it."""
+        moved = 4 * (n * 128 + kc * 128 + n)
+        log(f"[timing] nearest_centroid KC={kc}: the FP32-only bound of PR 5's SIMT kernel "
+            f"{bound_text(bound(moved, fp32=2 * n * kc * 128))}")
+        return bound(moved, tf32=2 * n * kc * 128, fp32=2 * 128 * pairs)
 
-    bounds["nearest_centroid"] = assign_bound(256)
+    bounds["nearest_centroid"] = assign_bound(256, shortlist)
     log(f"[timing] nearest_centroid {n} x 128, KC=256: kernel {kernel!r} ms, plain "
         f"{plain_ms!r} ms, {bound_text(bounds['nearest_centroid'])}")
     del vb, vb16, rows, full, plain, norms2
@@ -1206,19 +1259,39 @@ def phase_prune(dev, full_ms: float, errs: dict, bounds: dict,
     build_ms = _median_host_ms(lambda: (itt.IVFIndex(rows, n_clusters=n_clusters, metric="dot",
                                                      n_iters=3), torch.cuda.synchronize()),
                                reps=1)
-    log(f"[timing] IVFIndex build host time {_scan_equivalents(build_ms, full_ms)}; "
-        f"search_batch of {n_q} queries, k={k}, host copy included: {search_ms!r} ms")
+    # The build's k-means++ seeding alone, on a seed pool of the build's
+    # size (8192 sampled rows), with its own generator.
+    pool = rows[torch.randint(0, n, (8192,), generator=gen, device=dev)].float()
+    seed_ms = _median_host_ms(lambda: (kmeanspp_seed(pool, torch.Generator(device=dev)
+                                                     .manual_seed(SEED), n_clusters),
+                                       torch.cuda.synchronize()), reps=3)
+    log(f"[timing] IVFIndex build host time {_scan_equivalents(build_ms, full_ms)}, of which "
+        f"the k-means++ seeding ({n_clusters - 1} steps, CUDA graph of {SEED_CHUNK}-step "
+        f"chunks, 8192-row pool) {seed_ms!r} ms (median of 3); search_batch of {n_q} "
+        f"queries, k={k}, host copy included: {search_ms!r} ms")
     cent = centers + 0.1 * torch.randn(centers.shape, generator=gen, device=dev)
     errs["nearest_centroid"] = max(errs["nearest_centroid"], _assign_check(
         f"nearest_centroid {n} x 128, KC={n_clusters}", rows, cent,
         ta.nearest_centroid(rows, cent), ta.nearest_centroid_plain(rows, cent)))
+    shortlist = _shortlist_log(f"nearest_centroid {n} x 128, KC={n_clusters}")
     kernel = _median_ms(lambda: ta.nearest_centroid(rows, cent), reps=3)
     plain_ms = _median_ms(lambda: ta.nearest_centroid_plain(rows, cent), reps=3)
     log(f"[timing] nearest_centroid {n} x 128, KC={n_clusters}: kernel {kernel!r} ms, plain "
-        f"{plain_ms!r} ms (median of 3), {bound_text(assign_bound(n_clusters))}")
+        f"{plain_ms!r} ms (median of 3), {bound_text(assign_bound(n_clusters, shortlist))}")
     del rows, full
     torch.cuda.empty_cache()
     return total, times
+
+
+def _shortlist_log(name: str) -> int:
+    """Logs the last nearest-centroid launch's shortlist (mean and largest
+    per row) and returns its total of exactly re-scored pairs."""
+    from innr_tpu_torch.kernels import assign as ta
+
+    rows_n, total, top = ta.shortlist_stats()
+    log(f"[main] {name}: shortlist of {total} re-scored pairs, mean {total / rows_n!r} and "
+        f"largest {top} per row")
+    return total
 
 
 def _assign_check(name: str, rows, cent, got, want) -> float:
@@ -1919,7 +1992,7 @@ def main() -> int:
         ("slot_scan<uint16>", "slot_knn.cu", "slot_knn.py:83,145"),
         ("sparse_scan", "sparse_knn.cu", "sparse_knn.py:73"),
         ("maxsim_scores<float32>", "maxsim.cu", "maxsim_kernel.py:41,166"),
-        ("maxsim_scores<bfloat16>", "maxsim.cu", "maxsim_kernel.py:41,166"),
+        ("maxsim_scores<bfloat16>", "maxsim_bf16.cu", "maxsim_kernel.py:41,166"),
     ]
     # No single PyTorch call computes the other functions: the scans need a
     # product (or a count) and a selection, torch has no popcount, and

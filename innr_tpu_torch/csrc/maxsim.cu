@@ -3,8 +3,8 @@
 // Replaces the TPU kernels innr_tpu/kernels/maxsim_kernel.py:_maxsim_kernel
 // (launched by fused_maxsim_scores, one query) and _maxsim_kernel_mq
 // (fused_maxsim_scores_batch, a batch): the query count is a runtime
-// parameter, so both are maxsim_scores<T, R> here, with T = float or
-// __nv_bfloat16 documents.
+// parameter, so both are maxsim_scores<T, R> here, with T = float
+// documents (bf16 documents run on the tensor cores: maxsim_bf16.cu).
 //
 // Function. Queries (B, Tq, D) float32, documents (N, Td, D) T, an optional
 // (N, Td) byte mask (nonzero = valid token). For document n and query b:
@@ -15,9 +15,7 @@
 // is summed on its own, so a NaN or inf in one query's bests stays in that
 // query's score (the TPU kernel's group-indicator matmul, a workaround for
 // its compiler, spreads it to every query of the batch: ROADMAP R7). Dots are
-// FP32 FMAs; bf16 documents meet a bf16-rounded query (the wrapper rounds
-// it), whose products are exact in float32, as on the TPU's matrix unit. A
-// NaN score is written as the canonical 0x7FC00000.
+// FP32 FMAs. A NaN score is written as the canonical 0x7FC00000.
 //
 // Design. A CTA of up to 8 warps holds one tile of query tokens in shared
 // memory, transposed to [D][TT] (TT = 32 R tokens; zero rows pad D to a
@@ -42,10 +40,9 @@
 // issues 4 R query loads and 8 float4 broadcasts for 32 R FMAs, so at R = 4
 // the FMA pipes, not shared memory, set the pace. A batch of B queries reads
 // the corpus ceil(B / qpt) times (4 times at B = 16, Tq = 32). Later work:
-// wgmma for bf16, a larger query tile (fewer corpus reads at B > qpt), TMA
+// a larger query tile (fewer corpus reads at B > qpt), TMA
 // staging, and the top-k fused into the scan.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -54,7 +51,6 @@ constexpr int kMaxWarps = 8;
 constexpr int kGroup = 8;  // doc tokens staged and scored per step
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // A NaN in either argument wins; otherwise the larger.
 __device__ __forceinline__ float nan_max(float a, float b) {
@@ -215,12 +211,11 @@ cudaError_t launch_r(int r, const float* q, const void* docs, const unsigned cha
 
 extern "C" {
 
-// q: (n_b, tq, d) float32 (bf16-rounded for bf16 documents); docs: (n, td,
-// d) float32 (bf16 = 0) or bfloat16 (bf16 = 1); mask: null or (n, td) bytes;
+// q: (n_b, tq, d) float32; docs: (n, td, d) float32; mask: null or (n, td) bytes;
 // out: (n_b, n) float32. tokens_per_lane: 1, 2 or 4; tile_tokens: a multiple
 // of 32 * tokens_per_lane that holds qpt whole queries; warps: 1 to 8.
 // Returns the cudaError_t of the launch (0 on success).
-int innr_maxsim_scores(int bf16, const void* q, const void* docs, const void* mask, void* out,
+int innr_maxsim_scores(const void* q, const void* docs, const void* mask, void* out,
                        int n_b, int tq, int td, int d, long long n, int tokens_per_lane,
                        int qpt, int tile_tokens, int warps, void* stream) {
   const int r = tokens_per_lane;
@@ -232,9 +227,6 @@ int innr_maxsim_scores(int bf16, const void* q, const void* docs, const void* ma
   auto m = static_cast<const unsigned char*>(mask);
   auto o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return static_cast<int>(launch_r<__nv_bfloat16>(r, qf, docs, m, o, n_b, tq, td, d, n, qpt,
-                                                    tile_tokens, warps, st));
   return static_cast<int>(
       launch_r<float>(r, qf, docs, m, o, n_b, tq, td, d, n, qpt, tile_tokens, warps, st));
 }

@@ -115,7 +115,9 @@ def load() -> ctypes.CDLL:
             ptr, ptr, i32, ptr, ptr, ptr, ptr, i64, i32, i64, i64, i32, ptr,
         ]
         lib.innr_threshold_scan.restype = i32
-        lib.innr_nearest_centroid.argtypes = [ptr, i32, ptr, ptr, ptr, i64, i32, i32, ptr]
+        lib.innr_nearest_centroid.argtypes = [
+            ptr, i32, ptr, ptr, ctypes.c_float, ptr, ptr, i64, i32, i32, ptr,
+        ]
         lib.innr_nearest_centroid.restype = i32
         lib.innr_packed_scan.argtypes = [
             i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, i32, ptr,
@@ -130,8 +132,12 @@ def load() -> ctypes.CDLL:
         ]
         lib.innr_sparse_scan.restype = i32
         lib.innr_maxsim_scores.argtypes = [
-            i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i64, i32, i32, i32, i32, ptr,
+            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i64, i32, i32, i32, i32, ptr,
         ]
         lib.innr_maxsim_scores.restype = i32
+        lib.innr_maxsim_scores_bf16.argtypes = [
+            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i64, i32, i32, i32, ptr,
+        ]
+        lib.innr_maxsim_scores_bf16.restype = i32
         _LIB = lib
     return _LIB

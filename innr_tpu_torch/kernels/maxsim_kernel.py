@@ -3,8 +3,12 @@
 Replaces the TPU kernels ``innr_tpu/kernels/maxsim_kernel.py:_maxsim_kernel``
 (launched by ``fused_maxsim_scores``, one query) and ``_maxsim_kernel_mq``
 (``fused_maxsim_scores_batch``, a batch in one corpus pass). Both are one
-kernel here, ``csrc/maxsim.cu`` (``maxsim_scores<T, R>``), with the query
-count a runtime parameter; its source note says what bounds it on the H100.
+kernel per document dtype here, with the query count a runtime parameter:
+``csrc/maxsim.cu`` (``maxsim_scores<float, R>``, FP32 FMAs) for f32
+documents and ``csrc/maxsim_bf16.cu`` (``maxsim_scores_bf16``, wgmma on
+bf16 operands, the whole query batch resident so that the corpus is read
+once per batch) for bf16 documents. Their source notes say what bounds
+them on the H100.
 
 For document n and query b::
 
@@ -19,8 +23,9 @@ does not. A batch takes one shared Tq: pad shorter queries with zero
 tokens, which add max(0, ...) each, as in the JAX package (R3).
 
 bf16 documents meet the query rounded to bf16: products of two bf16 values
-are exact in float32, so kernel and plain version compute the JAX
-package's bf16 function (bf16 operands, float32 accumulation). The
+are exact in float32, so the tensor-core kernel and the plain version
+compute the JAX package's bf16 function (bf16 operands, float32
+accumulation; the order of the sums differs). The
 corpus is neither padded nor copied: the kernel takes any Td and D and the
 bool mask as bytes. NaN scores come back as the canonical 0x7FC00000.
 Selection (``fused_maxsim_knn*``) is :func:`top_k_total` outside the
@@ -48,6 +53,9 @@ _PLAIN_PAIRS = 1 << 29
 # csrc/maxsim.cu: warps per CTA at most, doc tokens staged per step.
 _MAX_WARPS = 8
 _GROUP = 8
+# csrc/maxsim_bf16.cu: query tokens per tile at most (two warpgroups of at
+# most 4 row tiles of 64).
+_BF16_MAX_TOKENS = 512
 
 # Kernel launches (one per scored batch), in all and by document dtype.
 # Incremented only where the kernel launches.
@@ -105,6 +113,36 @@ def _tiling(n_b: int, tq: int, d: int) -> tuple[int, int, int, int]:
     return r, qpt, tt, warps
 
 
+def _bf16_smem(tt: int, td: int, d: int) -> int:
+    """Shared memory of csrc/maxsim_bf16.cu for a tile of tt query tokens:
+    two document buffers and the queries in bf16, the token lists, the
+    maxes."""
+    dp, tdp = round_up(d, 16), round_up(td, 8)
+    return 2 * (2 * tdp * dp + tt * dp) + 4 * (2 * td + 3 + tt)
+
+
+def _tiling_bf16(n_b: int, tq: int, td: int, d: int) -> tuple[int, int, int]:
+    """``(queries per tile, tile tokens (a multiple of 64), row tiles per
+    warpgroup)`` for ``csrc/maxsim_bf16.cu``: as many whole queries as the
+    largest tile whose shared memory fits holds (at B = 16, Tq = 32 the
+    batch). Raises :class:`ContractError` when one query does not fit."""
+    cap = _BF16_MAX_TOKENS
+    while cap > 64 and _bf16_smem(cap, td, d) > SMEM_LIMIT:
+        cap -= 64
+    if tq > cap or _bf16_smem(round_up(tq, 64), td, d) > SMEM_LIMIT:
+        raise ContractError(
+            f"innr_tpu_torch::maxsim_scores: bf16 documents with Tq={tq}, Td={td}, D={d} need "
+            f"{_bf16_smem(round_up(tq, 64), td, d)} bytes of shared memory for one query "
+            f"(at most {_BF16_MAX_TOKENS} tokens and {SMEM_LIMIT} bytes)")
+    qpt = min(n_b, cap // tq)
+    tt = round_up(qpt * tq, 64)
+    tiles = tt // 64
+    tpw = 1 if tiles <= 2 else 2 if tiles <= 4 else 4
+    if -(-n_b // qpt) > 65535:
+        raise ContractError(f"innr_tpu_torch::maxsim_scores: {n_b} queries in one batch")
+    return qpt, tt, tpw
+
+
 def maxsim_scores_plain(q_batch, docs, doc_mask=None) -> torch.Tensor:
     """The plain version of the kernel: (B, N) float32 scores of a (B, Tq,
     D) batch. Runs over document chunks so that the (chunk, Td, B Tq) pair
@@ -136,15 +174,21 @@ def _kernel(q, docs, mask) -> torch.Tensor:
 
     lib = _build.load()
     (n_b, tq, d), (n, td, _) = q.shape, docs.shape
-    r, qpt, tt, warps = _tiling(n_b, tq, d)
     dev = docs.device
+    m_ptr = None if mask is None else mask.data_ptr()
     with torch.cuda.device(dev):
         out = torch.empty((n_b, n), dtype=torch.float32, device=dev)
-        rc = lib.innr_maxsim_scores(
-            int(docs.dtype == torch.bfloat16), q.data_ptr(), docs.data_ptr(),
-            None if mask is None else mask.data_ptr(), out.data_ptr(), n_b, tq, td, d, n, r,
-            qpt, tt, warps, torch.cuda.current_stream(dev).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if docs.dtype == torch.bfloat16:
+            qpt, tt, tpw = _tiling_bf16(n_b, tq, td, d)
+            rc = lib.innr_maxsim_scores_bf16(
+                q.data_ptr(), docs.data_ptr(), m_ptr, out.data_ptr(), n_b, tq, td, d, n, qpt,
+                tt, tpw, stream)
+        else:
+            r, qpt, tt, warps = _tiling(n_b, tq, d)
+            rc = lib.innr_maxsim_scores(
+                q.data_ptr(), docs.data_ptr(), m_ptr, out.data_ptr(), n_b, tq, td, d, n, r, qpt,
+                tt, warps, stream)
     if rc != 0:
         raise RuntimeError(f"innr_tpu_torch: maxsim_scores launch failed, cudaError {rc}")
     LAUNCHES += 1

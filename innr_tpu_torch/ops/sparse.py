@@ -182,16 +182,28 @@ class SparseCorpus:
         return sparse_knn_batch(queries, self, k)
 
 
+def _sorted_queries(q_idx, q_val):
+    """Each query (last dim) sorted by its index as unsigned, stably, on the
+    device. The scan binary-searches into the query, so an unsorted one
+    would miss its matches; the JAX kernel path's sweep takes any order,
+    and on a duplicate index its lowest position wins, which a stable sort
+    keeps first. The sentinel 0xFFFFFFFF sorts last."""
+    order = torch.sort(q_idx.to(torch.int64) & 0xFFFFFFFF, dim=-1, stable=True).indices
+    return q_idx.gather(-1, order), q_val.gather(-1, order)
+
+
 def _query_pair(query, name: str, device):
     if not (isinstance(query, tuple) and len(query) == 2):
         raise ContractError(f"{name}: query must be an (indices, values) pair")
-    return _check_pair(query[0], query[1], "query", device)
+    return _sorted_queries(*_check_pair(query[0], query[1], "query", device))
 
 
 def sparse_knn(query, corpus: SparseCorpus, k: int):
     """Top-k documents by sparse dot product (descending, IEEE total order,
-    ties to the lowest document). ``query``: an ``(indices, values)`` pair,
-    indices sorted ascending. Returns ``(scores, indices)``."""
+    ties to the lowest document). ``query``: an ``(indices, values)`` pair
+    in any order (sorted here, as the JAX kernel path accepts it; on a
+    duplicate index the first occurrence counts). Returns ``(scores,
+    indices)``."""
     dev = corpus.indices.device
     q_idx, q_val = _query_pair(query, "sparse_knn", dev)
     n = corpus.num_docs
@@ -203,11 +215,13 @@ def sparse_knn(query, corpus: SparseCorpus, k: int):
 
 def sparse_knn_batch(queries, corpus: SparseCorpus, k: int):
     """Multi-query sparse retrieval: (Q, W) padded query pair (or a list of
-    ``(indices, values)`` pairs) -> ``(scores (Q, k), indices (Q, k))``, one
-    kernel pass over the corpus for the batch."""
+    ``(indices, values)`` pairs, each in any order, as in
+    :func:`sparse_knn`) -> ``(scores (Q, k), indices (Q, k))``, one kernel
+    pass over the corpus for the batch."""
     dev = corpus.indices.device
     pair = _as_padded_pair(queries, dev)
-    q_idx, q_val = pair if pair is not None else pad_sparse(queries, device=dev)
+    q_idx, q_val = _sorted_queries(*(pair if pair is not None
+                                     else pad_sparse(queries, device=dev)))
     n, n_q = corpus.num_docs, int(q_idx.shape[0])
     if n == 0 or k <= 0:
         return empty_topk((n_q, 0), dev)

@@ -18,8 +18,10 @@ host.
 
 Pruning needs tile coherence. :func:`cluster_reorder` (and
 :func:`cluster_order`) lay a corpus out by nearest k-means centroid: a
-sampled k-means++ fit, Lloyd steps on the sample, then one full pass of the
-nearest-centroid kernel (:mod:`innr_tpu_torch.kernels.assign`). Draws come
+sampled k-means++ fit (its kc - 1 seeding steps replayed as one CUDA graph
+on the card, :func:`kmeanspp_seed`), Lloyd steps on the sample, then one
+full pass of the nearest-centroid kernel
+(:mod:`innr_tpu_torch.kernels.assign`). Draws come
 from a ``torch.Generator`` seeded with ``seed``; they differ from
 ``jax.random``'s, so the two packages' layouts differ (each is a valid
 clustering; results of the exact scans do not depend on the layout).
@@ -253,6 +255,78 @@ def _cluster_sums(s, assign, kc: int) -> torch.Tensor:
     return sums
 
 
+# k-means++ seeding steps per chunk: the unit a CUDA graph captures and
+# replays.
+SEED_CHUNK = 64
+
+
+def _d2_to(ss, ssn, c):
+    """Squared L2 of every seed-pool row to one centre, clamped at 0."""
+    return torch.addmv(ssn + (c * c).sum(), ss, c, alpha=-2.0).clamp_min_(0.0)
+
+
+def _seed_steps(ss, ssn, u, cent, mind2, j, steps: int) -> None:
+    """``steps`` k-means++ steps, in place on fixed buffers: step ``j``
+    (a (1,) device tensor) draws the next seed with probability
+    proportional to its squared distance from the chosen set (non-finite
+    distances, NaN rows, weigh as 0; every weight at least 1e-30) by
+    inverse CDF of the uniform ``u[j]``, writes it to ``cent[j]`` and
+    lowers ``mind2``. Nothing here waits for the host (ATen's
+    ``multinomial`` reads a validation flag back on every call), so the
+    steps can be captured in a CUDA graph."""
+    last = ss.shape[0] - 1
+    for _ in range(steps):
+        w = torch.nan_to_num(mind2, nan=0.0, posinf=0.0).clamp_min_(1e-30)
+        cdf = torch.cumsum(w, 0, dtype=torch.float64)
+        target = u.index_select(0, j) * cdf[-1:]
+        pick = torch.searchsorted(cdf, target, right=True).clamp_max_(last)
+        c = ss.index_select(0, pick)
+        cent.index_copy_(0, j, c)
+        torch.minimum(mind2, _d2_to(ss, ssn, c[0]), out=mind2)
+        j.add_(1)
+
+
+def kmeanspp_seed(ss, gen, kc: int) -> torch.Tensor:
+    """k-means++ seeds from the (m, D) float32 pool ``ss``: (kc, D) float32
+    on its device. The first seed and all kc - 1 uniforms are drawn from
+    ``gen`` up front; the steps run in chunks of :data:`SEED_CHUNK`, the
+    first eagerly and the rest, on a CUDA device, as replays of one CUDA
+    graph of a chunk (the CPU runs every chunk eagerly: the same steps).
+    The buffers are padded to whole chunks; the padding steps draw
+    ``u = 0`` and write rows past kc, which are dropped."""
+    dev = ss.device
+    m_seed, d = ss.shape
+    ssn = (ss * ss).sum(dim=1)
+    first = torch.randint(0, m_seed, (1,), generator=gen, device=dev)
+    n_steps = round_up(kc - 1, SEED_CHUNK)
+    u = torch.zeros(1 + n_steps, dtype=torch.float64, device=dev)
+    u[1:kc] = torch.rand(kc - 1, generator=gen, dtype=torch.float64, device=dev)
+    cent = torch.zeros((1 + n_steps, d), dtype=torch.float32, device=dev)
+    cent[:1] = ss.index_select(0, first)
+    mind2 = _d2_to(ss, ssn, cent[0])
+    j = torch.ones(1, dtype=torch.int64, device=dev)
+
+    def chunk():
+        _seed_steps(ss, ssn, u, cent, mind2, j, SEED_CHUNK)
+
+    chunks = n_steps // SEED_CHUNK
+    if dev.type != "cuda" or chunks <= 1:
+        for _ in range(chunks):
+            chunk()
+        return cent[:kc]
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        chunk()  # the first chunk, eagerly: it also warms up cuBLAS
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        chunk()  # captured, not run
+    for _ in range(chunks - 1):
+        graph.replay()
+    return cent[:kc]
+
+
 def _kmeans_assign(r, seed: int, iters: int, kc: int, m: int) -> torch.Tensor:
     """Sampled k-means++ fit, ``iters`` Lloyd steps on the sample, then one
     full-corpus nearest-centroid pass -> (N,) int32 cluster ids, all on the
@@ -263,26 +337,8 @@ def _kmeans_assign(r, seed: int, iters: int, kc: int, m: int) -> torch.Tensor:
     n = r.shape[0]
     # With replacement: O(m), and duplicate draws do not hurt a fit.
     s = r[torch.randint(0, n, (m,), generator=gen, device=dev)].float()
-    # k-means++ seeding on a prefix of the sample (itself a uniform draw):
-    # kc - 1 sequential steps, each a pass over the seed pool.
-    m_seed = min(m, 8192)
-    ss = s[:m_seed]
-    ssn = (ss * ss).sum(dim=1)
-
-    def d2_to(c):
-        return (ssn - 2.0 * (ss @ c) + (c * c).sum()).clamp_min(0.0)
-
-    first = ss[torch.randint(0, m_seed, (1,), generator=gen, device=dev)][0]
-    cent = torch.zeros((kc, s.shape[1]), dtype=torch.float32, device=dev)
-    cent[0] = first
-    mind2 = d2_to(first)
-    for j in range(1, kc):
-        # The next seed with probability proportional to squared distance
-        # from the chosen set; non-finite distances (NaN rows) weigh as 0.
-        w = torch.where(torch.isfinite(mind2), mind2.clamp_min(1e-30), 1e-30)
-        c = ss[torch.multinomial(w, 1, generator=gen)][0]
-        cent[j] = c
-        mind2 = torch.minimum(mind2, d2_to(c))
+    # k-means++ seeding on a prefix of the sample (itself a uniform draw).
+    cent = kmeanspp_seed(s[:min(m, 8192)], gen, kc)
     for _ in range(iters):
         assign = nearest_centroid(s, cent)
         sums = _cluster_sums(s, assign, kc)

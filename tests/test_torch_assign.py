@@ -137,6 +137,83 @@ class TestPlainVersion:
             ta.nearest_centroid(torch.ones(4, 3, device="meta"), torch.ones(2, 3, device="meta"))
 
 
+def _tf32(a):
+    """float32 values as the tensor core reads them: the low 13 mantissa
+    bits dropped (truncation)."""
+    return (np.ascontiguousarray(a, np.float32).view(np.int32) & ~0x1FFF).view(np.float32)
+
+
+def _shortlist(rows, cent):
+    """The kernel's shortlist, emulated: TF32 dots in float64, each pushed
+    by the tensor core's worst accumulation error, the winner's up and every
+    other centroid's down, so the bound must absorb it. Returns the (N, KC)
+    admitted mask and the plain version's winners."""
+    x = rows.astype(np.float32)
+    c = cent.astype(np.float32)
+    d = x.shape[1]
+    winner = ta.nearest_centroid_plain(torch.from_numpy(x), torch.from_numpy(c)).numpy()
+    xt, ct = _tf32(x).astype(np.float64), _tf32(c).astype(np.float64)
+    dot = xt @ ct.T
+    acc_err = 2 * (d + 8) * 2.0**-23 * (np.abs(xt) @ np.abs(ct).T)
+    cn = ta._cent_norms2(torch.from_numpy(c)).numpy().astype(np.float64)
+    s = cn[None, :] - 2 * dot
+    push = np.where(np.arange(c.shape[0])[None, :] == winner[:, None], 2.0, -2.0)
+    s = s + push * acc_err
+    m = ta.shortlist_margin(d)
+    xn = np.sqrt((x * x).sum(1, dtype=np.float32)).astype(np.float64)
+    cnorm = np.sqrt(cn)
+    t = (m.kappa * xn[:, None] * cnorm[None, :] + m.tau * np.abs(cn)[None, :]
+         + m.abs_norm * cnorm[None, :] + m.abs_const)
+    thr = (s + t).min(axis=1, keepdims=True)
+    return s - t <= thr, winner
+
+
+class TestShortlistMargin:
+    """The margin the kernel's shortlist uses holds the exact winner on
+    near ties: duplicated centroids, centroids one ulp apart, rows between
+    two centroids, f32 rows that TF32 rounds."""
+
+    @pytest.mark.parametrize("d", [1, 7, 128, 130, 300])
+    @pytest.mark.parametrize("trial", range(3))
+    def test_winner_inside_the_shortlist(self, rng, d, trial):
+        base = rng.standard_normal((24, d)).astype(np.float32) * rng.choice([0.01, 1.0, 300.0])
+        ulp = np.nextafter(base[:6], np.float32(np.inf))  # every coordinate 1 ulp up
+        one = base[6:12].copy()
+        one[:, 0] = np.nextafter(one[:, 0], np.float32(-np.inf))
+        cent = np.concatenate([base, base[:6], ulp, one])  # exact duplicates too
+        pair = rng.integers(0, len(base), (400, 2))
+        w = rng.random((400, 1)).astype(np.float32)
+        rows = (w * base[pair[:, 0]] + (1 - w) * base[pair[:, 1]])
+        rows[:100] = (base[pair[:100, 0]] + base[pair[:100, 1]]) / 2  # equidistant
+        rows[100:150] = cent[rng.integers(0, len(cent), 50)]  # on a centroid
+        rows = (rows + 1e-4 * rng.standard_normal(rows.shape)).astype(np.float32)
+        admitted, winner = _shortlist(rows, cent)
+        assert admitted[np.arange(len(rows)), winner].all()
+
+    def test_integer_rows_and_the_smoke_near_ties(self, rng):
+        """u8 / bf16-like integer rows, centroids on a 2^-12 grid 1-2 units
+        apart: exact dots, inexact TF32 centroids."""
+        d = 130
+        rows = rng.integers(-3, 4, (500, d)).astype(np.float32)
+        grid = rng.integers(-4 * 4096 + 1, 4 * 4096, (40, d)).astype(np.float64)
+        cent = np.concatenate([grid, grid + 1, grid - 2]) / 4096.0
+        admitted, winner = _shortlist(rows, cent.astype(np.float32))
+        assert admitted[np.arange(len(rows)), winner].all()
+
+    def test_clear_winners_give_short_lists(self, rng):
+        cent = (3 * rng.standard_normal((64, 128))).astype(np.float32)
+        rows = (cent[rng.integers(0, 64, 2000)]
+                + 0.3 * rng.standard_normal((2000, 128))).astype(np.float32)
+        admitted, winner = _shortlist(rows, cent)
+        assert admitted[np.arange(2000), winner].all()
+        assert admitted.sum(1).mean() < 1.1
+
+    def test_margin_grows_with_d_and_stays_small(self):
+        small, big = ta.shortlist_margin(8), ta.shortlist_margin(4096)
+        assert 2 * 2 * 2.0**-10 < small.kappa < big.kappa < 0.02
+        assert small.tau == big.tau and small.abs_const < big.abs_const < 1e-18
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():

@@ -268,6 +268,25 @@ class TestPlainVersion:
         with pytest.raises(ContractError, match="shared memory"):
             tmk._tiling(1, 1, 8192)
 
+    @pytest.mark.parametrize("n_b,tq,td,d", [(1, 1, 1, 1), (16, 32, 180, 128), (17, 33, 180, 130),
+                                             (1, 33, 5, 96), (17, 1, 180, 128), (2, 300, 12, 64)])
+    def test_bf16_tiling_fits_and_holds_whole_queries(self, n_b, tq, td, d):
+        qpt, tt, tpw = tmk._tiling_bf16(n_b, tq, td, d)
+        assert 1 <= qpt <= n_b and qpt * tq <= tt and tt % 64 == 0
+        assert tpw in (1, 2, 4) and tt <= 2 * 64 * tpw <= 2 * tt + 64 * 2
+        assert tmk._bf16_smem(tt, td, d) <= SMEM_LIMIT
+
+    def test_bf16_tiling_holds_the_b16_batch(self):
+        """ColBERTv2 widths at B = 16: one tile of all 512 query tokens, so
+        the corpus is read once per batch."""
+        assert tmk._tiling_bf16(16, 32, 180, 128) == (16, 512, 4)
+
+    def test_bf16_tiling_raises_when_one_query_does_not_fit(self):
+        with pytest.raises(ContractError, match="shared memory"):
+            tmk._tiling_bf16(1, 513, 8, 8)
+        with pytest.raises(ContractError, match="shared memory"):
+            tmk._tiling_bf16(1, 1, 180, 4096)
+
 
 class TestDispatchAndContracts:
     def _args(self, rng):
@@ -331,6 +350,25 @@ class TestKernelOnCuda:
         assert tmk.LAUNCHES == before + 1
         want = tmk.maxsim_scores_plain(q, docs, mask)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+    @pytest.mark.parametrize("d", [1, 96, 130])
+    @pytest.mark.parametrize("tq", [1, 33])
+    @pytest.mark.parametrize("n_b", [1, 17])
+    def test_bf16_tensor_core_padding(self, cuda_device, d, tq, n_b):
+        """The wgmma kernel pads D to 16, query tiles to 64 and the last
+        document chunk to 64 tokens: integer tokens, exact in any order."""
+        gen = torch.Generator(device=cuda_device).manual_seed(7)
+        q = torch.randint(-3, 4, (n_b, tq, d), generator=gen, device=cuda_device).float()
+        docs = torch.randint(-4, 5, (1037, 70, d), generator=gen, device=cuda_device)
+        docs = docs.to(torch.bfloat16)
+        mask = torch.rand((1037, 70), generator=gen, device=cuda_device) < 0.97
+        mask[5] = False  # no valid token: 0.0
+        before = tmk.LAUNCHES_BY_DTYPE["bfloat16"]
+        got = tmk.fused_maxsim_scores_batch(q, docs, mask)
+        assert tmk.LAUNCHES_BY_DTYPE["bfloat16"] == before + 1
+        want = tmk.maxsim_scores_plain(q, docs, mask)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert (got[:, 5] == 0).all()
 
     def test_r7_rows_equal_single_launches(self, cuda_device):
         gen = torch.Generator(device=cuda_device).manual_seed(6)

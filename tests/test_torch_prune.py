@@ -314,6 +314,51 @@ class TestLayoutPasses:
         order = tp.cluster_order(rows, n_clusters=4, n_iters=2)
         assert sorted(order.tolist()) == list(range(1024))
 
+    @pytest.mark.parametrize("chunk", [1, 5, 64])
+    def test_seeding_in_chunks_equals_single_steps(self, rng, monkeypatch, chunk):
+        """The seeding's chunk (the CUDA graph's unit) does not change the
+        seeds: kmeanspp_seed in chunks equals the same steps run one at a
+        time on fresh buffers from the same draws."""
+        ss = torch.from_numpy(clustered(rng, n=500, d=12, sort=False))
+        ss[7] = float("nan")  # a NaN row weighs as 0
+        kc = 37
+        monkeypatch.setattr(tp, "SEED_CHUNK", chunk)
+        got = tp.kmeanspp_seed(ss, torch.Generator().manual_seed(5), kc)
+        gen = torch.Generator().manual_seed(5)
+        first = torch.randint(0, 500, (1,), generator=gen)
+        u = torch.zeros(kc, dtype=torch.float64)
+        u[1:] = torch.rand(kc - 1, generator=gen, dtype=torch.float64)
+        ssn = (ss * ss).sum(dim=1)
+        cent = torch.zeros((kc, 12))
+        cent[0] = ss[first[0]]
+        mind2 = tp._d2_to(ss, ssn, cent[0])
+        j = torch.ones(1, dtype=torch.int64)
+        for _ in range(kc - 1):
+            tp._seed_steps(ss, ssn, u, cent, mind2, j, 1)
+        assert got.shape == (kc, 12) and torch.equal(got, cent)
+        assert not torch.isnan(got).any()  # the NaN row is never drawn
+
+    def test_seeding_draws_by_distance(self):
+        """Inverse CDF of the squared distances: duplicates of a chosen
+        seed weigh 1e-30 and are not drawn again while distinct rows
+        remain."""
+        base = torch.eye(6) * 10
+        ss = torch.cat([base, base, base])
+        cent = tp.kmeanspp_seed(ss, torch.Generator().manual_seed(0), 6)
+        assert sorted(int(torch.nonzero(c)[0]) for c in cent) == list(range(6))
+
+    def test_cluster_order_deterministic_for_a_seed(self, rng):
+        rows = clustered(rng, n=2048, d=16, sort=False)
+        a = tp.cluster_order(rows, n_clusters=24, n_iters=2, seed=3)
+        np.testing.assert_array_equal(a, tp.cluster_order(rows, n_clusters=24, n_iters=2,
+                                                          seed=3))
+        assert sorted(a.tolist()) == list(range(2048))
+
+    def test_single_cluster_has_no_seeding_step(self, rng):
+        rows = clustered(rng, n=300, d=8, sort=False)
+        _, perm, sizes = tp.cluster_reorder(rows, n_clusters=1, n_iters=1)
+        assert sizes.tolist() == [300] and perm.tolist() == list(range(300))
+
     def test_bf16_rows_into_the_summary(self, rng):
         rows = rng.standard_normal((700, 8)).astype(np.float32)
         jb = jnp.asarray(rows.astype(ml_dtypes.bfloat16))

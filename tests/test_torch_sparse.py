@@ -207,6 +207,47 @@ class TestKnnAgainstJax:
             itt.sparse_knn((np.array([1, 2], np.uint32), np.array([1.0], np.float32)), tc, 3)
 
 
+class TestUnsortedQuery:
+    """ROADMAP F1: a query whose ids are not sorted. The JAX kernel path
+    (N >= 2048) sweeps the query in any order, and on a duplicate id the
+    first occurrence wins; the port sorts each query stably, as unsigned,
+    and must give the kernel path's scores and indices exactly, through
+    sparse_knn and through each row of sparse_knn_batch."""
+
+    N = 2048
+
+    def kernel_path(self, q, corpus, k):
+        from innr_tpu.kernels.sparse_knn import fused_sparse_knn
+
+        return fused_sparse_knn(np.asarray(q[0], np.uint32), np.asarray(q[1], np.float32),
+                                *corpus._transposed(), k)
+
+    def check(self, docs_, queries, k):
+        jc, tc = it.SparseCorpus(docs_), itt.SparseCorpus(docs_)
+        batch = itt.sparse_knn_batch(queries, tc, k)
+        for j, q in enumerate(queries):
+            want = self.kernel_path(q, jc, k)
+            same(itt.sparse_knn(q, tc, k), want)
+            same((batch[0][j], batch[1][j]), want)
+        return batch
+
+    def test_roadmap_input(self):
+        d = [(np.array([4, 9], np.uint32), np.array([1.0, i % 3], np.float32))
+             for i in range(self.N)]
+        q = (np.array([9, 4], np.uint32), np.array([1.0, 2.0], np.float32))
+        scores, idx = self.check(d, [q], 3)
+        assert scores[0].tolist() == [4.0, 4.0, 4.0] and idx[0].tolist() == [2, 5, 8]
+
+    def test_duplicate_ids_first_occurrence_wins(self, rng):
+        vocab = vocabulary(rng, 16)
+        d = docs(rng, self.N, vocab)
+        hi, lo = vocab[-1], vocab[0]  # hi >= 2**31: unsigned order puts it last
+        dup = (np.array([hi, lo, hi, lo], np.uint32), np.array([3.0, -2.0, 7.0, 5.0], np.float32))
+        perm = rng.permutation(vocab)[:6]
+        shuffled = (perm.astype(np.uint32), rng.integers(-4, 5, 6).astype(np.float32))
+        self.check(d, [dup, shuffled, sparse_vec(rng, vocab, 5)], 7)
+
+
 class TestSparseMaxSim:
     def _doc(self, rng, vocab, n_tokens, integer=True):
         return docs(rng, n_tokens, vocab, max_nnz=6, integer=integer)
