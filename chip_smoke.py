@@ -54,7 +54,10 @@ and imports nothing of JAX. Phases:
                 ragged masks with a fully masked document and scattered
                 masks, planted NaN / +inf / -inf tokens, an inf in query 1
                 of each batch (every query's row equals its single-query
-                launch: ROADMAP R7) and the top-k with tied documents.
+                launch: ROADMAP R7) and the top-k with tied documents;
+                then long documents that the bf16 kernel cuts into
+                segments (Td 700 at B = 16, Td 60 at D = 1024) and a query
+                of 700 tokens that it scores in two passes.
 3. main     — the public entry points at full size, launch counters reset
               just before each path and read just after it:
               a. batch kNN: batch_knn_dot / batch_knn / batch_knn_cosine /
@@ -1197,9 +1200,10 @@ def phase_prune(dev, full_ms: float, errs: dict, bounds: dict,
         """Rows, centroids and the result moved once; 2 N KC D TF32
         tensor-core operations and the re-scored pairs' 2 D FP32 FMA
         operations (this run's shortlist), each over its own unit's peak.
-        PR 5's FP32-only figure is logged beside it."""
+        The FP32-only figure of the SIMT design it replaced is logged beside
+        it."""
         moved = 4 * (n * 128 + kc * 128 + n)
-        log(f"[timing] nearest_centroid KC={kc}: the FP32-only bound of PR 5's SIMT kernel "
+        log(f"[timing] nearest_centroid KC={kc}: the FP32-only bound of the earlier SIMT kernel "
             f"{bound_text(bound(moved, fp32=2 * n * kc * 128))}")
         return bound(moved, tf32=2 * n * kc * 128, fp32=2 * 128 * pairs)
 
@@ -1808,8 +1812,26 @@ def phase_exact_maxsim(dev) -> int:
                                 if not (bits_equal(vals, pv) and torch.equal(idx, pi)):
                                     raise AssertionError(f"{name} k={k}: top-k != plain")
                                 checks += 1
+    # Shapes beyond one bf16 tile: documents in several segments (a NaN and
+    # the only valid tokens in late ones), a query scored in two passes.
+    for td, d, tq, n_b in ((700, 128, 32, 16), (60, 1024, 32, 1), (9, 16, 700, 2)):
+        docs = _int_tokens(gen, (n, td, d), -4, 4, dev)
+        docs[3, td - 1, 0] = float("nan")
+        docs[40, :, 0] = -float("inf")
+        mask = torch.rand((n, td), generator=gen, device=dev) < 0.9
+        mask[3, td - 1] = True
+        mask[7, : td - 2] = False
+        qs = _int_tokens(gen, (n_b, tq, d), -3, 3, dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            for mask_name, m in (("no mask", None), ("scattered", mask)):
+                name = f"exact maxsim_scores<{str(dtype)[6:]}> td={td} d={d} tq={tq} b={n_b} " \
+                       f"{mask_name}"
+                got = tm.fused_maxsim_scores_batch(qs, docs.to(dtype), m)
+                expect_scores(name, got, tm.maxsim_scores_plain(qs, docs.to(dtype), m))
+                checks += 1
     torch.cuda.synchronize()
-    log(f"[exact] {checks} MaxSim checks agree bit for bit (scores, R7 rows, top-k ties)")
+    log(f"[exact] {checks} MaxSim checks agree bit for bit (scores, R7 rows, top-k ties, bf16 "
+        f"segments and passes)")
     return checks
 
 

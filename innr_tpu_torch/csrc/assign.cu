@@ -59,7 +59,7 @@
 // (1.5 ms); the centroids are read from L2 once per 128-row tile. With one
 // CTA per SM nothing overlaps the row staging, and the two warpgroups run
 // products, epilogue and re-scoring in lockstep: at KC = 16,896 the kernel
-// takes about 6x its TF32 bound (PERF.md, PR 6). Left for later: a
+// takes about 6x its TF32 bound (PERF.md, section 5). Left for later: a
 // persistent CTA that prefetches its next row tile, the next chunk's
 // products issued before this chunk's epilogue, TMA.
 

@@ -3,10 +3,10 @@
 // Replaces the TPU kernels innr_tpu/kernels/maxsim_kernel.py:_maxsim_kernel
 // (launched by fused_maxsim_scores, one query) and _maxsim_kernel_mq
 // (fused_maxsim_scores_batch, a batch): the query count is a runtime
-// parameter, so both are maxsim_scores<T, R> here, with T = float
-// documents (bf16 documents run on the tensor cores: maxsim_bf16.cu).
+// parameter, so both are maxsim_scores<R> here, for float32 documents
+// (bf16 documents run on the tensor cores: maxsim_bf16.cu).
 //
-// Function. Queries (B, Tq, D) float32, documents (N, Td, D) T, an optional
+// Function. Queries (B, Tq, D) float32, documents (N, Td, D) float32, an optional
 // (N, Td) byte mask (nonzero = valid token). For document n and query b:
 //   score[b, n] = sum over i < Tq of clamp(max over valid j of q[b, i] . d[n, j])
 // where clamp turns -inf into 0 (a fully masked document, or a best that is
@@ -50,8 +50,6 @@ namespace {
 constexpr int kMaxWarps = 8;
 constexpr int kGroup = 8;  // doc tokens staged and scored per step
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-
 // A NaN in either argument wins; otherwise the larger.
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a) ? a : ((b != b || b > a) ? b : a);
@@ -65,9 +63,9 @@ __device__ __forceinline__ unsigned valid_bits(const unsigned char* mrow, int td
   return __ballot_sync(0xffffffffu, ok);
 }
 
-template <typename T, int R>
+template <int R>
 __global__ void __launch_bounds__(32 * kMaxWarps, 2) maxsim_scores(
-    const float* __restrict__ q, const T* __restrict__ docs,
+    const float* __restrict__ q, const float* __restrict__ docs,
     const unsigned char* __restrict__ mask, float* __restrict__ out, int n_b, int tq, int td,
     int d, long long n, int qpt, int tile_tokens) {
   extern __shared__ __align__(16) float smem[];
@@ -92,7 +90,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) maxsim_scores(
 
   for (long long doc = static_cast<long long>(blockIdx.x) * n_warps + warp; doc < n;
        doc += static_cast<long long>(gridDim.x) * n_warps) {
-    const T* drow = docs + static_cast<size_t>(doc) * td * d;
+    const float* drow = docs + static_cast<size_t>(doc) * td * d;
     const unsigned char* mrow = mask ? mask + static_cast<size_t>(doc) * td : nullptr;
     for (int g = 0; g < tt; g += 32 * R) {
       float best[R];
@@ -121,9 +119,9 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) maxsim_scores(
         __syncwarp();  // the previous group's reads are done
 #pragma unroll
         for (int j = 0; j < kGroup; ++j) {
-          const T* row = drow + static_cast<size_t>(id[j]) * d;
+          const float* row = drow + static_cast<size_t>(id[j]) * d;
           for (int dd = lane; dd < d4; dd += 32)
-            dbuf[j * d4 + dd] = dd < d ? to_f32(row[dd]) : 0.0f;
+            dbuf[j * d4 + dd] = dd < d ? row[dd] : 0.0f;
         }
         __syncwarp();
         float acc[R][kGroup];
@@ -172,15 +170,15 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) maxsim_scores(
   }
 }
 
-template <typename T, int R>
-cudaError_t launch_as(const float* q, const void* docs, const unsigned char* mask, float* out,
+template <int R>
+cudaError_t launch_as(const float* q, const float* docs, const unsigned char* mask, float* out,
                       int n_b, int tq, int td, int d, long long n, int qpt, int tile_tokens,
                       int warps, cudaStream_t stream) {
   const int d4 = (d + 3) & ~3;
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(d4) * tile_tokens +
                        static_cast<size_t>(warps) * (kGroup * d4 + tile_tokens));
-  cudaError_t err = cudaFuncSetAttribute(maxsim_scores<T, R>,
+  cudaError_t err = cudaFuncSetAttribute(maxsim_scores<R>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -190,19 +188,18 @@ cudaError_t launch_as(const float* q, const void* docs, const unsigned char* mas
   const long long want = (n + per_cta - 1) / per_cta;
   const unsigned grid_x = static_cast<unsigned>(want < 132 * 8 ? want : 132 * 8);
   const unsigned grid_y = static_cast<unsigned>((n_b + qpt - 1) / qpt);
-  maxsim_scores<T, R><<<dim3(grid_x, grid_y), 32 * warps, smem, stream>>>(
-      q, static_cast<const T*>(docs), mask, out, n_b, tq, td, d, n, qpt, tile_tokens);
+  maxsim_scores<R><<<dim3(grid_x, grid_y), 32 * warps, smem, stream>>>(
+      q, docs, mask, out, n_b, tq, td, d, n, qpt, tile_tokens);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_r(int r, const float* q, const void* docs, const unsigned char* mask,
+cudaError_t launch_r(int r, const float* q, const float* docs, const unsigned char* mask,
                      float* out, int n_b, int tq, int td, int d, long long n, int qpt,
                      int tile_tokens, int warps, cudaStream_t stream) {
   switch (r) {
-    case 1: return launch_as<T, 1>(q, docs, mask, out, n_b, tq, td, d, n, qpt, tile_tokens, warps, stream);
-    case 2: return launch_as<T, 2>(q, docs, mask, out, n_b, tq, td, d, n, qpt, tile_tokens, warps, stream);
-    case 4: return launch_as<T, 4>(q, docs, mask, out, n_b, tq, td, d, n, qpt, tile_tokens, warps, stream);
+    case 1: return launch_as<1>(q, docs, mask, out, n_b, tq, td, d, n, qpt, tile_tokens, warps, stream);
+    case 2: return launch_as<2>(q, docs, mask, out, n_b, tq, td, d, n, qpt, tile_tokens, warps, stream);
+    case 4: return launch_as<4>(q, docs, mask, out, n_b, tq, td, d, n, qpt, tile_tokens, warps, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -227,8 +224,8 @@ int innr_maxsim_scores(const void* q, const void* docs, const void* mask, void* 
   auto m = static_cast<const unsigned char*>(mask);
   auto o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      launch_r<float>(r, qf, docs, m, o, n_b, tq, td, d, n, qpt, tile_tokens, warps, st));
+  return static_cast<int>(launch_r(r, qf, static_cast<const float*>(docs), m, o, n_b, tq, td, d,
+                                   n, qpt, tile_tokens, warps, st));
 }
 
 }  // extern "C"

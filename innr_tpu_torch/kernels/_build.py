@@ -136,7 +136,7 @@ def load() -> ctypes.CDLL:
         ]
         lib.innr_maxsim_scores.restype = i32
         lib.innr_maxsim_scores_bf16.argtypes = [
-            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i64, i32, i32, i32, ptr,
+            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i64, i32, i32, i32, i32, ptr,
         ]
         lib.innr_maxsim_scores_bf16.restype = i32
         _LIB = lib

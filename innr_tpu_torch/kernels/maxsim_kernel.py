@@ -4,7 +4,7 @@ Replaces the TPU kernels ``innr_tpu/kernels/maxsim_kernel.py:_maxsim_kernel``
 (launched by ``fused_maxsim_scores``, one query) and ``_maxsim_kernel_mq``
 (``fused_maxsim_scores_batch``, a batch in one corpus pass). Both are one
 kernel per document dtype here, with the query count a runtime parameter:
-``csrc/maxsim.cu`` (``maxsim_scores<float, R>``, FP32 FMAs) for f32
+``csrc/maxsim.cu`` (``maxsim_scores<R>``, FP32 FMAs) for f32
 documents and ``csrc/maxsim_bf16.cu`` (``maxsim_scores_bf16``, wgmma on
 bf16 operands, the whole query batch resident so that the corpus is read
 once per batch) for bf16 documents. Their source notes say what bounds
@@ -53,8 +53,8 @@ _PLAIN_PAIRS = 1 << 29
 # csrc/maxsim.cu: warps per CTA at most, doc tokens staged per step.
 _MAX_WARPS = 8
 _GROUP = 8
-# csrc/maxsim_bf16.cu: query tokens per tile at most (two warpgroups of at
-# most 4 row tiles of 64).
+# csrc/maxsim_bf16.cu: query tokens per tile when several queries share it
+# (one pass of two warpgroups of 4 row tiles of 64).
 _BF16_MAX_TOKENS = 512
 
 # Kernel launches (one per scored batch), in all and by document dtype.
@@ -113,34 +113,43 @@ def _tiling(n_b: int, tq: int, d: int) -> tuple[int, int, int, int]:
     return r, qpt, tt, warps
 
 
-def _bf16_smem(tt: int, td: int, d: int) -> int:
-    """Shared memory of csrc/maxsim_bf16.cu for a tile of tt query tokens:
-    two document buffers and the queries in bf16, the token lists, the
-    maxes."""
-    dp, tdp = round_up(d, 16), round_up(td, 8)
-    return 2 * (2 * tdp * dp + tt * dp) + 4 * (2 * td + 3 + tt)
+def _bf16_smem(tt: int, ts: int, d: int) -> int:
+    """Shared memory of csrc/maxsim_bf16.cu for a tile of tt query tokens
+    and document segments of ts tokens: two segment buffers and the queries
+    in bf16, the token lists, the maxes."""
+    dp = round_up(d, 16)
+    return 2 * (2 * ts * dp + tt * dp) + 4 * (2 * ts + 3 + tt)
 
 
-def _tiling_bf16(n_b: int, tq: int, td: int, d: int) -> tuple[int, int, int]:
+def _tiling_bf16(n_b: int, tq: int, td: int, d: int) -> tuple[int, int, int, int]:
     """``(queries per tile, tile tokens (a multiple of 64), row tiles per
-    warpgroup)`` for ``csrc/maxsim_bf16.cu``: as many whole queries as the
-    largest tile whose shared memory fits holds (at B = 16, Tq = 32 the
-    batch). Raises :class:`ContractError` when one query does not fit."""
-    cap = _BF16_MAX_TOKENS
-    while cap > 64 and _bf16_smem(cap, td, d) > SMEM_LIMIT:
-        cap -= 64
-    if tq > cap or _bf16_smem(round_up(tq, 64), td, d) > SMEM_LIMIT:
-        raise ContractError(
-            f"innr_tpu_torch::maxsim_scores: bf16 documents with Tq={tq}, Td={td}, D={d} need "
-            f"{_bf16_smem(round_up(tq, 64), td, d)} bytes of shared memory for one query "
-            f"(at most {_BF16_MAX_TOKENS} tokens and {SMEM_LIMIT} bytes)")
-    qpt = min(n_b, cap // tq)
-    tt = round_up(qpt * tq, 64)
+    warpgroup and pass, document tokens per segment (a multiple of 8))`` for
+    ``csrc/maxsim_bf16.cu``: as many whole queries as 512 tokens hold (at
+    B = 16, Tq = 32 the batch, so the corpus is read once; one query, scored
+    in passes of 512 tokens, when Tq > 512), halved while not even a segment
+    of 8 document tokens fits beside them; then documents in equal segments
+    of the most tokens that fit (the whole document when it does). Raises
+    :class:`ContractError` when one query and 8 tokens do not fit."""
+    dp = round_up(d, 16)
+    qpt = min(n_b, max(1, _BF16_MAX_TOKENS // tq))
+    while True:
+        tt = round_up(qpt * tq, 64)
+        ts_max = (SMEM_LIMIT - _bf16_smem(tt, 0, d)) // (4 * dp + 8) // 8 * 8
+        if ts_max >= 8:
+            break
+        if qpt == 1:
+            raise ContractError(
+                f"innr_tpu_torch::maxsim_scores: bf16 documents with Tq={tq}, D={d} need "
+                f"{_bf16_smem(tt, 8, d)} bytes of shared memory for one query; a CTA has at "
+                f"most {SMEM_LIMIT}")
+        qpt = -(-qpt // 2)
+    n_seg = -(-td // ts_max)
+    ts = round_up(-(-td // n_seg), 8)
     tiles = tt // 64
     tpw = 1 if tiles <= 2 else 2 if tiles <= 4 else 4
     if -(-n_b // qpt) > 65535:
         raise ContractError(f"innr_tpu_torch::maxsim_scores: {n_b} queries in one batch")
-    return qpt, tt, tpw
+    return qpt, tt, tpw, ts
 
 
 def maxsim_scores_plain(q_batch, docs, doc_mask=None) -> torch.Tensor:
@@ -180,10 +189,10 @@ def _kernel(q, docs, mask) -> torch.Tensor:
         out = torch.empty((n_b, n), dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         if docs.dtype == torch.bfloat16:
-            qpt, tt, tpw = _tiling_bf16(n_b, tq, td, d)
+            qpt, tt, tpw, ts = _tiling_bf16(n_b, tq, td, d)
             rc = lib.innr_maxsim_scores_bf16(
                 q.data_ptr(), docs.data_ptr(), m_ptr, out.data_ptr(), n_b, tq, td, d, n, qpt,
-                tt, tpw, stream)
+                tt, tpw, ts, stream)
         else:
             r, qpt, tt, warps = _tiling(n_b, tq, d)
             rc = lib.innr_maxsim_scores(

@@ -24,6 +24,7 @@ from innr_tpu_torch import config  # noqa: E402
 from innr_tpu_torch.kernels import maxsim_kernel as tmk  # noqa: E402
 from innr_tpu_torch.kernels.row_scan import SMEM_LIMIT  # noqa: E402
 from innr_tpu_torch.utils.asserts import ContractError  # noqa: E402
+from innr_tpu_torch.utils.padding import round_up  # noqa: E402
 
 
 @pytest.fixture(autouse=True)
@@ -269,21 +270,37 @@ class TestPlainVersion:
             tmk._tiling(1, 1, 8192)
 
     @pytest.mark.parametrize("n_b,tq,td,d", [(1, 1, 1, 1), (16, 32, 180, 128), (17, 33, 180, 130),
-                                             (1, 33, 5, 96), (17, 1, 180, 128), (2, 300, 12, 64)])
+                                             (1, 33, 5, 96), (17, 1, 180, 128), (2, 300, 12, 64),
+                                             (16, 32, 2048, 128), (1, 32, 180, 1024),
+                                             (2, 700, 9, 16), (16, 32, 180, 1440)])
     def test_bf16_tiling_fits_and_holds_whole_queries(self, n_b, tq, td, d):
-        qpt, tt, tpw = tmk._tiling_bf16(n_b, tq, td, d)
+        qpt, tt, tpw, ts = tmk._tiling_bf16(n_b, tq, td, d)
         assert 1 <= qpt <= n_b and qpt * tq <= tt and tt % 64 == 0
-        assert tpw in (1, 2, 4) and tt <= 2 * 64 * tpw <= 2 * tt + 64 * 2
-        assert tmk._bf16_smem(tt, td, d) <= SMEM_LIMIT
+        assert tpw in (1, 2, 4) and (tt <= 2 * 64 * tpw <= 2 * tt + 64 * 2 or tpw == 4)
+        assert ts % 8 == 0 and 8 <= ts <= round_up(td, 8)
+        n_seg = -(-td // ts)
+        assert n_seg == 1 or (n_seg - 1) * ts < td  # equal segments, none empty
+        assert tmk._bf16_smem(tt, ts, d) <= SMEM_LIMIT
 
     def test_bf16_tiling_holds_the_b16_batch(self):
-        """ColBERTv2 widths at B = 16: one tile of all 512 query tokens, so
-        the corpus is read once per batch."""
-        assert tmk._tiling_bf16(16, 32, 180, 128) == (16, 512, 4)
+        """ColBERTv2 widths at B = 16: one tile of all 512 query tokens and
+        whole documents, so the corpus is read once per batch."""
+        assert tmk._tiling_bf16(16, 32, 180, 128) == (16, 512, 4, 184)
+
+    @pytest.mark.parametrize("td,n_seg,ts", [(300, 2, 152), (2048, 12, 176), (8192, 45, 184)])
+    def test_bf16_tiling_cuts_long_documents_into_segments(self, td, n_seg, ts):
+        """Documents longer than fits beside the B = 16 tile run in equal
+        segments: the batch stays one tile (one corpus read) at any Td."""
+        assert tmk._tiling_bf16(16, 32, td, 128) == (16, 512, 4, ts)
+        assert -(-td // ts) == n_seg
+
+    def test_bf16_tiling_scores_a_long_query_in_passes(self):
+        qpt, tt, tpw, _ = tmk._tiling_bf16(3, 700, 9, 16)
+        assert (qpt, tt, tpw) == (1, 704, 4)  # 11 row tiles: two passes of 8
 
     def test_bf16_tiling_raises_when_one_query_does_not_fit(self):
         with pytest.raises(ContractError, match="shared memory"):
-            tmk._tiling_bf16(1, 513, 8, 8)
+            tmk._tiling_bf16(1, 7000, 8, 16)
         with pytest.raises(ContractError, match="shared memory"):
             tmk._tiling_bf16(1, 1, 180, 4096)
 
@@ -369,6 +386,25 @@ class TestKernelOnCuda:
         want = tmk.maxsim_scores_plain(q, docs, mask)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
         assert (got[:, 5] == 0).all()
+
+    @pytest.mark.parametrize("n_b,tq,td,d", [(16, 32, 700, 128), (1, 32, 60, 1024),
+                                             (2, 700, 9, 16)])
+    def test_bf16_segments_and_passes(self, cuda_device, n_b, tq, td, d):
+        """Documents in several segments (a NaN and the only valid tokens
+        in late ones) and a query scored in two passes of row tiles."""
+        assert -(-td // tmk._tiling_bf16(n_b, tq, td, d)[3]) > 1 or tq > 512
+        gen = torch.Generator(device=cuda_device).manual_seed(8)
+        q = torch.randint(-3, 4, (n_b, tq, d), generator=gen, device=cuda_device).float()
+        docs = torch.randint(-4, 5, (300, td, d), generator=gen, device=cuda_device).float()
+        docs[3, td - 1, 0] = float("nan")
+        docs = docs.to(torch.bfloat16)
+        mask = torch.rand((300, td), generator=gen, device=cuda_device) < 0.9
+        mask[7, : td - 2] = False  # valid tokens only in the last segment
+        mask[3, td - 1] = True
+        got = tmk.fused_maxsim_scores_batch(q, docs, mask)
+        want = tmk.maxsim_scores_plain(q, docs, mask)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert torch.isnan(got[:, 3]).all()
 
     def test_r7_rows_equal_single_launches(self, cuda_device):
         gen = torch.Generator(device=cuda_device).manual_seed(6)
