@@ -14,7 +14,9 @@ and imports nothing of JAX. Phases:
               power limit, and ptxas' register / spill report.
 2. exact    — every kernel against its plain PyTorch version on the same
               device tensors, bit for bit (NaN payloads canonicalised):
-              - the kNN kernel on integer-valued data (every dot and L2 score
+              - the kNN kernel (f32 and bf16: tensor-core scores, an
+                exact re-score within a proven margin; u8: FP32 FMAs) on
+                integer-valued data (every dot and L2 score
                 is then exact, so keys and indices must agree, ties
                 included) for every mode and corpus dtype, Q in {1, 5, 32},
                 D in {1, 127, 768}, k in {1, 10, cap + 3} (the last runs two
@@ -32,6 +34,14 @@ and imports nothing of JAX. Phases:
                 the kNN phase's corpus (NaN, +-inf, -0.0 rows) with planted
                 duplicate rows; also against K1's full scan on full plans;
               - the threshold scan, f32 and bf16, D in {1, 127, 128, 768};
+              - K1's tensor-core scan, full and tile scan, on exact
+                arithmetic its products cannot represent: f32 rows of odd
+                integers in [2049, 4095] (TF32 drops the low bit), bf16
+                rows +-2^e (1 + j/16) whose near ties only the tensor
+                core's accumulation separates, planted duplicates and
+                near ties, integer queries; six modes, D in {1, 127, 128,
+                768}, Q in {1, 5, 32, 67}, k in {1, 10, cap + 3}, and 1M
+                rows at D = 128; with the re-scored pairs per query;
               - the nearest-centroid pass, f32 / bf16 / u8 rows, D in
                 {7, 128, 300}, KC in {1, 3, 256, 2049, 16896}, with exact
                 ties and an all-NaN row; and its tensor-core shortlist on
@@ -118,7 +128,8 @@ and imports nothing of JAX. Phases:
 4. timing   — kernel, plain version and a same-bytes ``torch.sum`` read
               (CUDA events, median of 7 after warm-up; roofline fraction =
               read_ms / kernel_ms) for f32 10M x 128, bf16 20M x 128 and u8
-              1M x 768 (Q=32, k=10), and for each packed kernel at the sizes
+              1M x 768 (Q=32, k=10) with the pairs K1 re-scored, and f32 at
+              Q=1; for each packed kernel at the sizes
               of 3b (with popcounts per ms); the host time of one
               TwoStageIndex.search_batch of 32 queries, host copy included,
               per coarse kind, and its packed passes; the pruned scan (tile
@@ -618,6 +629,112 @@ def _exact_tf32_near_ties(gen, n: int, dev) -> int:
     return checks
 
 
+def phase_exact_tc(dev) -> int:
+    """K1's tensor-core scan (full and tile scan) on exact arithmetic that
+    its tensor-core products cannot represent, against the plain versions
+    bit for bit. f32: rows of odd integers in [2049, 4095] (TF32 drops each
+    one's low bit, which 3xTF32's x_lo restores) and integer queries in
+    [-8, 8], so every FP32 dot is exact in any order but no TF32 product
+    is; near ties planted (exact duplicates, rows with one coordinate the
+    next odd integer); then queries with two nonzero dimensions of odd
+    values 2049-2055 against rows of odd integers up to 4033, whose
+    products 3xTF32 cannot represent either (it drops x_lo q_lo), every
+    dot still exact in FP32. bf16: rows
+    +-2^e (1 + j/16), e in [-2, 1], with the same duplicates and rows one
+    bf16 ulp apart, so the products span 2^-9 to 2^5 and the tensor core's
+    accumulation, not the products' rounding, separates near scores; every
+    FP32 sum is still exact. All six modes (integer queries in every mode,
+    cosine too: each score is one rounding of an exact value), D in {1,
+    127, 128, 768}, Q in {1, 5, 32, 67} (67: two query tiles of 64), k in
+    {1, 10, cap + 3}; then 1M rows at D = 128, Q in {1, 32}, k = 10, where
+    the slabs are long enough for the gate to reject. Logs the re-scored
+    pairs (``knn.rescore_stats``)."""
+    import torch
+
+    from innr_tpu_torch.kernels import knn as tk
+    from innr_tpu_torch.kernels import pruned_knn as tpk
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    cap, tile_n = tk.single_pass_k(1), 200
+    checks = 0
+
+    def corpus(n, d, dtype):
+        if dtype == torch.float32:
+            rows = (2 * torch.randint(1024, 2048, (n, d), generator=gen, device=dev) + 1).float()
+        else:
+            j = torch.randint(0, 16, (n, d), generator=gen, device=dev)
+            e = torch.randint(-2, 2, (n, d), generator=gen, device=dev).float()
+            sign = torch.where(torch.rand((n, d), generator=gen, device=dev) < 0.5, -1.0, 1.0)
+            rows = (sign * (1 + j / 16) * torch.exp2(e)).to(torch.bfloat16)
+        src = torch.randint(0, n // 2, (64,), generator=gen, device=dev)
+        rows[n // 2:n // 2 + 32] = rows[src[:32]]
+        near = rows[src[32:]].clone()
+        if dtype == torch.float32:
+            near[:, 0] += 2.0
+        else:
+            near.view(torch.int16)[:, 0] += 1
+        rows[n // 2 + 32:n // 2 + 64] = near
+        norms2, inv = tk._norms2(rows), tk.inv_norms(rows)
+        mask = (torch.rand(n, generator=gen, device=dev) < 0.5).float()
+        return rows, {
+            "dot": None, "l2": norms2, "cosine": inv, "dotm": mask,
+            "l2m": torch.stack([norms2, mask]), "cosinem": torch.stack([inv, mask]),
+        }
+
+    def check(rows, aux_by_mode, queries, ks):
+        nonlocal checks
+        n, d = rows.shape
+        order, n_surv = _plans(gen, -(-n // tile_n), dev)["scattered"]
+        for n_q in queries:
+            qs = torch.randint(-8, 9, (n_q, d), generator=gen, device=dev).float()
+            for mode, aux in aux_by_mode.items():
+                for k in ks:
+                    name = f"exact TC near ties {rows.dtype} n={n} d={d} q={n_q} {mode} k={k}"
+                    got = tk.fused_knn_keys_batch(qs, rows, aux, k, mode)
+                    if mode == "dot" and k == 10:
+                        rows_n, q_n, pairs = tk.rescore_stats()
+                        log(f"[exact] {name}: re-scored {pairs} pairs, "
+                            f"{pairs / q_n!r} per query ({rows_n} rows)")
+                    expect_equal(name, got, tk.knn_plain(qs, rows, aux, k, mode))
+                    got = tpk.pruned_keys(qs, rows, aux, order, n_surv, tile_n, k, mode)
+                    expect_equal(name + " tiles", got, tpk.pruned_knn_plain(
+                        qs, rows, aux, order, n_surv, tile_n, k, mode))
+                    checks += 2
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (1, 127, 128, 768):
+            rows, aux_by_mode = corpus(3 * 1024 + 77, d, dtype)
+            check(rows, aux_by_mode, (1, 5, 32, 67), (1, 10, cap + 3))
+        rows, aux_by_mode = corpus(1_000_000, 128, dtype)
+        check(rows, aux_by_mode, (1, 32), (10,))
+        del rows, aux_by_mode
+    for d in (1, 127, 128, 768):
+        rows = (2 * torch.randint(1024, 2017, (3 * 1024 + 77, d), generator=gen, device=dev)
+                + 1).float()
+        rows[1000:1032] = rows[:32]
+        norms2, inv = tk._norms2(rows), tk.inv_norms(rows)
+        mask = (torch.rand(rows.shape[0], generator=gen, device=dev) < 0.5).float()
+        aux_by_mode = {"dot": None, "l2": norms2, "cosine": inv, "dotm": mask,
+                       "l2m": torch.stack([norms2, mask]), "cosinem": torch.stack([inv, mask])}
+        for n_q in (5, 32):
+            qs = torch.zeros((n_q, d), device=dev)
+            for j in range(min(2, d)):
+                col = torch.randint(0, d, (n_q,), generator=gen, device=dev)
+                val = 2049 + 2 * torch.randint(0, 4, (n_q,), generator=gen, device=dev)
+                sign = torch.where(torch.rand(n_q, generator=gen, device=dev) < 0.5, -1, 1)
+                qs[torch.arange(n_q, device=dev), col] = (sign * val).float()
+            for mode, aux in aux_by_mode.items():
+                for k in (10, cap + 3):
+                    name = f"exact 3xTF32 residue f32 d={d} q={n_q} {mode} k={k}"
+                    expect_equal(name, tk.fused_knn_keys_batch(qs, rows, aux, k, mode),
+                                 tk.knn_plain(qs, rows, aux, k, mode))
+                    checks += 1
+    torch.cuda.synchronize()
+    log(f"[exact] {checks} tensor-core near-tie kNN checks (full and tile scan) agree bit "
+        "for bit")
+    return checks
+
+
 def unsigned_sort(x, dim: int):
     """Sort int32 views of uint32 values as unsigned: ``(values, order)``
     (a signed sort would put ids >= 2**31 and the sentinel first)."""
@@ -928,16 +1045,44 @@ def phase_timing(corpora: dict, bounds: dict) -> dict:
         out[name] = (kernel, plain, read)
         n, d = rows.shape
         n_q = qs.shape[0]
-        # f32 stays true f32 (no TF32); bf16 products are exact on the
-        # tensor cores; u8 codes meet f32 queries, so f32 again.
-        unit = "bf16" if name == "bfloat16" else "fp32"
-        b = bound(rows.numel() * rows.element_size() + qs.numel() * 4 + n_q * 10 * 8,
-                  **{unit: 2 * n_q * n * d})
+        b, note = _knn_bound(rows, n_q, 10)
         bounds[f"knn_scan+knn_merge<{name}>"] = b
         log(f"[timing] {name} {n} x {d}, Q={n_q}, k=10: kernel {kernel!r} ms, "
             f"plain {plain!r} ms, same-bytes read {read!r} ms, "
-            f"roofline fraction (read/kernel) {read / kernel!r}, {bound_text(b)}")
+            f"roofline fraction (read/kernel) {read / kernel!r}, {bound_text(b)}{note}")
+    # A single query: the query tile narrows to 8 columns.
+    rows, q1 = corpora["f32"], corpora["qs128"][:1].contiguous()
+    kernel = _median_ms(lambda: tk.fused_knn_keys_batch(q1, rows, None, 10, "dot"))
+    plain = _median_ms(lambda: tk.knn_plain(q1, rows, None, 10, "dot"))
+    b, note = _knn_bound(rows, 1, 10)
+    log(f"[timing] float32 {rows.shape[0]} x 128, Q=1, k=10: kernel {kernel!r} ms, plain "
+        f"{plain!r} ms, {bound_text(b)}{note}, query tile {tk._grid(rows, 1, 10)[0]}")
     return out
+
+
+def _knn_bound(rows, n_q: int, k: int, read_rows: int | None = None) -> tuple:
+    """K1's (or the tile scan's over ``read_rows``) bound after a launch on
+    ``rows``, and a note of its re-scored pairs: the corpus (or surviving)
+    bytes, the queries and the result, against the tensor-core products
+    (f32: three TF32 products per pair and dimension, 3xTF32; bf16: one;
+    u8 codes meet f32 queries on the FP32 pipe) and the FP32 FMAs of the
+    pairs the last launch re-scored."""
+    import torch
+
+    from innr_tpu_torch.kernels import knn as tk
+
+    n, d = rows.shape
+    read_rows = n if read_rows is None else read_rows
+    unit, parts = {torch.float32: ("tf32", 3), torch.bfloat16: ("bf16", 1),
+                   torch.uint8: ("fp32", 1)}[rows.dtype]
+    ops = {unit: parts * 2 * n_q * read_rows * d}
+    note = ""
+    if rows.dtype != torch.uint8:
+        _, _, pairs = tk.rescore_stats()
+        ops["fp32"] = 2 * d * pairs
+        note = f", re-scored {pairs} pairs ({pairs / n_q!r} per query)"
+    n_bytes = read_rows * d * rows.element_size() + n_q * d * 4 + n_q * k * 8
+    return bound(n_bytes, **ops), note
 
 
 def _plan(vb, qs, k: int, mode: str):
@@ -1144,15 +1289,15 @@ def phase_prune(dev, full_ms: float, errs: dict, bounds: dict,
     times["knn_scan_tiles+knn_merge"] = (kernel, plain_ms)
     # The surviving rows read once (the work this plan needs), the plan and
     # the queries read, the (Q, k) result written.
-    bounds["knn_scan_tiles+knn_merge"] = bound(
-        4 * (surv_rows * 128 + n_q * 128 + s.n_tiles + 1) + 8 * n_q * k,
-        fp32=2 * n_q * surv_rows * 128)
+    # The surviving rows read once (the work this plan needs), the queries
+    # read, the (Q, k) result written.
+    bounds["knn_scan_tiles+knn_merge"], note = _knn_bound(rows, n_q, k, surv_rows)
     log(f"[timing] pruned scan, clustered {n} x 128 f32, Q={n_q}, k={k}: {int(n_surv)} of "
         f"{s.n_tiles} tiles ({surv_rows} rows) read; tile kernel {kernel!r} ms, prune=True "
         f"end to end {e2e!r} ms, plain {plain_ms!r} ms, K1 full scan {full_ms!r} ms "
         f"(speedup {full_ms / e2e!r} end to end), read of all rows {read_all!r} ms, of the "
         f"surviving rows {read_surv!r} ms, "
-        f"{bound_text(bounds['knn_scan_tiles+knn_merge'])}")
+        f"{bound_text(bounds['knn_scan_tiles+knn_merge'])}{note}")
 
     t_surv_rows = min(n, int(t_surv) * s.tile_n)
     got = tpk.threshold_dists(q0, rows, norms2, t_order, t_surv, s.tile_n)
@@ -1961,6 +2106,7 @@ def main() -> int:
     phase_exact(dev)
     phase_exact_packed(dev)
     phase_exact_pruned(dev)
+    phase_exact_tc(dev)
     phase_exact_slot_sparse(dev)
     phase_exact_maxsim(dev)
     corpora, errs, bounds = {}, {}, {}

@@ -25,60 +25,104 @@
 // the plain PyTorch version does the same canonicalisation, so both rank
 // NaNs identically (greatest for dot/cosine, last for L2).
 //
-// Arithmetic: the dot accumulates fp32 FMAs in dimension order from +0.0,
-// with no TF32. bf16 corpora: queries are rounded to bf16 first, so every
-// product of two bf16 values is exact in fp32 and only the sums round, as on
-// the TPU. u8 corpora: codes widen to fp32 and multiply the full fp32 query.
-// The TPU instead splits the query into a hi/lo bf16 pair
-// (innr_tpu/kernels/knn.py:236-261); the two differ by about 2^-18 relative
-// per product. With integer-valued inputs every score is exact in both and
-// the kernel agrees with the plain version bit for bit.
+// Arithmetic of every score that is kept: the dot accumulates fp32 FMAs in
+// dimension order from +0.0, then __fsub_rn(aux, __fmul_rn(2, dot)) (l2) or
+// __fmul_rn(dot, aux) (cosine). bf16 corpora: queries are rounded to bf16
+// first, so every product of two bf16 values is exact in fp32 and only the
+// sums round, as on the TPU. u8 corpora: codes widen to fp32 and multiply
+// the full fp32 query. The TPU instead splits the query into a hi/lo bf16
+// pair (innr_tpu/kernels/knn.py:236-261); the two differ by about 2^-18
+// relative per product. With integer-valued inputs every score is exact in
+// both and the kernel agrees with the plain version bit for bit.
 //
-// Design. knn_scan: grid (corpus slabs x query tiles of 32). A CTA walks
-// its slab in tiles of 128 rows; for each tile it stages 32-dimension
-// chunks of the rows (transposed) and of its queries in shared memory, and
-// each thread accumulates a 4-row x 4-query register tile. The next
-// chunk's global loads go into registers before the current chunk's FMAs,
-// so they are in flight while it computes; they are 16-byte vector loads
-// when D is a multiple of 4 (f32), 8 (bf16) or 16 (u8). Warp w owns
-// queries 4w..4w+3 for all 128 rows of the tile, so it keys and selects its
-// candidates straight from registers into its queries' sorted top-k
-// buffers in shared memory (a one-compare reject against the k-th best,
-// then a warp-parallel sorted insert for the rare improving candidate).
+// Design, f32 and bf16 corpora (knn_scan_tc): tensor-core scores, a proven
+// gate, an exact re-score.
+// 1. Grid (corpus slabs x query tiles), one wave of resident CTAs. A CTA is
+//    one warpgroup; its query tile is NQ = 8, 16, 32 or 64 queries (the
+//    smallest that holds min(Q, 64), narrowed when its top-k buffers do not
+//    fit), so a Q of 1 computes 8 columns and a batch of up to 64 reads the
+//    corpus once. The queries sit in shared memory in mma.cuh's K-major
+//    layout (f32 as is, bf16 rounded to bf16), all of D when they fit, else
+//    staged chunk by chunk, with their dimensions permuted as the rows'
+//    (below).
+// 2. The CTA walks its slab in tiles of 64 rows (wgmma m) and chunks of 128
+//    dimensions; the accumulators carry across chunks. The rows never touch
+//    shared memory: each thread loads its two rows' share of a chunk from
+//    global memory straight into registers, 16-byte vectors in the layout
+//    of wgmma's A fragment (a permutation of the dimensions, matched by the
+//    queries'), and the next item's loads are in flight while this one
+//    multiplies, keys and re-scores (two register sets; one wave of CTAs,
+//    two or three per SM, so 64 KB and more in flight per SM). The raw f32
+//    bits go to TF32 wgmma (m64nNk8) three times per step, as 3xTF32
+//    (x_hi q_hi + x_hi q_lo + x_lo q_hi: the low parts exact remainders, q_lo
+//    staged beside q, x_lo made in registers), so each product keeps about
+//    3 2^-20 of error, not TF32's 2^-9; bf16 runs bf16 wgmma (m64nNk16),
+//    whose products are exact. Each row's squared norm is
+//    summed from the same registers (the mode's aux is the caller's and is
+//    not trusted as a norm).
+// 3. Gate. kernels/knn.py:knn_margin bounds |s~ - s| per (row, query) by
+//    T = kappa ||q|| ||x|| f + m_abs f + m_aux |aux| (f = |aux| for cosine,
+//    else 1; kappa ||q|| arrives per query, +inf for a query that is not
+//    finite or not below 2^50; a row whose squared norm is not below 2^100
+//    gets ||x|| = +inf): truncated operands, tensor-core accumulation, the
+//    FMA chain, the mode's transform and the compare's roundings, times 2.
+//    A pair is admitted when s~ + T (l2: s~ - T) could still reach the
+//    query's k-th best exact score in the CTA's buffer, compared with >=
+//    (an equal score wins on a lower row); a NaN anywhere admits. A row
+//    that fails the mask is admitted only while the buffer has room for
+//    INT_MIN keys. Admitted (row, query) pairs go to a list in shared
+//    memory (a warp vote, then one warp-aggregated slot claim per
+//    register).
+// 4. Re-score, once 128 pairs are pending or the CTA's work ends (the
+//    thresholds lag meanwhile, which only admits more), in rounds of 128:
+//    each thread re-scores one pair with the exact arithmetic above from
+//    global memory (the row was just read: L1 / L2), keys it and applies the
+//    mask and the exclusion bound; then warp w, which owns queries w, w +
+//    4, ..., offers the round's composites of its queries to their sorted
+//    buffers (topk.cuh: warp_offer), and each threshold is re-read from its
+//    query's k-th key, or the best k-th key any CTA has published (a
+//    per-query int in global memory, atomicMax): k rows anywhere that beat
+//    a row keep it out of the final top k, so on clustered corpora the CTAs
+//    stop re-scoring rows of the lesser clusters. Composites are unique, so
+//    the selection is a set function: a pair left out could never have
+//    entered the merged top k, and the result equals the FMA scan's bit for
+//    bit. Each launch adds its re-scored pairs to a device counter.
 // The slab's top k per query goes to partial[(slab, q, k)]. knn_merge: one
 // CTA per query selects the final top k from all slabs' partials the same
-// way. Keys are unique composites, so the two-level selection equals one
-// sequential stream exactly.
+// way.
+//
+// u8 corpora keep the FMA scan (knn_scan_fma): 32 queries per CTA of 256
+// threads, 128-row tiles staged one 32-dimension chunk ahead in registers,
+// a 4-row x 4-query register tile per thread, and each warp keying its
+// queries' candidates straight from registers.
 //
 // The pruned scan (innr_knn_scan_tiles) replaces the TPU kernels
 // innr_tpu/kernels/pruned_knn.py:_pruned_kernel (static grid) and
-// _pruned_outer_kernel (dynamic pipeline): the same knn_scan over a survivor
-// tile list (its kTiles instantiation). The live tiles order[0..*n_live)
-// are cut into chunks of 1024 rows, and the chunks are dealt in turn to one
-// wave of resident CTAs (the caller sizes the grid); each CTA runs the body
-// above over all its chunks as one load pipeline into one top-k buffer and
-// writes one partial list, and knn_merge merges them as for K1. n_live
-// stays on the device, so a plan made on the device never waits for the
-// host. Composites are unique, so the result equals the full scan's
-// whenever the plan keeps every tile that holds a top-k row. A CTA does
-// what K1 does per row, on about the surviving fraction of K1's rows, so
-// the pruned scan should take about that fraction of the full scan's time.
-// (One CTA and list per tile slot, the TPU grid's shape, measured 12% over
-// K1 reading every tile, and chunks dealt to K1's slab grid with a fresh
-// pipeline per chunk 25%: PERF.md.)
+// _pruned_outer_kernel (dynamic pipeline): the same scan over a survivor
+// tile list (the kTiles instantiations). The live tiles order[0..*n_live)
+// are cut into chunks of chunk_rows rows, and the chunks are dealt in turn
+// to one wave of resident CTAs (the caller sizes the grid); each CTA runs
+// the body above over all its chunks as one load pipeline into one top-k
+// buffer and writes one partial list, and knn_merge merges them as for K1.
+// n_live stays on the device, so a plan made on the device never waits for
+// the host. Composites are unique, so the result equals the full scan's
+// whenever the plan keeps every tile that holds a top-k row.
 //
-// What bounds it on the H100: each corpus byte is read once per query tile
-// of 32 and feeds 8 (f32), 16 (bf16) or 32 (u8) fp32 FMAs there, so at
-// Q = 32 the FP32 SIMT pipe, not HBM, is the limit: 41 G FMAs for 10M x 128
-// take about as long as reading its 5.12 GB. Measured on an H100 80GB HBM3
-// at 700 W (PERF.md), the scan runs at 0.1-0.3 of a same-bytes read, bound
-// by FMA and shared-memory issue in the 4 x 4 register tile; at large k the
-// per-slab sorted inserts dominate. Left on the table for later work: bf16
-// and u8 on tensor cores (wgmma, with the u8 hi/lo query split), a larger
-// register tile for f32, TMA / cp.async staging with more stages, batched
-// inserts for large k, a query-tile width fitted to Q (a Q of 1 still does
-// 32 queries' FMAs, and Q > 32 reads the corpus once per 32 queries), and a
-// merge that skips slabs by their sorted partials.
+// What bounds it on the H100: reading the corpus. At Q = 32 the 3xTF32
+// products of 10M x 128 are 246 GFLOP, 0.50 ms at TF32's 495 TFLOP/s (bf16
+// 20M x 128: 164 GFLOP, 0.17 ms at 989), against 1.53 ms for its 5.12 GB
+// at 3.35 TB/s; the gate
+// costs a few instructions per pair and the re-scores are about k ln(rows
+// per slab / k) per query and slab after the buffers fill (PERF.md gives
+// the measured times and re-scored pairs). With one warpgroup per CTA the
+// products, gate and re-score of a tile run in lockstep; the next item's
+// loads overlap them, and the other CTAs on the SM overlap each other. The
+// u8 FMA scan is bound by the FP32 pipe and shared-memory issue in its
+// register tile.
+// Left for later: u8 on the tensor cores (the TPU's hi/lo bf16 query
+// split), batched inserts for large k (at k = 256 each slab re-scores and
+// inserts about k (1 + ln(rows / k)) pairs per query), a merge that skips
+// slabs by their sorted partials.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -86,6 +130,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "mma.cuh"   // K-major tiles, wgmma, cp.async
 #include "topk.cuh"  // total_key, composite, warp_insert, warp_offer
 #include "vec.cuh"   // widen, Vec16, vector_loads
 
@@ -93,9 +138,9 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRowTile = 128;                // rows per tile
-constexpr int kQueryTile = 32;               // queries per CTA
-constexpr int kDimChunk = 32;                // dimensions staged at a time
+constexpr int kRowTile = 128;                // rows per tile (FMA scan); slabs are whole tiles
+constexpr int kQueryTile = 32;               // queries per CTA (FMA scan)
+constexpr int kDimChunk = 32;                // dimensions staged at a time (FMA scan)
 constexpr int kRowsPerThread = kRowTile / 32;
 constexpr int kQueriesPerThread = kQueryTile / kWarps;
 constexpr int kRowStride = kRowTile + 1;     // padded: conflict-free transpose
@@ -109,6 +154,12 @@ template <>
 __device__ __forceinline__ float query_value<__nv_bfloat16>(float q) {
   return __bfloat162float(__float2bfloat16_rn(q));
 }
+
+__device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
+
+// ---------------------------------------------------------------------------
+// The FMA scan (u8 corpora)
+// ---------------------------------------------------------------------------
 
 // One (row tile, dimension chunk) of rows and queries, staged in registers
 // so that its global loads are in flight while the previous chunk computes.
@@ -180,7 +231,7 @@ struct Stage {
 // kTiles is a template parameter so that K1's instantiation carries none of
 // the tile list's state.
 template <typename T, bool kVector, bool kTiles>
-__global__ void __launch_bounds__(kThreads, 2) knn_scan(
+__global__ void __launch_bounds__(kThreads, 2) knn_scan_fma(
     const float* __restrict__ qs, const T* __restrict__ rows,
     const float* __restrict__ aux, const float* __restrict__ mask,
     const long long* __restrict__ excl, const int* __restrict__ order,
@@ -298,6 +349,510 @@ __global__ void __launch_bounds__(kThreads, 2) knn_scan(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core scan (f32 and bf16 corpora)
+// ---------------------------------------------------------------------------
+
+constexpr int kTcThreads = kWgThreads;  // one warpgroup
+constexpr int kTcWarps = kTcThreads / 32;
+constexpr int kTcRows = 64;             // rows per tile: wgmma m
+constexpr int kChunk = 128;             // dimensions staged at a time
+constexpr int kTcQueryMax = 64;         // the widest query tile: wgmma n
+constexpr size_t kSmemMax = 232448;     // dynamic shared memory a block may use
+
+// A chunk of 128 dimensions of a row is loaded as 16-byte vectors: thread
+// t of a quad (t = lane % 4) takes vectors 4 j + t (j = 0, 1, ...), so a
+// quad reads 64 contiguous bytes at a time, and the k-step s takes words
+// 2 (s % 2) and 2 (s % 2) + 1 of vector j = s / 2 as its A fragment (a0 /
+// a2: the first row, a1 / a3: the second). So the tensor core's k
+// positions are a permutation of the dimensions (perm_dim), and the queries
+// are staged in the same permutation.
+template <typename T> struct Tc;
+// The low part of an f32 operand: x minus its TF32 truncation, exact.
+__device__ __forceinline__ uint32_t tf32_low(uint32_t w) {
+  return __float_as_uint(__fsub_rn(__uint_as_float(w), __uint_as_float(w & 0xFFFFE000u)));
+}
+
+// f32: three TF32 products per k-step, x_hi q_hi + x_hi q_lo + x_lo q_hi
+// (3xTF32; the tensor core truncates the raw f32 bits of x and q to x_hi
+// and q_hi, and x_lo, q_lo are the exact remainders, themselves truncated),
+// which leaves about 3 2^-20 of each product, not TF32's 2^-9.
+template <> struct Tc<float> {
+  static constexpr int kSteps = 16;  // m64nNk8
+  static constexpr int kSplit = 2;   // query parts staged: q_hi, q_lo
+  static constexpr int kMinBlocks = 2;
+  template <int A>
+  __device__ static void mma(float (&acc)[A], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                             uint64_t b_hi, uint64_t b_lo) {
+    wgmma_tf32_rs(acc, a0, a1, a2, a3, b_hi);
+    wgmma_tf32_rs(acc, a0, a1, a2, a3, b_lo);
+    wgmma_tf32_rs(acc, tf32_low(a0), tf32_low(a1), tf32_low(a2), tf32_low(a3), b_hi);
+  }
+  // The query's part `part` (0: as is, 1: its low part) as staged.
+  __device__ static float stored(float q, int part) {
+    return part == 0 ? q : __uint_as_float(tf32_low(__float_as_uint(q)));
+  }
+  __device__ static float zero() { return 0.0f; }
+  // The 32-bit word of a row from element col (zero past d or off the item).
+  __device__ static unsigned word_of(const float* src, int col, int d, bool in) {
+    return in && col < d ? __float_as_uint(src[col]) : 0u;
+  }
+  // Chunk-local dimension of k position kk: step s = kk / 8, position q =
+  // kk % 8 holds element q / 4 of the step's pair in quad thread q % 4.
+  __device__ static int perm_dim(int kk) {
+    const int s = kk >> 3, q = kk & 7;
+    return 16 * (s >> 1) + 4 * (q & 3) + 2 * (s & 1) + (q >> 2);
+  }
+};
+// bf16: the products of bf16 rows and bf16-rounded queries are exact.
+template <> struct Tc<__nv_bfloat16> {
+  static constexpr int kSteps = 8;  // m64nNk16
+  static constexpr int kSplit = 1;
+  static constexpr int kMinBlocks = 3;
+  template <int A>
+  __device__ static void mma(float (&acc)[A], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                             uint64_t b, uint64_t) {
+    wgmma_bf16_rs(acc, a0, a1, a2, a3, b);
+  }
+  __device__ static __nv_bfloat16 stored(float q, int) { return __float2bfloat16_rn(q); }
+  __device__ static __nv_bfloat16 zero() { return __float2bfloat16_rn(0.0f); }
+  __device__ static unsigned word_of(const __nv_bfloat16* src, int col, int d, bool in) {
+    const unsigned lo = in && col < d ? __bfloat16_as_ushort(src[col]) : 0u;
+    const unsigned hi = in && col + 1 < d ? __bfloat16_as_ushort(src[col + 1]) : 0u;
+    return lo | hi << 16;
+  }
+  // Step s = kk / 16, position q = kk % 16: quad thread (q % 8) / 2,
+  // element q % 2 + 2 (q / 8) of the step's four.
+  __device__ static int perm_dim(int kk) {
+    const int s = kk >> 4, q = kk & 15;
+    return 32 * (s >> 1) + 8 * ((q & 7) >> 1) + 4 * (s & 1) + (q & 1) + 2 * (q >> 3);
+  }
+};
+
+// Byte offsets of a CTA's shared memory: the top-k buffers, the queries
+// (all of D, or one chunk), a tile's admitted pairs, per-query words.
+struct TcLayout {
+  int nq, dpad, n_dch;  // query tile, D padded to whole chunks, chunks
+  bool q_res;           // all of D of the queries resident
+  size_t best, q, q_part, list, rcomp, bound, thr, kq, red, total;
+};
+
+inline size_t align128(size_t x) { return (x + 127) & ~static_cast<size_t>(127); }
+
+template <typename T>
+TcLayout tc_layout(int nq, int d, int k, bool q_res) {
+  constexpr int chunk = kChunk;
+  TcLayout L{};
+  L.nq = nq;
+  L.n_dch = (d + chunk - 1) / chunk;
+  L.dpad = L.n_dch * chunk;
+  L.q_res = q_res;
+  size_t at = 0;
+  L.best = at;
+  at = align128(at + sizeof(long long) * nq * k);
+  L.q = at;  // Tc<T>::kSplit parts, each nq x (dpad or chunk)
+  L.q_part = align128(sizeof(T) * nq * (q_res ? L.dpad : chunk));
+  at += Tc<T>::kSplit * L.q_part;
+  L.list = at;  // pending admitted pairs: under 128, plus a tile's 64 x nq
+  at = align128(at + (sizeof(int) + 1) * (kTcRows * nq + kTcThreads));
+  L.rcomp = at;  // one re-scoring round's composites
+  at += sizeof(long long) * kTcThreads;
+  L.bound = at;
+  at += 8 * kTcQueryMax;
+  L.thr = at;
+  at += 4 * kTcQueryMax;
+  L.kq = at;
+  at += 4 * kTcQueryMax;
+  L.red = at;
+  at += 16;
+  L.total = at;
+  return L;
+}
+
+// The query tile: the smallest of 8, 16, 32, 64 that holds min(Q, 64),
+// halved while its buffers do not fit; queries resident when they fit,
+// else staged chunk by chunk.
+template <typename T>
+TcLayout tc_plan(int n_q, int d, int k) {
+  int nq = 8;
+  while (nq < kTcQueryMax && nq < n_q) nq *= 2;
+  for (;; nq /= 2) {
+    TcLayout L = tc_layout<T>(nq, d, k, true);
+    if (L.total <= kSmemMax) return L;
+    L = tc_layout<T>(nq, d, k, false);
+    if (L.total <= kSmemMax || nq == 8) return L;
+  }
+}
+
+struct TcArgs {
+  const float* qs;
+  const void* rows;
+  const float* aux;
+  const float* mask;
+  const long long* excl;
+  const float* qmeta;  // per query: kappa ||q|| (+inf: always re-scored)
+  float m_abs, m_aux;  // the margin's absolute and |aux| terms
+  unsigned long long* rescored;
+  int* kth;  // per query: the best k-th key any CTA's buffer has held
+  const int* order;
+  const int* n_live;
+  long long* partial;
+  int n_q;
+  long long n;
+  int d, k, score;
+  long long slab_rows, chunk_rows;
+  bool vec;  // 16-byte loads of rows and queries (D and both bases aligned)
+};
+
+// A position in a CTA's work: rows [t0, t0 + 64) of the item [.., end),
+// dimension chunk ch.
+struct Cursor {
+  long long t0, end, item;
+  int ch;
+};
+
+// This CTA's next non-empty item of the tile list after c.item, or an
+// empty range when none is left.
+__device__ __forceinline__ void next_item(Cursor& c, const TcArgs& p, long long per_tile,
+                                          long long items) {
+  c.t0 = c.end = 0;
+  for (c.item += gridDim.x; c.item < items; c.item += gridDim.x) {
+    const long long tile_begin = static_cast<long long>(p.order[c.item / per_tile]) * p.slab_rows;
+    c.t0 = tile_begin + c.item % per_tile * p.chunk_rows;
+    c.end = min(p.n, min(tile_begin + p.slab_rows, c.t0 + p.chunk_rows));
+    if (c.t0 < c.end) break;
+  }
+}
+
+template <bool kTiles>
+__device__ __forceinline__ void advance(Cursor& c, const TcArgs& p, int n_dch, long long per_tile,
+                                        long long items) {
+  if (++c.ch < n_dch) return;
+  c.ch = 0;
+  c.t0 += kTcRows;
+  if constexpr (kTiles) {
+    if (c.t0 >= c.end) next_item(c, p, per_tile, items);
+  }
+}
+
+// This thread's quarter of chunk c.ch of its rows g and g + 8 of the tile
+// at c into v (zeros past the item's end and d).
+template <typename T, int V>
+__device__ __forceinline__ void load_rows(uint4 (&v)[2][V], const TcArgs& p, const Cursor& c,
+                                          int g, int quad) {
+  constexpr int kE = 16 / sizeof(T);
+  const T* rows = static_cast<const T*>(p.rows);
+  const int k0 = c.ch * kChunk + kE * quad;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long row = c.t0 + g + 8 * h;
+    const bool in = row < c.end;
+    const T* src = rows + static_cast<size_t>(in ? row : 0) * p.d;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int col = k0 + 4 * kE * j;
+      if (p.vec) {
+        v[h][j] = (in && col < p.d) ? *reinterpret_cast<const uint4*>(src + col)
+                                    : make_uint4(0u, 0u, 0u, 0u);
+      } else {
+        unsigned w[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) w[i] = Tc<T>::word_of(src, col + i * (kE / 4), p.d, in);
+        v[h][j] = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
+  }
+}
+
+// Queries [q0, q0 + nq) x the chunks [ch0, ch0 + n_ch) into dst (K-major,
+// nq rows, k positions permuted as perm_dim), as the tensor cores read
+// them (bf16: rounded); zeros past n_q and d.
+template <typename T>
+__device__ void stage_queries(T* dst, size_t part_elems, const float* __restrict__ qs, int q0,
+                              int n_q, int d, int nq, int ch0, int n_ch) {
+  constexpr int kE = 16 / sizeof(T);
+  const int width = n_ch * kChunk;
+  for (int f = threadIdx.x; f < nq * width; f += kTcThreads) {
+    const int r = f / width, kk = f % width;
+    const int col = (ch0 + kk / kChunk) * kChunk + Tc<T>::perm_dim(kk % kChunk);
+    const bool ok = q0 + r < n_q && col < d;
+    const float v = ok ? qs[static_cast<size_t>(q0 + r) * d + col] : 0.0f;
+#pragma unroll
+    for (int part = 0; part < Tc<T>::kSplit; ++part)
+      dst[part * part_elems + kmajor_offset<kE>(r, kk, nq)] =
+          ok ? Tc<T>::stored(v, part) : Tc<T>::zero();
+  }
+}
+
+// The exact dot of row `row` and query q from global memory: fmaf in
+// dimension order from +0.0 on the widened values, the FMA scan's
+// arithmetic (bf16 corpora: the query rounded to bf16).
+template <typename T>
+__device__ __forceinline__ float exact_dot(const TcArgs& p, long long row, int q) {
+  constexpr int kE = 16 / sizeof(T);
+  const T* x = static_cast<const T*>(p.rows) + static_cast<size_t>(row) * p.d;
+  const float* y = p.qs + static_cast<size_t>(q) * p.d;
+  float acc = 0.0f;
+  if (p.vec) {
+#pragma unroll 8
+    for (int k = 0; k < p.d; k += kE) {
+      const uint4 xv = *reinterpret_cast<const uint4*>(x + k);
+#pragma unroll
+      for (int i = 0; i < kE; i += 4) {
+        const float4 yv = *reinterpret_cast<const float4*>(y + k + i);
+        acc = fmaf(Vec16<T>::get(xv, i), query_value<T>(yv.x), acc);
+        acc = fmaf(Vec16<T>::get(xv, i + 1), query_value<T>(yv.y), acc);
+        acc = fmaf(Vec16<T>::get(xv, i + 2), query_value<T>(yv.z), acc);
+        acc = fmaf(Vec16<T>::get(xv, i + 3), query_value<T>(yv.w), acc);
+      }
+    }
+  } else {
+    for (int k = 0; k < p.d; ++k) acc = fmaf(widen(x[k]), query_value<T>(y[k]), acc);
+  }
+  return acc;
+}
+
+// The exact score a k-th key stands for (the admission threshold), or +inf
+// (l2) / -inf while it is INT_MIN (empty or failing rows): then every row
+// is admitted.
+__device__ __forceinline__ float threshold(int key, int score) {
+  if (key == INT_MIN) return score == 1 ? inf_f() : -inf_f();
+  const int tk = score == 1 ? ~key : key;
+  return __int_as_float(tk ^ (tk < 0 ? 0x7FFFFFFF : 0));
+}
+
+template <typename T, int NQ, bool kTiles>
+__global__ void __launch_bounds__(kTcThreads, Tc<T>::kMinBlocks) knn_scan_tc(TcArgs p,
+                                                                             TcLayout L) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  // 16-byte vectors per row, thread and chunk: 8 f32, 4 bf16.
+  constexpr int kAcc = NQ / 2, kSteps = Tc<T>::kSteps, kVecs = kSteps / 2;
+  long long* best = reinterpret_cast<long long*>(smem + L.best);  // [NQ][k]
+  T* q_s = reinterpret_cast<T*>(smem + L.q);                      // [dpad or chunk][NQ], K-major
+  constexpr int kCap = kTcRows * NQ + kTcThreads;
+  int* list_row = reinterpret_cast<int*>(smem + L.list);  // [kCap] rows, [kCap] queries
+  unsigned char* list_c = reinterpret_cast<unsigned char*>(list_row + kCap);
+  long long* rcomp = reinterpret_cast<long long*>(smem + L.rcomp);         // [128]
+  long long* bound = reinterpret_cast<long long*>(smem + L.bound);  // [NQ]
+  float* thr = reinterpret_cast<float*>(smem + L.thr);              // [NQ]
+  float* kq = reinterpret_cast<float*>(smem + L.kq);                // [NQ]
+  unsigned* red = reinterpret_cast<unsigned*>(smem + L.red);  // re-scores; 3 tile counts
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, quad = lane & 3;
+  const int g = 16 * warp + (lane >> 2);  // this thread's rows g and g + 8 of a tile
+  const int q0 = blockIdx.y * NQ, k = p.k, score = p.score;
+  const float open = score == 1 ? inf_f() : -inf_f();
+  for (int i = tid; i < NQ * k; i += kTcThreads) best[i] = LLONG_MIN;
+  if (tid < NQ) {
+    const int q = q0 + tid;
+    const bool live = q < p.n_q;
+    thr[tid] = open;
+    kq[tid] = live ? p.qmeta[q] : 0.0f;
+    bound[tid] = (live && p.excl != nullptr) ? p.excl[q] : LLONG_MAX;
+  }
+  if (tid == 0) red[0] = red[1] = red[2] = red[3] = 0u;
+  const size_t part = L.q_part / sizeof(T);  // elements of one query part
+  if (L.q_res) stage_queries<T>(q_s, part, p.qs, q0, p.n_q, p.d, NQ, 0, L.n_dch);
+  fence_async_shared();
+  __syncthreads();
+
+  long long per_tile = 1, items = 0;
+  Cursor next{static_cast<long long>(blockIdx.x) * p.slab_rows, 0, blockIdx.x, 0};
+  next.end = min(p.n, next.t0 + p.slab_rows);
+  if constexpr (kTiles) {
+    per_tile = (p.slab_rows + p.chunk_rows - 1) / p.chunk_rows;
+    items = static_cast<long long>(*p.n_live) * per_tile;
+    next.item -= gridDim.x;
+    next_item(next, p, per_tile, items);
+  }
+  // Registers carry the pipeline: the next item's rows load while this
+  // one multiplies, keys and re-scores.
+  uint4 nxt[2][kVecs], cur[2][kVecs];
+  if (next.t0 < next.end) load_rows<T, kVecs>(nxt, p, next, g, quad);
+
+  float acc[kAcc], n2[2] = {0.0f, 0.0f};
+  unsigned count = 0;
+  int pending = 0;  // admitted pairs in the list, not yet re-scored
+  for (int tile = 0; next.t0 < next.end;) {
+    const Cursor it = next;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < kVecs; ++j) cur[h][j] = nxt[h][j];
+    advance<kTiles>(next, p, L.n_dch, per_tile, items);
+    if (next.t0 < next.end) load_rows<T, kVecs>(nxt, p, next, g, quad);
+    if (!L.q_res) {  // this chunk of the queries
+      __syncthreads();
+      stage_queries<T>(q_s, part, p.qs, q0, p.n_q, p.d, NQ, it.ch, 1);
+      fence_async_shared();
+      __syncthreads();
+    }
+    if (it.ch == 0) {
+#pragma unroll
+      for (int j = 0; j < kAcc; ++j) acc[j] = 0.0f;
+      n2[0] = n2[1] = 0.0f;
+    }
+    const uint32_t b0 =
+        smem_u32(q_s + (L.q_res ? static_cast<size_t>(it.ch) * kChunk * NQ : 0));
+    const uint32_t b1 = b0 + static_cast<uint32_t>(L.q_part);  // f32: the low parts
+#pragma unroll
+    for (int j = 0; j < kAcc; ++j) fence_operand(acc[j]);
+    wgmma_fence();
+#pragma unroll
+    for (int st = 0; st < kSteps; ++st) {
+      const uint4& lo = cur[0][st >> 1];
+      const uint4& hi = cur[1][st >> 1];
+      const int w = 2 * (st & 1);
+      Tc<T>::mma(acc, word(lo, w), word(hi, w), word(lo, w + 1), word(hi, w + 1),
+                 kmajor_desc(b0 + st * 2 * NQ * 16, NQ), kmajor_desc(b1 + st * 2 * NQ * 16, NQ));
+    }
+    wgmma_commit();
+    // The rows' squared norms (this thread's quarter), under the products.
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < kVecs; ++j)
+#pragma unroll
+        for (int e = 0; e < 16 / static_cast<int>(sizeof(T)); ++e) {
+          const float x = Vec16<T>::get(cur[h][j], e);
+          n2[h] = fmaf(x, x, n2[h]);
+        }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < kAcc; ++j) fence_operand(acc[j]);
+    if (it.ch != L.n_dch - 1) continue;
+
+    // The tile's last chunk: the gate appends its admitted pairs to the
+    // list after the pending ones, counted in red[1 + tile % 3]; the count
+    // two tiles ahead is cleared here (all its reads are two barriers back).
+    unsigned* n_tile = red + 1 + tile % 3;
+    if (tid == 0) red[1 + (tile + 1) % 3] = 0u;
+    bool ok[2], pass[2];
+    float a[2], kx[2], cx[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float r2 = n2[h] + __shfl_xor_sync(0xFFFFFFFFu, n2[h], 1);
+      r2 += __shfl_xor_sync(0xFFFFFFFFu, r2, 2);
+      const long long row = it.t0 + g + 8 * h;
+      ok[h] = row < it.end;
+      a[h] = (ok[h] && p.aux != nullptr) ? p.aux[row] : 0.0f;
+      pass[h] = !(ok[h] && p.mask != nullptr) || p.mask[row] > 0.0f;
+      // ||x|| plus the slack of squares that underflow; +inf (NaN, inf,
+      // not below 2^50) admits every pair of the row.
+      const float xn = r2 < 0x1p100f ? sqrtf(r2) + 0x1p-59f : inf_f();
+      const float rowf = score == 2 ? fabsf(a[h]) : 1.0f;
+      kx[h] = xn * rowf;
+      cx[h] = fmaf(p.m_aux, fabsf(a[h]), p.m_abs * rowf);
+    }
+    // Admitted pairs go to the list after the pending ones: one vote of
+    // the warp, then (rarely) one warp-aggregated slot claim per register.
+    unsigned admitted = 0;
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) {
+      const int h = (i >> 1) & 1, c = acc_col(i, tid);
+      if (!ok[h] || q0 + c >= p.n_q) continue;
+      bool admit;
+      if (!pass[h]) {
+        admit = thr[c] == open;  // an INT_MIN key can still enter
+      } else {
+        float sv = acc[i];
+        if (score == 1) sv = fmaf(-2.0f, sv, a[h]);
+        else if (score == 2) sv = sv * a[h];
+        const float tb = fmaf(kq[c], kx[h], cx[h]);
+        admit = score == 1 ? !(sv - tb > thr[c]) : !(sv + tb < thr[c]);
+      }
+      admitted |= static_cast<unsigned>(admit) << i;
+    }
+    if (__any_sync(0xFFFFFFFFu, admitted != 0u)) {
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) {
+        const bool admit = (admitted >> i) & 1u;
+        const unsigned am = __ballot_sync(0xFFFFFFFFu, admit);
+        if (am == 0u) continue;
+        const int leader = __ffs(am) - 1;
+        unsigned slot = 0;
+        if (lane == leader) slot = atomicAdd(n_tile, __popc(am));
+        slot = pending + __shfl_sync(0xFFFFFFFFu, slot, leader) + __popc(am & ((1u << lane) - 1u));
+        if (admit) {
+          list_row[slot] = static_cast<int>(it.t0 + g + 8 * ((i >> 1) & 1));
+          list_c[slot] = static_cast<unsigned char>(acc_col(i, tid));
+        }
+      }
+    }
+    __syncthreads();
+    ++tile;
+    const int total = pending + static_cast<int>(*n_tile);
+    // Re-score once 128 pairs are pending, and at the end of the work: the
+    // gate's thresholds lag meanwhile, which only admits more pairs.
+    if (total < kTcThreads && next.t0 < next.end) {
+      pending = total;
+      continue;
+    }
+    pending = 0;
+    // Re-score in rounds of 128 pairs, one per thread; then each warp
+    // offers the round's composites of its queries (c % 4 == warp) to
+    // their buffers, one warp_offer per query present in 32 entries.
+    for (int base = 0; base < total; base += kTcThreads) {
+      const int e = base + tid;
+      long long cand = LLONG_MIN;
+      if (e < total) {
+        const int c = list_c[e];
+        const long long row = list_row[e];
+        int key = INT_MIN;
+        if (p.mask == nullptr || p.mask[row] > 0.0f) {
+          float sc = exact_dot<T>(p, row, q0 + c);
+          ++count;
+          const float av = p.aux != nullptr ? p.aux[row] : 0.0f;
+          if (score == 1) sc = __fsub_rn(av, __fmul_rn(2.0f, sc));
+          else if (score == 2) sc = __fmul_rn(sc, av);
+          key = total_key(sc);
+          if (score == 1) key = ~key;
+        }
+        cand = composite(key, row);
+        if (cand >= bound[c]) cand = LLONG_MIN;
+      }
+      rcomp[tid] = cand;
+      __syncthreads();
+      const int m = min(kTcThreads, total - base);
+      for (int j0 = 0; j0 < m; j0 += 32) {
+        const int j = j0 + lane;
+        const int c = j < m ? list_c[base + j] : -1;
+        const bool mine = c >= 0 && c % kTcWarps == warp;
+        const long long cd = mine ? rcomp[j] : LLONG_MIN;
+        unsigned todo = __ballot_sync(0xFFFFFFFFu, mine);
+        while (todo) {
+          const int c0 = __shfl_sync(0xFFFFFFFFu, c, __ffs(todo) - 1);
+          const bool in = mine && c == c0;
+          todo &= ~__ballot_sync(0xFFFFFFFFu, in);
+          warp_offer(best + c0 * k, k, in ? cd : LLONG_MIN, lane);
+        }
+      }
+      __syncthreads();
+    }
+    // The gate's thresholds: the better of this buffer's k-th key and any
+    // other CTA's (k rows anywhere that beat a row keep it out of the
+    // final top k, so the merged result is unchanged), published to all.
+    if (total > 0 && tid < NQ && q0 + tid < p.n_q) {
+      const int key = static_cast<int>(best[tid * k + k - 1] >> 32);
+      thr[tid] = threshold(max(key, atomicMax(p.kth + q0 + tid, key)), score);
+    }
+    __syncthreads();
+  }
+  for (int f = tid; f < NQ * k; f += kTcThreads) {
+    const int q = q0 + f / k;
+    if (q < p.n_q) p.partial[(static_cast<size_t>(blockIdx.x) * p.n_q + q) * k + f % k] = best[f];
+  }
+  const unsigned sum = __reduce_add_sync(0xFFFFFFFFu, count);
+  if (lane == 0 && sum != 0u) atomicAdd(red, sum);
+  __syncthreads();
+  if (tid == 0 && red[0] != 0u && p.rescored != nullptr)
+    atomicAdd(p.rescored, static_cast<unsigned long long>(red[0]));
+}
+
+// ---------------------------------------------------------------------------
+// The merge
+// ---------------------------------------------------------------------------
+
 // One CTA per query: the top k of n_slabs sorted partial lists of length k.
 __global__ void __launch_bounds__(kThreads) knn_merge(
     const long long* __restrict__ partial, long long* __restrict__ out,
@@ -325,6 +880,10 @@ __global__ void __launch_bounds__(kThreads) knn_merge(
   for (int i = lane; i < k; i += 32) out[static_cast<size_t>(q) * k + i] = mine[i];
 }
 
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
 // The rows a launch scans and how they are cut: n_ctas slabs of slab_rows
 // rows, or (order != null) the chunks of chunk_rows rows of the tiles
 // order[0..*n_live) of slab_rows rows each, over n_ctas CTAs.
@@ -337,66 +896,121 @@ struct Slabs {
 };
 
 template <typename T, bool kVector, bool kTiles>
-cudaError_t launch_scan_as(const float* qs, const T* rows, const float* aux, const float* mask,
-                           const long long* excl, long long* partial, int n_q, long long n,
-                           int d, int k, int score, Slabs slabs, cudaStream_t stream) {
+cudaError_t launch_fma_as(const float* qs, const T* rows, const float* aux, const float* mask,
+                          const long long* excl, long long* partial, int n_q, long long n, int d,
+                          int k, int score, Slabs slabs, cudaStream_t stream) {
   const size_t smem = sizeof(long long) * kQueryTile * k +
                       sizeof(float) * kDimChunk * (kRowStride + kQueryTile);
-  cudaError_t err = cudaFuncSetAttribute(knn_scan<T, kVector, kTiles>,
+  cudaError_t err = cudaFuncSetAttribute(knn_scan_fma<T, kVector, kTiles>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(slabs.n_ctas), (n_q + kQueryTile - 1) / kQueryTile);
-  knn_scan<T, kVector, kTiles><<<grid, kThreads, smem, stream>>>(
+  knn_scan_fma<T, kVector, kTiles><<<grid, kThreads, smem, stream>>>(
       qs, rows, aux, mask, excl, slabs.order, slabs.n_live, partial, n_q, n, d, k, score,
       slabs.slab_rows, slabs.chunk_rows);
   return cudaGetLastError();
 }
 
-template <typename T, bool kTiles>
-cudaError_t launch_scan_tiled(const float* qs, const T* rows, const float* aux,
-                              const float* mask, const long long* excl, long long* partial,
-                              int n_q, long long n, int d, int k, int score, Slabs slabs,
-                              cudaStream_t stream) {
+template <bool kTiles>
+cudaError_t launch_fma(const float* qs, const uint8_t* rows, const float* aux, const float* mask,
+                       const long long* excl, long long* partial, int n_q, long long n, int d,
+                       int k, int score, Slabs slabs, cudaStream_t stream) {
   return vector_loads(rows, d)
-             ? launch_scan_as<T, true, kTiles>(qs, rows, aux, mask, excl, partial, n_q, n, d, k,
-                                               score, slabs, stream)
-             : launch_scan_as<T, false, kTiles>(qs, rows, aux, mask, excl, partial, n_q, n, d,
-                                                k, score, slabs, stream);
+             ? launch_fma_as<uint8_t, true, kTiles>(qs, rows, aux, mask, excl, partial, n_q, n,
+                                                    d, k, score, slabs, stream)
+             : launch_fma_as<uint8_t, false, kTiles>(qs, rows, aux, mask, excl, partial, n_q, n,
+                                                     d, k, score, slabs, stream);
+}
+
+template <typename T, int NQ, bool kTiles>
+cudaError_t launch_tc_as(const TcArgs& p, const TcLayout& L, long long n_ctas,
+                         cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(knn_scan_tc<T, NQ, kTiles>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(L.total));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>(n_ctas), (p.n_q + NQ - 1) / NQ);
+  knn_scan_tc<T, NQ, kTiles><<<grid, kTcThreads, L.total, stream>>>(p, L);
+  return cudaGetLastError();
+}
+
+template <typename T, bool kTiles>
+cudaError_t launch_tc(const TcArgs& p, long long n_ctas, cudaStream_t stream) {
+  const TcLayout L = tc_plan<T>(p.n_q, p.d, p.k);
+  switch (L.nq) {
+    case 8: return launch_tc_as<T, 8, kTiles>(p, L, n_ctas, stream);
+    case 16: return launch_tc_as<T, 16, kTiles>(p, L, n_ctas, stream);
+    case 32: return launch_tc_as<T, 32, kTiles>(p, L, n_ctas, stream);
+    case 64: return launch_tc_as<T, 64, kTiles>(p, L, n_ctas, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// CTAs of the tensor-core scan resident on one SM at this shape.
+template <typename T, int NQ>
+cudaError_t resident_tc(const TcLayout& L, int* blocks) {
+  cudaError_t err = cudaFuncSetAttribute(knn_scan_tc<T, NQ, false>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(L.total));
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, knn_scan_tc<T, NQ, false>,
+                                                       kTcThreads, L.total);
 }
 
 template <typename T>
-cudaError_t launch_scan(const float* qs, const void* rows_v, const float* aux, const float* mask,
-                        const long long* excl, long long* partial, int n_q, long long n, int d,
-                        int k, int score, Slabs slabs, cudaStream_t stream) {
-  const T* rows = static_cast<const T*>(rows_v);
-  return slabs.order != nullptr
-             ? launch_scan_tiled<T, true>(qs, rows, aux, mask, excl, partial, n_q, n, d, k,
-                                          score, slabs, stream)
-             : launch_scan_tiled<T, false>(qs, rows, aux, mask, excl, partial, n_q, n, d, k,
-                                           score, slabs, stream);
+cudaError_t grid_tc(int n_q, int d, int k, int* info) {
+  const TcLayout L = tc_plan<T>(n_q, d, k);
+  info[0] = L.nq;
+  switch (L.nq) {
+    case 8: return resident_tc<T, 8>(L, info + 1);
+    case 16: return resident_tc<T, 16>(L, info + 1);
+    case 32: return resident_tc<T, 32>(L, info + 1);
+    case 64: return resident_tc<T, 64>(L, info + 1);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 int scan(const void* qs, const void* rows, int dtype, const void* aux, const void* mask,
-         const void* excl, void* partial, int n_q, long long n, int d, int k, int score,
-         Slabs slabs, void* stream) {
+         const void* excl, const void* qmeta, float m_abs, float m_aux, void* rescored,
+         void* kth, void* partial, int n_q, long long n, int d, int k, int score, Slabs slabs,
+         void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  auto q = static_cast<const float*>(qs);
-  auto a = static_cast<const float*>(aux);
-  auto m = static_cast<const float*>(mask);
-  auto e = static_cast<const long long*>(excl);
-  auto p = static_cast<long long*>(partial);
+  const TcArgs p{static_cast<const float*>(qs), rows, static_cast<const float*>(aux),
+                 static_cast<const float*>(mask), static_cast<const long long*>(excl),
+                 static_cast<const float*>(qmeta), m_abs, m_aux,
+                 static_cast<unsigned long long*>(rescored), static_cast<int*>(kth), slabs.order,
+                 slabs.n_live,
+                 static_cast<long long*>(partial), n_q, n, d, k, score, slabs.slab_rows,
+                 slabs.chunk_rows, false};
+  const bool tiles = slabs.order != nullptr;
   cudaError_t err;
   switch (dtype) {
     case 0:
-      err = launch_scan<float>(q, rows, a, m, e, p, n_q, n, d, k, score, slabs, s);
+    case 1: {
+      if (qmeta == nullptr || kth == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+      TcArgs q = p;
+      if (dtype == 0) {
+        q.vec = vector_loads(static_cast<const float*>(rows), d) &&
+                vector_loads(static_cast<const float*>(qs), d);
+        err = tiles ? launch_tc<float, true>(q, slabs.n_ctas, s)
+                    : launch_tc<float, false>(q, slabs.n_ctas, s);
+      } else {
+        q.vec = vector_loads(static_cast<const __nv_bfloat16*>(rows), d) &&
+                vector_loads(static_cast<const float*>(qs), d);
+        err = tiles ? launch_tc<__nv_bfloat16, true>(q, slabs.n_ctas, s)
+                    : launch_tc<__nv_bfloat16, false>(q, slabs.n_ctas, s);
+      }
       break;
-    case 1:
-      err = launch_scan<__nv_bfloat16>(q, rows, a, m, e, p, n_q, n, d, k, score, slabs, s);
+    }
+    case 2: {
+      auto r = static_cast<const uint8_t*>(rows);
+      err = tiles ? launch_fma<true>(p.qs, r, p.aux, p.mask, p.excl, p.partial, n_q, n, d, k,
+                                     score, slabs, s)
+                  : launch_fma<false>(p.qs, r, p.aux, p.mask, p.excl, p.partial, n_q, n, d, k,
+                                      score, slabs, s);
       break;
-    case 2:
-      err = launch_scan<uint8_t>(q, rows, a, m, e, p, n_q, n, d, k, score, slabs, s);
-      break;
+    }
     default:
       err = cudaErrorInvalidValue;
   }
@@ -408,15 +1022,22 @@ int scan(const void* qs, const void* rows, int dtype, const void* aux, const voi
 extern "C" {
 
 // dtype: 0 f32, 1 bf16, 2 u8. score: 0 dot, 1 l2, 2 cosine. aux, mask and
-// excl may be null. partial: (ceil(n / slab_rows), n_q, k) int64.
+// excl may be null. qmeta: (n_q,) f32, per query kappa ||q|| of
+// kernels/knn.py:knn_margin (+inf: every pair re-scored), and m_abs, m_aux
+// its absolute and |aux| terms; kth: (n_q,) int32 set to INT_MIN, the
+// launch's shared k-th keys (f32 and bf16; null and ignored for u8).
+// rescored: one uint64 the launch adds its re-scored pairs to, or null.
+// partial: (ceil(n / slab_rows), n_q, k) int64.
 // Returns the cudaError_t of the launch (0 on success).
 int innr_knn_scan(const void* qs, const void* rows, int dtype, const void* aux,
-                  const void* mask, const void* excl, void* partial, int n_q, long long n,
+                  const void* mask, const void* excl, const void* qmeta, float m_abs,
+                  float m_aux, void* rescored, void* kth, void* partial, int n_q, long long n,
                   int d, int k, int score, int slab_rows, void* stream) {
   if (n_q <= 0 || n <= 0 || d <= 0 || k <= 0 || slab_rows <= 0 || slab_rows % kRowTile != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Slabs slabs{nullptr, nullptr, slab_rows, slab_rows, (n + slab_rows - 1) / slab_rows};
-  return scan(qs, rows, dtype, aux, mask, excl, partial, n_q, n, d, k, score, slabs, stream);
+  return scan(qs, rows, dtype, aux, mask, excl, qmeta, m_abs, m_aux, rescored, kth, partial,
+              n_q, n, d, k, score, slabs, stream);
 }
 
 // The pruned scan: the same scan over the tiles order[0..*n_live) of
@@ -426,16 +1047,37 @@ int innr_knn_scan(const void* qs, const void* rows, int dtype, const void* aux,
 // the device; excl may be null; partial: (n_ctas, n_q, k) int64, every list
 // written (empty for a CTA without work), for innr_knn_merge.
 int innr_knn_scan_tiles(const void* qs, const void* rows, int dtype, const void* aux,
-                        const void* mask, const void* excl, const void* order,
-                        const void* n_live, void* partial, int n_q, long long n, int d, int k,
-                        int score, long long tile_rows, long long chunk_rows, int n_ctas,
-                        void* stream) {
+                        const void* mask, const void* excl, const void* qmeta, float m_abs,
+                        float m_aux, void* rescored, void* kth, const void* order,
+                        const void* n_live,
+                        void* partial, int n_q, long long n, int d, int k, int score,
+                        long long tile_rows, long long chunk_rows, int n_ctas, void* stream) {
   if (n_q <= 0 || n <= 0 || d <= 0 || k <= 0 || tile_rows <= 0 || chunk_rows <= 0 ||
       n_ctas <= 0 || order == nullptr || n_live == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const Slabs slabs{static_cast<const int*>(order), static_cast<const int*>(n_live), tile_rows,
                     chunk_rows, n_ctas};
-  return scan(qs, rows, dtype, aux, mask, excl, partial, n_q, n, d, k, score, slabs, stream);
+  return scan(qs, rows, dtype, aux, mask, excl, qmeta, m_abs, m_aux, rescored, kth, partial,
+              n_q, n, d, k, score, slabs, stream);
+}
+
+// The scan's grid at this shape: info[0] the queries per CTA, info[1] the
+// CTAs resident per SM (the occupancy of the instance a launch takes).
+int innr_knn_grid(int dtype, int n_q, int d, int k, void* info) {
+  if (n_q <= 0 || d <= 0 || k <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  int* out = static_cast<int*>(info);
+  cudaError_t err;
+  switch (dtype) {
+    case 0: err = grid_tc<float>(n_q, d, k, out); break;
+    case 1: err = grid_tc<__nv_bfloat16>(n_q, d, k, out); break;
+    case 2:
+      out[0] = kQueryTile;
+      out[1] = 2;  // __launch_bounds__(kThreads, 2)
+      err = cudaSuccess;
+      break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 // partial: (n_slabs, n_q, k) int64 from either scan; out: (n_q, k) int64.

@@ -1,7 +1,9 @@
 // Hopper tensor-core plumbing shared by the wgmma kernels (assign.cu:
-// TF32, maxsim_bf16.cu: bf16): the K-major shared-memory layout and its
-// descriptors, wgmma m64n64 with f32 accumulators, the fences and group
-// waits around it, and the cp.async copies that fill a staging ring.
+// TF32, maxsim_bf16.cu: bf16, knn.cu: both): the K-major shared-memory
+// layout and its descriptors, wgmma m64n64 with both operands in shared
+// memory and m64nN (N = 8, 16, 32, 64) with A in registers, f32
+// accumulators, the fences and group waits around it, and the cp.async
+// copies that fill a staging ring.
 //
 // Layout. A tile of `rows` x kp values (kp a multiple of the instruction's
 // depth) is stored K-major without swizzle, in 16-byte column chunks: chunk
@@ -102,6 +104,84 @@ __device__ __forceinline__ void wgmma_bf16_m64n64k16(float (&acc)[32], uint64_t 
       ", %32, %33, p, 1, 1, 0, 0;\n}\n"
       : INNR_ACC32(acc)
       : "l"(a), "l"(b), "r"(1));
+}
+
+// acc (64 x N, f32) += A (64 x 8 TF32, or 64 x 16 bf16, from registers)
+// B^T (N x 8, or N x 16, K-major in shared memory). A's fragment: thread
+// t of the warpgroup holds rows 16 (t / 32) + (t % 32) / 4 and that + 8, in
+// a0 / a1 (columns t % 4: TF32; 2 (t % 4) and + 1: bf16, two per register)
+// and a2 / a3 (those + 4 for TF32, + 8 for bf16).
+__device__ __forceinline__ void wgmma_tf32_rs(float (&acc)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                                 uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_tf32_rs(float (&acc)[8], uint32_t a0, uint32_t a1, uint32_t a2,
+                                                 uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3]), "+f"(acc[4]), "+f"(acc[5]), "+f"(acc[6]), "+f"(acc[7])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_tf32_rs(float (&acc)[16], uint32_t a0, uint32_t a1, uint32_t a2,
+                                                 uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3]), "+f"(acc[4]), "+f"(acc[5]), "+f"(acc[6]), "+f"(acc[7]), "+f"(acc[8]), "+f"(acc[9]), "+f"(acc[10]), "+f"(acc[11]), "+f"(acc[12]), "+f"(acc[13]), "+f"(acc[14]), "+f"(acc[15])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_tf32_rs(float (&acc)[32], uint32_t a0, uint32_t a1, uint32_t a2,
+                                                 uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3]), "+f"(acc[4]), "+f"(acc[5]), "+f"(acc[6]), "+f"(acc[7]), "+f"(acc[8]), "+f"(acc[9]), "+f"(acc[10]), "+f"(acc[11]), "+f"(acc[12]), "+f"(acc[13]), "+f"(acc[14]), "+f"(acc[15]), "+f"(acc[16]), "+f"(acc[17]), "+f"(acc[18]), "+f"(acc[19]), "+f"(acc[20]), "+f"(acc[21]), "+f"(acc[22]), "+f"(acc[23]), "+f"(acc[24]), "+f"(acc[25]), "+f"(acc[26]), "+f"(acc[27]), "+f"(acc[28]), "+f"(acc[29]), "+f"(acc[30]), "+f"(acc[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_bf16_rs(float (&acc)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                                 uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_bf16_rs(float (&acc)[8], uint32_t a0, uint32_t a1, uint32_t a2,
+                                                 uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3]), "+f"(acc[4]), "+f"(acc[5]), "+f"(acc[6]), "+f"(acc[7])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_bf16_rs(float (&acc)[16], uint32_t a0, uint32_t a1, uint32_t a2,
+                                                 uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3]), "+f"(acc[4]), "+f"(acc[5]), "+f"(acc[6]), "+f"(acc[7]), "+f"(acc[8]), "+f"(acc[9]), "+f"(acc[10]), "+f"(acc[11]), "+f"(acc[12]), "+f"(acc[13]), "+f"(acc[14]), "+f"(acc[15])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_bf16_rs(float (&acc)[32], uint32_t a0, uint32_t a1, uint32_t a2,
+                                                 uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3]), "+f"(acc[4]), "+f"(acc[5]), "+f"(acc[6]), "+f"(acc[7]), "+f"(acc[8]), "+f"(acc[9]), "+f"(acc[10]), "+f"(acc[11]), "+f"(acc[12]), "+f"(acc[13]), "+f"(acc[14]), "+f"(acc[15]), "+f"(acc[16]), "+f"(acc[17]), "+f"(acc[18]), "+f"(acc[19]), "+f"(acc[20]), "+f"(acc[21]), "+f"(acc[22]), "+f"(acc[23]), "+f"(acc[24]), "+f"(acc[25]), "+f"(acc[26]), "+f"(acc[27]), "+f"(acc[28]), "+f"(acc[29]), "+f"(acc[30]), "+f"(acc[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
 }
 
 #undef INNR_ACC32

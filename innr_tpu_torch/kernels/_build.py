@@ -100,15 +100,19 @@ def load() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        f32 = ctypes.c_float
         lib.innr_knn_scan.argtypes = [
-            ptr, ptr, i32, ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, i32, ptr,
+            ptr, ptr, i32, ptr, ptr, ptr, ptr, f32, f32, ptr, ptr, ptr, i32, i64, i32, i32, i32,
+            i32, ptr,
         ]
         lib.innr_knn_scan.restype = i32
+        lib.innr_knn_grid.argtypes = [i32, i32, i32, i32, ptr]
+        lib.innr_knn_grid.restype = i32
         lib.innr_knn_merge.argtypes = [ptr, ptr, i32, i32, i32, ptr]
         lib.innr_knn_merge.restype = i32
         lib.innr_knn_scan_tiles.argtypes = [
-            ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, i64, i64, i32,
-            ptr,
+            ptr, ptr, i32, ptr, ptr, ptr, ptr, f32, f32, ptr, ptr, ptr, ptr, ptr, i32, i64, i32,
+            i32, i32, i64, i64, i32, ptr,
         ]
         lib.innr_knn_scan_tiles.restype = i32
         lib.innr_threshold_scan.argtypes = [

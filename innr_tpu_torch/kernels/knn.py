@@ -2,9 +2,11 @@
 
 Replaces the TPU kernel ``innr_tpu/kernels/knn.py:_knn_kernel`` (launched by
 ``_fused_knn_raw``; ``_fused_knn_multi`` drives it for large k). The kernel
-is ``csrc/knn.cu`` (``knn_scan`` + ``knn_merge``); its source note says what
-it computes, what bounds it on the H100 and what this first design leaves
-on the table.
+is ``csrc/knn.cu`` (``knn_scan_tc`` for f32 and bf16 corpora: tensor-core
+scores, a gate within :func:`knn_margin`, an exact FP32 FMA re-score of the
+admitted pairs; the FMA scan ``knn_scan_fma`` for u8; then ``knn_merge``);
+its source note says what it computes, what bounds it on the H100 and what
+the design leaves on the table.
 
 Selection runs on int64 composites of (int32 total-order key, row index)
 (:mod:`innr_tpu_torch.utils.order`): larger is better, ties go to the lower
@@ -21,6 +23,9 @@ Both run through the same exclusion-bounded multi-pass driver for k above
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
 import torch
 
 from innr_tpu_torch import config
@@ -34,19 +39,24 @@ from innr_tpu_torch.utils.order import (
 )
 from innr_tpu_torch.utils.padding import round_up
 
-# Per-pass cap on k: the scan keeps a (32, k) int64 buffer per CTA in shared
-# memory (64 KB at 256). Larger k runs as exclusion-bounded passes.
+# Per-pass cap on k: the scan keeps a (query tile, k) int64 buffer per CTA
+# in shared memory (64 KB for 32 queries at 256; csrc/knn.cu narrows the
+# query tile where the buffers would not fit). Larger k runs as
+# exclusion-bounded passes.
 _K_MAX_PASS = 256
-# Rows per tile and queries per CTA: kRowTile and kQueryTile in
-# csrc/knn.cu. Slabs are whole tiles.
+# Slabs are whole tiles of kRowTile rows (csrc/knn.cu; the tensor-core
+# scan's 64-row tiles divide them).
 _ROW_TILE = 128
-_QUERY_TILE = 32
-# The scan grid is whole waves of CTAs: 2 are resident per SM
-# (__launch_bounds__(256, 2) in csrc/knn.cu), and a partial last wave
-# nearly doubles the time when each CTA's work is large. Small k takes 4
-# waves; every slab fills a k-long sorted buffer per query from empty,
-# which dominates on short slabs at large k, so a slab keeps at least
-# _SLAB_ROWS_PER_K * k rows, down to a single wave.
+# The scan grid is whole waves of CTAs, and a partial last wave nearly
+# doubles the time when each CTA's work is large. K1 asks the library for
+# its query tile and the CTAs resident per SM at the launch's shape
+# (:func:`_grid`); the other scans sharing :func:`_scan_and_merge` keep 2
+# resident CTAs. Small k takes 4 waves; every slab fills a k-long sorted
+# buffer per query from empty, which dominates on short slabs at large k,
+# so a slab keeps at least _SLAB_ROWS_PER_K * k rows, down to a single
+# wave. The tensor-core scan (f32, bf16) takes one wave: each slab's
+# buffers admit about k (1 + ln(rows / k)) rows per query to the exact
+# re-score, so fewer, longer slabs re-score fewer pairs.
 _RESIDENT_CTAS = 2
 _MAX_WAVES = 4
 _SLAB_ROWS_PER_K = 256
@@ -65,6 +75,105 @@ _MAX_ROWS = 2**31 - 1
 # all and by corpus dtype. Incremented only where the kernels launch.
 LAUNCHES = 0
 LAUNCHES_BY_DTYPE = {"float32": 0, "bfloat16": 0, "uint8": 0}
+# The last tensor-core launch's (rows, queries, device counter of the
+# (row, query) pairs it re-scored exactly); read by rescore_stats().
+_LAST_RESCORED = None
+# Queries whose norm is not below this (or not finite) get every pair
+# re-scored, and so do rows (csrc/knn.cu): the bound assumes no overflow.
+_REGULAR_NORM = 2.0**50
+# Added to a computed norm: the most that squares which underflow can take
+# from it (sqrt(D) 2^-75 for any D below 2^31).
+_NORM_SLACK = 2.0**-59
+_U = 2.0**-24  # unit roundoff of float32
+_GRIDS: dict = {}
+
+
+class KnnMargin(NamedTuple):
+    """One mode's gate margin: the tensor-core score s~ of a (row x, query
+    q) pair lies within
+
+        T = kappa ||x|| ||q|| f + abs f + aux |a|
+
+    of the exact score s the FMA scan computes (f = |a| for cosine, else 1;
+    a the row's aux), for rows and queries with norms below 2^50."""
+
+    kappa: float
+    abs: float
+    aux: float
+
+
+def knn_margin(d: int, dtype) -> tuple[KnnMargin, KnnMargin, KnnMargin]:
+    """The margins the scan's gate uses for dimension D and a corpus of
+    ``dtype`` (float32: 3xTF32 products; bfloat16: bf16 products of the
+    bf16-rounded query), indexed by score (0 dot, 1 l2, 2 cosine). With
+    P = sum |x_i q_i| <= ||x|| ||q|| and u = 2^-24:
+
+    - Operands. float32: the tensor core sums x_hi q_hi + x_hi q_lo +
+      x_lo q_hi, where x_hi, q_hi are the TF32 truncations (10 mantissa
+      bits) and x_lo = x - x_hi, q_lo = q - q_hi (below 2^-10 |x|, 2^-10
+      |q|) are truncated again; the dropped x_lo q_lo and the two
+      truncations leave at most 3 2^-20 |x_i q_i| per product, and every
+      product of two TF32 values is exact in f32. bfloat16: the products are
+      exact. The f32 accumulation in the tensor core, in an order and with
+      a rounding (truncation, possibly) the hardware does not state, adds
+      at most 2 (K + 16) 2^-23 (1 + 2^-8) P' over its K products (3 D,
+      with P' <= (1 + 2^-9) P, for float32; D and P for bf16), the term of
+      ``assign.shortlist_margin`` with the depth of a bf16 step (16).
+      Together eta P.
+    - The FMA chain: gamma_D P with gamma_D = D u / (1 - D u). So the two
+      dots differ by at most eps P + abs, eps = eta + gamma_D.
+    - Subnormals: a flushed operand or low part, or an underflowing
+      product, costs at most 2^-126 (||x|| + ||q|| + 1) per term; with norms
+      below 2^50, abs = D 2^-74 covers 2 D of them.
+    - The mode's transform and the compare: dot s = dot, plus 2 u (1 + eps)
+      P for the roundings of s~ +- T; l2 s = fl(a - 2 dot): 2 (eps P + abs)
+      + 2 u |a| + 4 u (1 + eps) P, plus the compare; cosine s = fl(dot a):
+      |a| (eps P + abs + 2 u (1 + eps) P), plus the compare.
+    - A safety factor of 2, which also covers the f32 roundings of the
+      norms, of kappa ||q|| and of T itself (each a few u relative).
+
+    dot: kappa = 2 (eps + 2 u (1 + eps)), abs = 2 D 2^-74; l2: kappa =
+    2 (2 eps + 6 u (1 + eps)), abs = 4 D 2^-74, aux = 4 u; cosine: kappa =
+    2 (eps + 3 u (1 + eps)), abs = 2 D 2^-74 (both times |a|)."""
+    d = int(d)
+    if d * _U >= 0.5:
+        inf = float("inf")
+        return tuple(KnnMargin(inf, inf, inf) for _ in range(3))
+    gamma = d * _U / (1.0 - d * _U)
+    if dtype == torch.bfloat16:
+        eta = 2 * (d + 16) * 2.0**-23 * (1 + 2.0**-8)
+    else:
+        eta = 3 * 2.0**-20 + 2 * (3 * d + 16) * 2.0**-23 * (1 + 2.0**-8) * (1 + 2.0**-9)
+    eps = eta + gamma
+    abs_d = d * 2.0**-74
+    return (
+        KnnMargin(2 * (eps + 2 * _U * (1 + eps)), 2 * abs_d, 0.0),
+        KnnMargin(2 * (2 * eps + 6 * _U * (1 + eps)), 4 * abs_d, 4 * _U),
+        KnnMargin(2 * (eps + 3 * _U * (1 + eps)), 2 * abs_d, 0.0),
+    )
+
+
+def query_terms(qs, dtype, score: int):
+    """Per query ``kappa (||q|| + slack)`` as float32, +inf for a query
+    that is not finite or whose norm is not below 2^50 (every pair of it is
+    then re-scored); ``qs`` as the scan gets them (bf16 corpora: rounded to
+    bf16 first, as the kernel rounds them)."""
+    m = knn_margin(qs.shape[1], dtype)[score]
+    q = qs.to(torch.bfloat16).float() if dtype == torch.bfloat16 else qs.float()
+    qn = torch.sqrt((q * q).sum(dim=1))
+    regular = torch.isfinite(qn) & (qn < _REGULAR_NORM)
+    return torch.where(regular, m.kappa * (qn + _NORM_SLACK), torch.inf).to(torch.float32)
+
+
+def rescore_stats():
+    """``(rows, queries, pairs)`` of the last tensor-core scan launch (f32
+    or bf16 corpus, full or tile scan): its corpus rows, its queries and the
+    (row, query) pairs it re-scored exactly. Reads a device counter
+    (synchronises); None before any launch."""
+    if _LAST_RESCORED is None:
+        return None
+    n, n_q, counter = _LAST_RESCORED
+    return n, n_q, int(counter.item())
 
 
 def single_pass_k(n_q: int) -> int:
@@ -163,14 +272,51 @@ def _ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def _slab_rows(n: int, q_tiles: int, k: int, device, row_tile: int) -> int:
+def _slab_rows(n: int, q_tiles: int, k: int, device, row_tile: int,
+               resident: int = _RESIDENT_CTAS, max_waves: int = _MAX_WAVES) -> int:
     """Corpus rows per CTA of a scan grid with ``q_tiles`` query tiles:
-    whole waves of ``_RESIDENT_CTAS`` per SM, ``_MAX_WAVES`` for small k,
+    whole waves of ``resident`` CTAs per SM, ``max_waves`` for small k,
     fewer as k grows so that a slab keeps ``_SLAB_ROWS_PER_K * k`` rows."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    wave = max(1, sms * _RESIDENT_CTAS // q_tiles)
-    waves = min(_MAX_WAVES, max(1, n // (_SLAB_ROWS_PER_K * k * wave)))
+    wave = max(1, sms * resident // q_tiles)
+    waves = min(max_waves, max(1, n // (_SLAB_ROWS_PER_K * k * wave)))
     return round_up(-(-n // (wave * waves)), row_tile)
+
+
+def _grid(rows, n_q: int, k: int) -> tuple[int, int]:
+    """(queries per CTA, CTAs resident per SM) of the scan at this shape,
+    as the library plans its launch."""
+    from innr_tpu_torch.kernels import _build
+
+    key = (rows.dtype, n_q, rows.shape[1], k, rows.device)
+    if key not in _GRIDS:
+        info = (ctypes.c_int * 2)()
+        with torch.cuda.device(rows.device):
+            rc = _build.load().innr_knn_grid(_DTYPES[rows.dtype], n_q, rows.shape[1], k, info)
+        if rc != 0:
+            raise RuntimeError(f"innr_tpu_torch: knn_grid failed, cudaError {rc}")
+        _GRIDS[key] = (info[0], max(1, info[1]))
+    return _GRIDS[key]
+
+
+def _gate_terms(qs, rows, mode: str):
+    """The tensor-core scan's per-launch gate inputs: ``(qmeta, m_abs,
+    m_aux, kth, counter)`` (u8: no gate, ``(None, 0.0, 0.0, None,
+    None)``); kth, (Q,) int32 from INT32_MIN, carries the CTAs' shared
+    k-th keys; the counter, one int64, collects the re-scored pairs."""
+    if rows.dtype == torch.uint8:
+        return None, 0.0, 0.0, None, None
+    score = _MODES[mode][0]
+    m = knn_margin(qs.shape[1], rows.dtype)[score]
+    qmeta = query_terms(qs, rows.dtype, score).contiguous()
+    kth = torch.full((qs.shape[0],), _INT32_MIN, dtype=torch.int32, device=rows.device)
+    return qmeta, m.abs, m.aux, kth, torch.zeros(1, dtype=torch.int64, device=rows.device)
+
+
+def _note_rescored(rows, n_q: int, counter) -> None:
+    global _LAST_RESCORED
+    if counter is not None:
+        _LAST_RESCORED = (rows.shape[0], n_q, counter)
 
 
 def _scan_pass(qs, rows, vals, mask, k: int, mode: str, bound) -> torch.Tensor:
@@ -181,12 +327,18 @@ def _scan_pass(qs, rows, vals, mask, k: int, mode: str, bound) -> torch.Tensor:
     lib = _build.load()
     n_q, d = qs.shape
     n = rows.shape[0]
+    q_tile, resident = _grid(rows, n_q, k)
+    with torch.cuda.device(rows.device):
+        qmeta, m_abs, m_aux, kth, counter = _gate_terms(qs, rows, mode)
     out = _scan_and_merge(
         "knn_scan",
         lambda partial, slab_rows, stream: lib.innr_knn_scan(
             qs.data_ptr(), rows.data_ptr(), _DTYPES[rows.dtype], _ptr(vals), _ptr(mask),
-            _ptr(bound), partial, n_q, n, d, k, _MODES[mode][0], slab_rows, stream),
-        n_q, n, k, _QUERY_TILE, _ROW_TILE, rows.device)
+            _ptr(bound), _ptr(qmeta), m_abs, m_aux, _ptr(counter), _ptr(kth), partial, n_q, n,
+            d, k, _MODES[mode][0], slab_rows, stream),
+        n_q, n, k, q_tile, _ROW_TILE, rows.device, resident,
+        _MAX_WAVES if rows.dtype == torch.uint8 else 1)
+    _note_rescored(rows, n_q, counter)
     LAUNCHES += 1
     LAUNCHES_BY_DTYPE[str(rows.dtype).removeprefix("torch.")] += 1
     return out
@@ -235,14 +387,15 @@ def _chunked_top(keys_of, n: int, step: int, k: int, bound, dev) -> torch.Tensor
 
 
 def _scan_and_merge(name: str, scan, n_q: int, n: int, k: int, q_tile: int, row_tile: int,
-                    dev) -> torch.Tensor:
+                    dev, resident: int = _RESIDENT_CTAS,
+                    max_waves: int = _MAX_WAVES) -> torch.Tensor:
     """One kernel pass of a slab scan, then knn_merge: (Q, k) int64
     composites. ``scan(partial_ptr, slab_rows, stream)`` launches the scan
     into partial (n_slabs, Q, k) and returns its launcher's cudaError."""
     from innr_tpu_torch.kernels import _build
 
     lib = _build.load()
-    slab_rows = _slab_rows(n, -(-n_q // q_tile), k, dev, row_tile)
+    slab_rows = _slab_rows(n, -(-n_q // q_tile), k, dev, row_tile, resident, max_waves)
     n_slabs = -(-n // slab_rows)
     with torch.cuda.device(dev):
         partial = torch.empty((n_slabs, n_q, k), dtype=torch.int64, device=dev)

@@ -5,8 +5,9 @@ Replaces the TPU kernels of ``innr_tpu/kernels/pruned_knn.py``:
 
 - K14, ``_pruned_kernel`` (static grid, ``_pruned_raw``) and
   ``_pruned_outer_kernel`` (dynamic pipeline, ``_pruned_raw_dynamic``):
-  one kernel here, K1's ``knn_scan`` over a survivor tile list
-  (``csrc/knn.cu``, ``innr_knn_scan_tiles``, then K1's ``knn_merge``);
+  one kernel here, K1's scan over a survivor tile list (``csrc/knn.cu``,
+  ``innr_knn_scan_tiles``: the tensor-core scan with its exact re-score for
+  f32 and bf16, the FMA scan for u8; then K1's ``knn_merge``);
 - K15, ``_threshold_kernel_1q`` and ``_threshold_outer_kernel``: one
   kernel, ``threshold_scan`` (``csrc/pruned.cu``).
 
@@ -128,27 +129,32 @@ def _scan_tiles(qs, rows, vals, mask, order, n_surv, tile_n, k, mode, bound):
     n_q, d = qs.shape
     n, n_tiles = rows.shape[0], order.shape[0]
     dev = rows.device
-    # One wave of resident CTAs, or fewer when there are fewer chunks: one
-    # partial list each, whatever the plan keeps.
+    # One wave of resident CTAs (as many per SM as the library's plan for
+    # this shape holds), or fewer when there are fewer chunks: one partial
+    # list each, whatever the plan keeps.
     chunks = n_tiles * -(-int(tile_n) // _SCAN_CHUNK_ROWS)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    wave = max(1, sms * _knn._RESIDENT_CTAS // -(-n_q // _knn._QUERY_TILE))
+    q_tile, resident = _knn._grid(rows, n_q, k)
+    wave = max(1, sms * resident // -(-n_q // q_tile))
     n_ctas = min(wave, chunks)
     with torch.cuda.device(dev):
+        qmeta, m_abs, m_aux, kth, counter = _knn._gate_terms(qs, rows, mode)
         partial = torch.empty((n_ctas, n_q, k), dtype=torch.int64, device=dev)
         out = torch.empty((n_q, k), dtype=torch.int64, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.innr_knn_scan_tiles(
             qs.data_ptr(), rows.data_ptr(), _knn._DTYPES[rows.dtype], _knn._ptr(vals),
-            _knn._ptr(mask), _knn._ptr(bound), order.data_ptr(), n_surv.data_ptr(),
-            partial.data_ptr(), n_q, n, d, k, _knn._MODES[mode][0], int(tile_n),
-            _SCAN_CHUNK_ROWS, n_ctas, stream,
+            _knn._ptr(mask), _knn._ptr(bound), _knn._ptr(qmeta), m_abs, m_aux,
+            _knn._ptr(counter), _knn._ptr(kth), order.data_ptr(), n_surv.data_ptr(),
+            partial.data_ptr(), n_q,
+            n, d, k, _knn._MODES[mode][0], int(tile_n), _SCAN_CHUNK_ROWS, n_ctas, stream,
         )
         if rc != 0:
             raise RuntimeError(f"innr_tpu_torch: knn_scan_tiles launch failed, cudaError {rc}")
         rc = lib.innr_knn_merge(partial.data_ptr(), out.data_ptr(), n_q, n_ctas, k, stream)
         if rc != 0:
             raise RuntimeError(f"innr_tpu_torch: knn_merge launch failed, cudaError {rc}")
+    _knn._note_rescored(rows, n_q, counter)
     LAUNCHES += 1
     LAUNCHES_BY_DTYPE[str(rows.dtype).removeprefix("torch.")] += 1
     return out

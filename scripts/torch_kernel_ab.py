@@ -1,20 +1,21 @@
 #!/usr/bin/env python3
-"""A/B of the nearest-centroid (K13) and bf16 MaxSim (K12) kernels of two
-innr_tpu_torch trees on one CUDA GPU.
+"""A/B of the kNN scan (K1) and the tile scan (K14) of two innr_tpu_torch
+trees on one CUDA GPU.
 
     python3 scripts/torch_kernel_ab.py ROOT TAG OUTDIR   # one tree, one turn
     python3 scripts/torch_kernel_ab.py --compare OUTDIR  # after every turn
 
 A turn imports ``innr_tpu_torch`` from ROOT (a checkout, e.g. a
 ``git archive`` of the parent commit unpacked under ``build/``), makes the
-inputs from fixed seeds on the card, and writes ``OUTDIR/TAG.pt``: the
-K13 assignments at KC = 256 and 16,896 over 10M x 128 clustered f32 rows
-(the size of ``chip_smoke.py``'s pruning cells), and the times (CUDA events,
-median of 5; 3 at KC = 16,896) of K13 at both KC and of K12 over 200K x 180
-x 128 bf16 ColBERT tokens at B = 16. Run the turns as parent, this, this,
-parent in one call, so that both trees meet the same card. ``--compare``
-holds every turn's assignments to the first turn's, bit for bit, and prints
-one JSON object of the times.
+inputs from fixed seeds on the card, and writes ``OUTDIR/TAG.pt``: K1's raw
+top-k ``(keys, idx)`` (``kernels.knn.fused_knn_keys_batch``) over Gaussian
+f32 10M x 128 and bf16 20M x 128 corpora in the dot, l2 and cosine modes at
+Q in {1, 32} and k in {10, 1000}, and ``batch_knn_dot(..., prune=True)`` on
+the clustered, cluster-ordered 10M x 128 corpus of ``chip_smoke.py``'s
+pruning cells (Q = 32, k = 10), with the times of each (CUDA events, median
+of 5). Run the turns as parent, this, this, parent in one call, so that
+both trees meet the same card. ``--compare`` holds every turn's results to
+the first turn's, bit for bit, and prints one JSON object of the times.
 """
 
 from __future__ import annotations
@@ -26,9 +27,10 @@ import sys
 from pathlib import Path
 
 SEED = 1234
+MODES = ("dot", "l2", "cosine")
 
 
-def median_ms(fn, reps: int) -> float:
+def median_ms(fn, reps: int = 5) -> float:
     import torch
 
     fn()
@@ -44,12 +46,23 @@ def median_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def gaussian(gen, n: int, dtype, dev):
+    import torch
+
+    rows = torch.empty((n, 128), dtype=dtype, device=dev)
+    for a in range(0, n, 1 << 21):
+        b = min(n, a + (1 << 21))
+        rows[a:b] = torch.randn((b - a, 128), generator=gen, device=dev)
+    return rows
+
+
 def clustered(gen, n: int, n_centers: int, dev):
-    """n rows near n_centers Gaussian centres (sigma 0.05), in random order."""
+    """``chip_smoke.py``'s clustered corpus: rows near Gaussian centres
+    (sigma 0.05), ordered by centre, and near-centre queries."""
     import torch
 
     centers = torch.randn((n_centers, 128), generator=gen, device=dev)
-    assign = torch.randint(0, n_centers, (n,), generator=gen, device=dev)
+    assign = torch.sort(torch.randint(0, n_centers, (n,), generator=gen, device=dev)).values
     rows = torch.empty((n, 128), device=dev)
     for a in range(0, n, 1 << 21):
         b = min(n, a + (1 << 21))
@@ -58,43 +71,41 @@ def clustered(gen, n: int, n_centers: int, dev):
     return rows, centers
 
 
-def colbert_bf16(gen, dev, n=200_000, td=180, d=128):
-    """Unit-norm bf16 tokens, lengths clip(round(N(80, 30)), 8, 180) as a mask."""
-    import torch
-
-    docs = torch.empty((n, td, d), dtype=torch.bfloat16, device=dev)
-    for a in range(0, n, 1 << 14):
-        b = min(n, a + (1 << 14))
-        x = torch.randn((b - a, td, d), generator=gen, device=dev)
-        docs[a:b] = (x / x.norm(dim=2, keepdim=True)).to(torch.bfloat16)
-    lengths = (torch.randn(n, generator=gen, device=dev) * 30 + 80).round().clamp(8, td).long()
-    return docs, torch.arange(td, device=dev)[None, :] < lengths[:, None]
-
-
 def turn(root: str, tag: str, outdir: str) -> None:
     sys.path.insert(0, str(Path(root).resolve()))
     import torch
 
-    from innr_tpu_torch.kernels import assign as ta
-    from innr_tpu_torch.kernels import maxsim_kernel as tm
+    import innr_tpu_torch as itt
+    from innr_tpu_torch.kernels import knn as tk
 
     Path(outdir).mkdir(parents=True, exist_ok=True)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    rows, centers = clustered(gen, 10_000_000, 256, dev)
+    qs = torch.randn((32, 128), generator=gen, device=dev)
     out, times = {}, {}
-    for kc, reps in ((256, 5), (16_896, 3)):
-        cent = (centers if kc == 256 else torch.randn((kc, 128), generator=gen, device=dev))
-        cent = cent + 0.1 * torch.randn(cent.shape, generator=gen, device=dev)
-        out[f"k13_{kc}"] = ta.nearest_centroid(rows, cent).cpu()
-        times[f"k13_{kc}_ms"] = median_ms(lambda: ta.nearest_centroid(rows, cent), reps)
-    del rows
-    torch.cuda.empty_cache()
-    docs, mask = colbert_bf16(gen, dev)
-    qs = torch.randn((16, 32, 128), generator=gen, device=dev)
-    qs = qs / qs.norm(dim=2, keepdim=True)
-    out["k12_bf16"] = tm.fused_maxsim_scores_batch(qs, docs, mask).cpu()
-    times["k12_bf16_b16_ms"] = median_ms(lambda: tm.fused_maxsim_scores_batch(qs, docs, mask), 5)
+    for name, n, dtype in (("f32", 10_000_000, torch.float32),
+                           ("bf16", 20_000_000, torch.bfloat16)):
+        rows = gaussian(gen, n, dtype, dev)
+        aux = {"dot": None, "l2": tk._norms2(rows), "cosine": tk.inv_norms(rows)}
+        for mode in MODES:
+            for n_q in (1, 32):
+                q = qs[:n_q].contiguous()
+                q = tk._unit_queries(q) if mode == "cosine" else q
+                for k in (10, 1000):
+                    key = f"{name}_{mode}_q{n_q}_k{k}"
+                    out[key] = tuple(t.cpu() for t in tk.fused_knn_keys_batch(
+                        q, rows, aux[mode], k, mode))
+                    times[f"{key}_ms"] = median_ms(
+                        lambda: tk.fused_knn_keys_batch(q, rows, aux[mode], k, mode))
+        del rows, aux
+        torch.cuda.empty_cache()
+    rows, centers = clustered(gen, 10_000_000, 256, dev)
+    qc = centers[:32] + 0.01 * torch.randn((32, 128), generator=gen, device=dev)
+    vb = itt.VerticalBatch(rows)
+    vb.tile_summary()
+    res = itt.batch_knn_dot(qc, vb, 10, prune=True)
+    out["prune_f32_dot"] = (torch.as_tensor(res.scores), torch.as_tensor(res.indices))
+    times["prune_f32_dot_ms"] = median_ms(lambda: itt.batch_knn_dot(qc, vb, 10, prune=True))
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     torch.save({"out": out, "times": times, "gpu": gpu, "root": root},
@@ -110,12 +121,12 @@ def compare(outdir: str) -> int:
     first_tag, first = loaded[0]
     ok = True
     for tag, run in loaded[1:]:
-        for key in ("k13_256", "k13_16896"):
-            same = torch.equal(run["out"][key], first["out"][key])
-            ok &= same
-            print(f"{tag} vs {first_tag} {key}: {'identical' if same else 'DIFFERENT'}")
-        err = float((run["out"]["k12_bf16"] - first["out"]["k12_bf16"]).abs().max())
-        print(f"{tag} vs {first_tag} k12_bf16 max abs difference {err!r}")
+        differ = [key for key, want in first["out"].items()
+                  if not all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                             for g, w in zip(run["out"][key], want))]
+        ok &= not differ
+        print(f"{tag} vs {first_tag}: {len(first['out']) - len(differ)} of {len(first['out'])} "
+              f"results identical" + (f"; DIFFERENT: {differ}" if differ else ""))
     print(json.dumps({"gpu": first["gpu"], "turns": [{"tag": t, **r["times"]}
                                                       for t, r in loaded]}))
     return 0 if ok else 1
