@@ -57,7 +57,10 @@ and imports nothing of JAX. Phases:
                 query ids, NaN / +-inf / -0.0 values on matched and
                 unmatched entries, Lq in {1, 64, 256, 300}, L in {1, 32,
                 200}, k in {1, 10, cap + 3}, Q in {1, 16} (one launch, some
-                queries padded with the sentinel);
+                queries padded with the sentinel); then its query tile's
+                union table: queries sharing most ids, duplicates, ids >=
+                2^31 and the sentinel, non-finite values held by some
+                queries only, Q in {5, 13, 16}, a table split into tiles;
               - the MaxSim scan on integer-valued tokens, f32 and bf16
                 documents, Tq in {1, 7, 32, 33}, Td in {1, 5, 180}, D in
                 {1, 96, 128, 130}, B in {1, 3, 16, 17}, N = 1037, no mask,
@@ -67,7 +70,13 @@ and imports nothing of JAX. Phases:
                 launch: ROADMAP R7) and the top-k with tied documents;
                 then long documents that the bf16 kernel cuts into
                 segments (Td 700 at B = 16, Td 60 at D = 1024) and a query
-                of 700 tokens that it scores in two passes.
+                of 700 tokens that it scores in two passes; then the f32
+                kernel's TF32 gate on near ties (odd-integer tokens
+                2049-4095 that TF32 truncates, token pairs whose TF32 dots
+                tie and exact dots differ by 1-3), masks, NaN / +-inf, R7,
+                Tq 200, D in {20, 128, 130, 1024}, B 16 (two query tiles),
+                Td 1500 (many items, two segments), with the re-scored
+                pairs.
 3. main     — the public entry points at full size, launch counters reset
               just before each path and read just after it:
               a. batch kNN: batch_knn_dot / batch_knn / batch_knn_cosine /
@@ -841,9 +850,57 @@ def phase_exact_slot_sparse(dev) -> int:
                                  tsp.fused_sparse_keys_batch(q_idx, q_val, idx_t, val_t, k),
                                  tsp.sparse_knn_plain(q_idx, q_val, idx_t, val_t, k))
                     k_sparse += 1
+    k_union = _exact_sparse_union(gen, vocab, n, cap, dev)
     torch.cuda.synchronize()
     log(f"[exact] {k_sparse} sparse-scan checks agree bit for bit")
-    return k_slot + k_sparse
+    return k_slot + k_sparse + k_union
+
+
+def _exact_sparse_union(gen, vocab, n: int, cap: int, dev) -> int:
+    """The sparse scan's one lookup per entry for a query tile, against the
+    plain version bit for bit: queries drawn from 48 ids of the full 32
+    bits (ids >= 2^31 among them), so the tile's queries share most ids,
+    with duplicates inside a query (the first occurrence's value counts),
+    sentinel padding of different lengths, and the sentinel as a corpus id;
+    NaN, +inf and -inf corpus values on ids that query 0 holds and query 1
+    does not; Q in {5, 13, 16} (not a multiple of the tile, and 16 at Lq =
+    400, whose table does not fit one tile of 16), k in {10, cap + 3}."""
+    import torch
+
+    from innr_tpu_torch.kernels import sparse_knn as tsp
+
+    shared = vocab[:48].clone()
+    shared[:4] = torch.tensor([2**31 - 1, -(2**31), -2, 0], dtype=torch.int32, device=dev)
+    l = 32
+    ids = shared[torch.randint(0, 48, (n, l), generator=gen, device=dev)]
+    nnz = torch.randint(0, l + 1, (n, 1), generator=gen, device=dev)
+    ids = torch.where(torch.arange(l, device=dev) < nnz, ids, -1)
+    vals = torch.randint(-4, 5, (n, l), generator=gen, device=dev).float()
+    ids, vals = sparse_rows(ids, vals)
+    checks = 0
+    for lq, n_q in ((8, 5), (24, 13), (64, 16), (400, 16)):
+        pool = shared if lq <= 48 else vocab
+        pick = torch.rand((n_q, pool.numel()), generator=gen, device=dev).argsort(1)[:, :lq]
+        q_idx = pool[pick]
+        q_idx[:, 1] = q_idx[:, 0]  # a duplicate id: its first occurrence's value counts
+        q_idx = unsigned_sort(q_idx, 1)[0]
+        q_val = torch.randint(-3, 4, (n_q, lq), generator=gen, device=dev).float()
+        q_idx[2::3, lq // 2:], q_val[2::3, lq // 2:] = -1, 0.0  # sentinel padding
+        # Non-finite values on ids held by query 0 and not by query 1.
+        only0 = [int(x) for x in q_idx[0, :lq // 2] if not bool((q_idx[1] == x).any())]
+        for row, v in zip((20, 21, 22), (float("nan"), float("inf"), -float("inf"))):
+            if only0:
+                ids[row], vals[row] = -1, 0.0
+                ids[row, 0], vals[row, 0] = only0[row % len(only0)], v
+        idx_t, val_t = ids.T.contiguous(), vals.T.contiguous()
+        tile, _ = tsp._table_tile(n_q, lq, 10)
+        for k in (10, cap + 3):
+            expect_equal(f"exact sparse_scan union lq={lq} q={n_q} (tile {tile}) k={k}",
+                         tsp.fused_sparse_keys_batch(q_idx, q_val, idx_t, val_t, k),
+                         tsp.sparse_knn_plain(q_idx, q_val, idx_t, val_t, k))
+            checks += 1
+    log(f"[exact] {checks} sparse-scan union-table checks agree bit for bit")
+    return checks
 
 
 # -- phase 3 ---------------------------------------------------------------
@@ -1977,6 +2034,73 @@ def phase_exact_maxsim(dev) -> int:
     torch.cuda.synchronize()
     log(f"[exact] {checks} MaxSim checks agree bit for bit (scores, R7 rows, top-k ties, bf16 "
         f"segments and passes)")
+    return checks + _exact_maxsim_near_ties(dev, expect_scores)
+
+
+def _exact_maxsim_near_ties(dev, expect_scores) -> int:
+    """The f32 MaxSim kernel's tensor-core gate on exact arithmetic that
+    TF32 cannot represent: document tokens of odd integers 2049-4095 in
+    magnitude (TF32 drops each one's low bit) and query tokens with two
+    nonzero dimensions in [-3, 3], dimension 0 always among them, so every
+    FMA dot is an exact integer below 2^15 and every score below 2^24.
+    Near ties: in every document, token 1 copies token 0 with coordinate 0
+    one nearer zero (an even integer, exact in TF32), so their TF32 dots
+    tie and their exact dots differ by q[0]; token 2 copies token 0 with
+    coordinate 0 negated. Ragged masks (a fully masked document), NaN, +inf
+    and -inf tokens, an inf in one query of each batch (every query's row
+    equals its single-query launch: ROADMAP R7), Tq in {32, 200}, D in {20,
+    128, 130, 1024} (1024: the query tile staged per block), B in {1, 3,
+    16} (16: two query tiles), Td in {180, 1500} (many items, and two
+    segments of positions). Kernel equal to the plain version bit for bit;
+    logs the re-scored pairs (``maxsim_rescore_stats``)."""
+    import torch
+
+    from innr_tpu_torch.kernels import maxsim_kernel as tm
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    checks = 0
+    for n, td, d, tq, n_b in ((1037, 180, 128, 32, 16), (1037, 180, 130, 200, 3),
+                              (1037, 180, 20, 32, 1), (300, 1500, 128, 32, 16),
+                              (300, 60, 1024, 32, 3)):
+        mag = 2 * torch.randint(1024, 2048, (n, td, d), generator=gen, device=dev) + 1
+        sign = torch.where(torch.rand((n, td, d), generator=gen, device=dev) < 0.5, -1, 1)
+        docs = (mag * sign).float()
+        docs[:, 1] = docs[:, 0]
+        docs[:, 1, 0] -= torch.sign(docs[:, 0, 0])
+        docs[:, 2] = docs[:, 0]
+        docs[:, 2, 0] = -docs[:, 0, 0]
+        docs[3, 5, 0] = float("nan")
+        docs[17, 0, 0] = float("inf")
+        docs[40, 1, 1] = -float("inf")
+        lengths = torch.randint(3, td + 1, (n,), generator=gen, device=dev)
+        lengths[7] = 0  # a fully masked document
+        mask = torch.arange(td, device=dev)[None, :] < lengths[:, None]
+        qs = torch.zeros((n_b, tq, d), device=dev)
+        rows = torch.arange(n_b * tq, device=dev)
+        other = torch.randint(1, d, (n_b * tq,), generator=gen, device=dev)
+        vals = torch.randint(1, 4, (n_b * tq, 2), generator=gen, device=dev).float()
+        vals *= torch.where(torch.rand((n_b * tq, 2), generator=gen, device=dev) < 0.5, -1, 1)
+        flat = qs.view(n_b * tq, d)
+        flat[rows, 0] = vals[:, 0]
+        flat[rows, other] = vals[:, 1]
+        if n_b > 1:
+            qs[1, 0, 0] = float("inf")  # R7: query 1 only
+        for mask_name, m in (("no mask", None), ("ragged", mask)):
+            name = f"exact TF32 near ties maxsim_scores<float32> n={n} td={td} d={d} tq={tq} " \
+                   f"b={n_b} {mask_name}"
+            got = tm.fused_maxsim_scores_batch(qs, docs, m)
+            n_tok, n_docs, pairs = tm.maxsim_rescore_stats()
+            expect_scores(name, got, tm.maxsim_scores_plain(qs, docs, m))
+            checks += 1
+            if n_b > 1:
+                for b in (0, 1, n_b - 1):
+                    one = tm.fused_maxsim_scores(qs[b], docs, m)
+                    expect_scores(f"{name} R7 query {b}", got[b:b + 1], one[None])
+                checks += 1
+            log(f"[exact] {name}: re-scored {pairs} pairs, {pairs / (n_tok * n_docs)!r} per "
+                f"(query token, document)")
+    torch.cuda.synchronize()
+    log(f"[exact] {checks} MaxSim TF32 near-tie checks agree bit for bit")
     return checks
 
 
@@ -2027,6 +2151,9 @@ def phase_maxsim(dev, errs: dict, bounds: dict) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     counts = read_counts()
     _check_path("MaxSim", counts, ["maxsim_scores<float32>", "maxsim_scores<bfloat16>"])
+    n_tok, n_docs, pairs = tm.maxsim_rescore_stats()  # maxsim_knn_batch's launch
+    log(f"[main] maxsim_knn_batch re-scored {pairs} (query token, document token) pairs, "
+        f"{pairs / (n_tok * n_docs)!r} per (query token, document)")
 
     # 32 eps of the largest sum of |products| a score can hold: per query
     # token |q_i| max |d_j| (Cauchy-Schwarz), summed over the tokens.
@@ -2055,11 +2182,12 @@ def phase_maxsim(dev, errs: dict, bounds: dict) -> tuple[dict, dict]:
         f"{errs['maxsim_scores<bfloat16>']!r}); launches {counts['maxsim_scores<float32>']} "
         f"f32, {counts['maxsim_scores<bfloat16>']} bf16")
 
-    def maxsim_bound(q, elem, unit):
+    def maxsim_bound(q, elem, unit, passes=1):
         """The valid tokens' bytes, the mask, the queries and the scores;
-        2 q Tq D FMA operations per valid token."""
+        2 q Tq D operations per valid token on the route's unit (f32
+        documents: one TF32 product each; ``passes`` = 3 prices 3xTF32)."""
         return bound(elem * valid * d + n * td + 4 * q * tq * d + 4 * q * n,
-                     **{unit: 2 * q * tq * valid * d})
+                     **{unit: 2 * q * tq * valid * d * passes})
 
     times = {}
     cells = (("float32", docs, 1, 7), ("float32", docs, n_b, 3), ("bfloat16", docs16, n_b, 3))
@@ -2069,14 +2197,21 @@ def phase_maxsim(dev, errs: dict, bounds: dict) -> tuple[dict, dict]:
         kernel = _median_ms(lambda: tm.fused_maxsim_scores_batch(qs[:q], corpus, mask))
         plain = _median_ms(lambda: tm.maxsim_scores_plain(qs[:q], corpus, mask), reps=reps)
         read_ms = _median_ms(lambda: flat.sum())
-        b = maxsim_bound(q, elem, "fp32" if name == "float32" else "bf16")
+        b = maxsim_bound(q, elem, "tf32" if name == "float32" else "bf16")
+        beside = ""
+        if name == "float32":
+            tm.fused_maxsim_scores_batch(qs[:q], corpus, mask)
+            n_tok, n_docs, pairs = tm.maxsim_rescore_stats()
+            beside = (f" (FMA route {bound_text(maxsim_bound(q, elem, 'fp32'))}, 3xTF32 route "
+                      f"{bound_text(maxsim_bound(q, elem, 'tf32', 3))}); re-scored {pairs} pairs, "
+                      f"{pairs / (n_tok * n_docs)!r} per (query token, document)")
         if q == n_b:
             times[f"maxsim_scores<{name}>"] = (kernel, plain)
             bounds[f"maxsim_scores<{name}>"] = b
         log(f"[timing] maxsim_scores<{name}> {n} x {td} x {d}, B={q}, Tq={tq}: kernel "
             f"{kernel!r} ms, plain {plain!r} ms, same-bytes read {read_ms!r} ms, roofline "
             f"fraction (read/kernel) {read_ms / kernel!r}, {bound_text(b)}, bound/kernel "
-            f"{b[0] / kernel!r}")
+            f"{b[0] / kernel!r}{beside}")
     host1 = _median_host_ms(lambda: itt.maxsim_knn(qs[0], docs, k, doc_mask=mask)[0].cpu())
     host16 = _median_host_ms(lambda: itt.maxsim_knn_batch(qs, docs, k, doc_mask=mask)[0].cpu())
     log(f"[timing] public call host time (top-k and host copy included): maxsim_knn "

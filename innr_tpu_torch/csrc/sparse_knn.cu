@@ -22,32 +22,35 @@
 // the k largest under IEEE total order, ties to the lowest document.
 //
 // Design. The TPU kernel swept the whole query with compare-selects for
-// every corpus entry, because a TPU core has no per-lane gather. Here the
-// queries sit in shared memory and each corpus entry finds its index by a
-// binary search (lower bound) over its query's sorted indices: log2(Lq)
-// shared loads instead of Lq compares, and no match tracker, so one path is
-// exact for every corpus (the JAX package's finite-only fast sweep selects
-// nothing here). sparse_scan<QT>: grid (document slabs x query tiles of QT
-// = 1, 2, 4, 8 or 16). A CTA of 256 threads walks its slab in tiles of 256
-// documents, one document per thread; entry l of neighbouring documents is
-// contiguous in the (L, N) layout, so a warp's loads are coalesced. The
+// every corpus entry, because a TPU core has no per-lane gather. Here one
+// lookup per corpus entry serves the whole query tile. sparse_scan<QT>:
+// grid (document slabs x query tiles of QT = 1, 2, 4, 8 or 16). A CTA
+// builds its tile's table in shared memory: the union of its queries' ids
+// (the sentinel left out) in an open-addressing hash (linear probing, a
+// multiplicative hash, at most half full), and for each id a mask of the
+// queries that hold it and each one's value at its first occurrence (in a
+// sorted row the first of its run: the lower bound, the join's contract);
+// each slot an 8-byte (id, mask << 16 | union index). It walks its slab in
+// tiles of 256 documents, one document per thread; entry l of neighbouring
+// documents is contiguous in the (L, N) layout, so a warp's loads are
+// coalesced. Each entry's id is looked up once (one 8-byte shared load, a
+// second on a collision; the sentinel is never looked up, so it matches
+// nothing), four entries' loads and lookups in flight together; on a hit,
+// each query whose mask bit is set adds fl(v * qv) to its sum, the four
+// entries in order. So a NaN or inf value counts only for the queries that
+// hold its id, a document with no match keeps +0.0, and each score is the
+// sum the binary-search kernel formed, bit for bit. The
 // per-document keys go through the shared top-k steps of row_scan.cuh, and
-// knn_merge (knn.cu) selects the final top k from all slabs.
+// knn_merge (knn.cu) selects the final top k from all slabs. A table too
+// large for shared memory halves the query tile (the wrapper).
 //
 // What bounds it on the H100: 10M documents x 32 entries are 2.56 GB of
-// indices and values, about 0.76 ms at 3.35 TB/s, whatever the batch: one
-// shared lookup per entry could serve a whole batch (a table of the batch's
-// ids), and the matched products, under 5.1 G FMAs at Q = 16, take under
-// 0.16 ms. This design pays more: a 64-entry query costs each entry 7
-// dependent shared loads and a compare, 2.6 G for the corpus, about 0.31 ms
-// at 32 loads per clock per SM on 132 SMs at 1.98 GHz, below the read; but
-// a batch of 16 repeats the searches 16 times (4.9 ms of shared loads), so
-// at Q = 16 the design's searches, not the function, set its floor.
-// Measured (PERF.md): a third of the bound at Q = 1, about a twenty-fifth
-// at Q = 16; putting 8 entries' loads in flight ahead of their searches
-// gained 7% at Q = 1 and lost half at Q = 16, so latency is not what holds
-// it. Left for later work: compare-select sweeps for short queries, one
-// search of the union of the batch's indices, wider loads.
+// indices and values, about 0.76 ms at 3.35 TB/s, whatever the batch; the
+// lookups are one shared access per entry or two, and the matched
+// products, under 5.1 G at Q = 16, take under 0.16 ms. PERF.md gives the
+// measured times and what held the previous design (scripts/
+// sparse_probe.py: variant builds with its search, its offer or all but
+// its loads compiled out).
 
 #include <cuda_runtime.h>
 
@@ -56,27 +59,104 @@
 
 namespace {
 
+constexpr unsigned kSentinel = 0xFFFFFFFFu;
+constexpr int kGroup = 4;  // corpus entries whose lookups are in flight together
+
+__device__ __forceinline__ unsigned slot_of(unsigned x, int hbits) {
+  return (x * 2654435761u) >> (32 - hbits);
+}
+
+// The table entry of id x, whose first probe at slot h read e: (mask of
+// the queries holding it) << 16 | its union index, or 0 (no query holds
+// it, or x is the sentinel). Later probes only after a collision.
+__device__ __forceinline__ unsigned lookup(const uint2* __restrict__ hash_s, unsigned x,
+                                           unsigned h, uint2 e, int hbits) {
+  if (x == kSentinel) return 0;
+  while (e.x != x) {
+    if (e.x == kSentinel) return 0;
+    h = (h + 1) & ((1u << hbits) - 1);
+    e = hash_s[h];
+  }
+  return e.y;
+}
+
+// Floats between the values of consecutive union ids: QT + 1 (odd) for a
+// tile of several queries, so that the lanes of a warp, each at its own
+// id, read query j's values from distinct banks.
+template <int QT>
+__host__ __device__ constexpr int vstride() {
+  return QT == 1 ? 1 : QT + 1;
+}
+
+// Whether entry p of a sorted query row is the first of its id (the one
+// the join's lower bound finds), and not the sentinel.
+__device__ __forceinline__ bool first_of_id(const unsigned* __restrict__ row, int p, unsigned x) {
+  return x != kSentinel && (p == 0 || row[p - 1] != x);
+}
+
+// The slot of id x, which the hash holds.
+__device__ __forceinline__ unsigned slot_holding(const uint2* hash_s, unsigned x, int hbits) {
+  unsigned h = slot_of(x, hbits);
+  while (hash_s[h].x != x) h = (h + 1) & ((1u << hbits) - 1);
+  return h;
+}
+
 template <int QT>
 __global__ void __launch_bounds__(kScanThreads, 2) sparse_scan(
     const unsigned* __restrict__ q_idx, const float* __restrict__ q_val,
     const unsigned* __restrict__ idx_t, const float* __restrict__ val_t,
     const long long* __restrict__ excl, long long* __restrict__ partial, int n_q, long long n,
-    int l, int lq, int k, long long slab_rows) {
+    int l, int lq, int hbits, int k, long long slab_rows) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int q0 = blockIdx.y * QT;
   TileTopK<QT> top;
-  unsigned* qi_s = reinterpret_cast<unsigned*>(top.init(smem, k, excl, q0, n_q));  // [QT][lq]
-  float* qv_s = reinterpret_cast<float*>(qi_s + QT * lq);                           // [QT][lq]
+  uint2* hash_s = reinterpret_cast<uint2*>(top.init(smem, k, excl, q0, n_q));  // [2^hbits]
+  const int hsize = 1 << hbits, u_max = max(1, QT * lq);
+  float* val_s = reinterpret_cast<float*>(hash_s + hsize);               // [u_max][vstride<QT>]
+  unsigned* mask_s = reinterpret_cast<unsigned*>(val_s + u_max * vstride<QT>());  // [u_max]
+  int* count_s = reinterpret_cast<int*>(mask_s + u_max);                       // [1]
   const int tid = threadIdx.x;
   const long long row_begin = static_cast<long long>(blockIdx.x) * slab_rows;
   const long long row_end = min(n, row_begin + slab_rows);
 
-  for (int i = tid; i < QT * lq; i += kScanThreads) {
-    const int j = q0 + i / lq;
-    const bool ok = j < n_q;
-    qi_s[i] = ok ? q_idx[static_cast<size_t>(j) * lq + i % lq] : 0xFFFFFFFFu;
-    qv_s[i] = ok ? q_val[static_cast<size_t>(j) * lq + i % lq] : 0.0f;
+  // The tile's table, built in four steps: the union of its queries' ids
+  // into the hash; a union index per id; each query's mask bit and value at
+  // its first occurrence; each slot's (id, mask << 16 | index).
+  for (int i = tid; i < hsize; i += kScanThreads) hash_s[i] = make_uint2(kSentinel, 0u);
+  if (tid == 0) *count_s = 0;
+  __syncthreads();
+  for (int f = tid; f < QT * lq; f += kScanThreads) {
+    const int j = f / lq, p = f % lq;
+    if (q0 + j >= n_q) continue;
+    const unsigned* row = q_idx + static_cast<size_t>(q0 + j) * lq;
+    const unsigned x = row[p];
+    if (!first_of_id(row, p, x)) continue;
+    for (unsigned h = slot_of(x, hbits);; h = (h + 1) & (hsize - 1)) {
+      const unsigned prev = atomicCAS(&hash_s[h].x, kSentinel, x);
+      if (prev == kSentinel || prev == x) break;
+    }
   }
+  __syncthreads();
+  for (int h = tid; h < hsize; h += kScanThreads)
+    if (hash_s[h].x != kSentinel) {
+      const int u = atomicAdd(count_s, 1);
+      hash_s[h].y = u;
+      mask_s[u] = 0;
+    }
+  __syncthreads();
+  for (int f = tid; f < QT * lq; f += kScanThreads) {
+    const int j = f / lq, p = f % lq;
+    if (q0 + j >= n_q) continue;
+    const unsigned* row = q_idx + static_cast<size_t>(q0 + j) * lq;
+    const unsigned x = row[p];
+    if (!first_of_id(row, p, x)) continue;
+    const unsigned u = hash_s[slot_holding(hash_s, x, hbits)].y;
+    atomicOr(mask_s + u, 1u << j);
+    val_s[u * vstride<QT>() + j] = q_val[static_cast<size_t>(q0 + j) * lq + p];
+  }
+  __syncthreads();
+  for (int h = tid; h < hsize; h += kScanThreads)
+    if (hash_s[h].x != kSentinel) hash_s[h].y |= mask_s[hash_s[h].y] << 16;
   __syncthreads();
 
   for (long long t0 = row_begin; t0 < row_end; t0 += kScanRowTile) {
@@ -85,24 +165,37 @@ __global__ void __launch_bounds__(kScanThreads, 2) sparse_scan(
 #pragma unroll
     for (int j = 0; j < QT; ++j) acc[j] = 0.0f;
     if (row < row_end) {
-      for (int e = 0; e < l; ++e) {
-        const size_t at = static_cast<size_t>(e) * n + row;
-        const unsigned x = idx_t[at];
-        const float v = val_t[at];
+      for (int e0 = 0; e0 < l; e0 += kGroup) {
+        // kGroup entries' loads and lookups in flight together, then their
+        // products added in entry order.
+        unsigned hit[kGroup];
+        float v[kGroup];
 #pragma unroll
-        for (int j = 0; j < QT; ++j) {
-          const unsigned* qi = qi_s + j * lq;
-          int lo = 0, len = lq;  // lower bound of x in qi[0..lq)
-          while (len > 0) {
-            const int half = len >> 1;
-            if (qi[lo + half] < x) {
-              lo += half + 1;
-              len -= half + 1;
-            } else {
-              len = half;
-            }
+        for (int g = 0; g < kGroup; ++g) {
+          const size_t at = static_cast<size_t>(e0 + g) * n + row;
+          const bool in = e0 + g < l;
+          hit[g] = in ? idx_t[at] : kSentinel;
+          v[g] = in ? val_t[at] : 0.0f;
+        }
+        // Every entry's first probe issued before any is used.
+        unsigned h[kGroup];
+        uint2 e[kGroup];
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g) {
+          h[g] = slot_of(hit[g], hbits);
+          e[g] = hash_s[h[g]];
+        }
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g) hit[g] = lookup(hash_s, hit[g], h[g], e[g], hbits);
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g) {
+          const unsigned m = hit[g] >> 16;
+          if (m != 0) {
+            const float* qv = val_s + (hit[g] & 0xFFFFu) * vstride<QT>();
+#pragma unroll
+            for (int j = 0; j < QT; ++j)
+              if ((m >> j) & 1u) acc[j] = __fadd_rn(acc[j], __fmul_rn(v[g], qv[j]));
           }
-          if (lo < lq && qi[lo] == x) acc[j] = __fadd_rn(acc[j], __fmul_rn(v, qv_s[j * lq + lo]));
         }
       }
     }
@@ -115,19 +208,21 @@ __global__ void __launch_bounds__(kScanThreads, 2) sparse_scan(
 }
 
 template <int QT>
-cudaError_t launch_as(const unsigned* qi, const float* qv, const unsigned* idx_t,
+cudaError_t launch_as(const unsigned* q_idx, const float* q_val, const unsigned* idx_t,
                       const float* val_t, const long long* excl, long long* partial, int n_q,
-                      long long n, int l, int lq, int k, int slab_rows, cudaStream_t stream) {
+                      long long n, int l, int lq, int hbits, int k, int slab_rows,
+                      cudaStream_t stream) {
+  const size_t u_max = lq > 0 ? static_cast<size_t>(QT) * lq : 1;
   const size_t smem =
-      topk_smem_bytes<QT>(k) + (sizeof(unsigned) + sizeof(float)) * static_cast<size_t>(QT) * lq;
+      topk_smem_bytes<QT>(k) + 8 * (size_t{1} << hbits) + 4 * u_max * (vstride<QT>() + 1) + 16;
   cudaError_t err = cudaFuncSetAttribute(sparse_scan<QT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const long long n_slabs = (n + slab_rows - 1) / slab_rows;
   const dim3 grid(static_cast<unsigned>(n_slabs), (n_q + QT - 1) / QT);
-  sparse_scan<QT><<<grid, kScanThreads, smem, stream>>>(qi, qv, idx_t, val_t, excl, partial, n_q,
-                                                        n, l, lq, k, slab_rows);
+  sparse_scan<QT><<<grid, kScanThreads, smem, stream>>>(q_idx, q_val, idx_t, val_t, excl, partial,
+                                                        n_q, n, l, lq, hbits, k, slab_rows);
   return cudaGetLastError();
 }
 
@@ -135,15 +230,19 @@ cudaError_t launch_as(const unsigned* qi, const float* qv, const unsigned* idx_t
 
 extern "C" {
 
-// q_idx, q_val: (n_q, lq) uint32 / float32, each row sorted ascending;
-// idx_t, val_t: (l, n) uint32 / float32; excl: null or (n_q,) int64 bounds.
-// query_tile: 1, 2, 4, 8 or 16. partial: (ceil(n / slab_rows), n_q, k)
-// int64, for innr_knn_merge. Returns the cudaError_t of the launch (0 on
-// success).
+// q_idx, q_val: (n_q, lq) uint32 / float32, each row sorted ascending as
+// unsigned (sentinel padding last); idx_t, val_t: (l, n) uint32 / float32;
+// excl: null or (n_q,) int64 bounds. query_tile: 1, 2, 4, 8 or 16; the
+// hash holds 2^hash_bits slots (4 <= hash_bits <= 24, at least twice
+// query_tile * lq, which is at most 65536). partial: (ceil(n / slab_rows),
+// n_q, k) int64, for innr_knn_merge. Returns the cudaError_t of the launch
+// (0 on success).
 int innr_sparse_scan(const void* q_idx, const void* q_val, const void* idx_t, const void* val_t,
-                     const void* excl, void* partial, int n_q, long long n, int l, int lq, int k,
-                     int query_tile, int slab_rows, void* stream) {
-  if (n_q <= 0 || n <= 0 || l < 0 || lq < 0 || k <= 0 || slab_rows <= 0 ||
+                     const void* excl, void* partial, int n_q, long long n, int l, int lq,
+                     int hash_bits, int k, int query_tile, int slab_rows, void* stream) {
+  const long long u_max = static_cast<long long>(query_tile) * lq;
+  if (n_q <= 0 || n <= 0 || l < 0 || lq < 0 || u_max > 65536 || hash_bits < 4 ||
+      hash_bits > 24 || (1LL << hash_bits) < 2 * u_max || k <= 0 || slab_rows <= 0 ||
       slab_rows % kScanRowTile != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   auto qi = static_cast<const unsigned*>(q_idx);
@@ -153,14 +252,16 @@ int innr_sparse_scan(const void* q_idx, const void* q_val, const void* idx_t, co
   auto e = static_cast<const long long*>(excl);
   auto out = static_cast<long long*>(partial);
   auto st = static_cast<cudaStream_t>(stream);
+#define INNR_SPARSE_LAUNCH(QT) launch_as<QT>(qi, qv, it, vt, e, out, n_q, n, l, lq, hash_bits, k, slab_rows, st)
   switch (query_tile) {
-    case 1: return launch_as<1>(qi, qv, it, vt, e, out, n_q, n, l, lq, k, slab_rows, st);
-    case 2: return launch_as<2>(qi, qv, it, vt, e, out, n_q, n, l, lq, k, slab_rows, st);
-    case 4: return launch_as<4>(qi, qv, it, vt, e, out, n_q, n, l, lq, k, slab_rows, st);
-    case 8: return launch_as<8>(qi, qv, it, vt, e, out, n_q, n, l, lq, k, slab_rows, st);
-    case 16: return launch_as<16>(qi, qv, it, vt, e, out, n_q, n, l, lq, k, slab_rows, st);
+    case 1: return INNR_SPARSE_LAUNCH(1);
+    case 2: return INNR_SPARSE_LAUNCH(2);
+    case 4: return INNR_SPARSE_LAUNCH(4);
+    case 8: return INNR_SPARSE_LAUNCH(8);
+    case 16: return INNR_SPARSE_LAUNCH(16);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef INNR_SPARSE_LAUNCH
 }
 
 }  // extern "C"

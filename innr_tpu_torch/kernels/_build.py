@@ -132,11 +132,12 @@ def load() -> ctypes.CDLL:
         lib.innr_slot_scan.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, i32, ptr]
         lib.innr_slot_scan.restype = i32
         lib.innr_sparse_scan.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, i32, i32, ptr,
+            ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, i32, i32, i32, ptr,
         ]
         lib.innr_sparse_scan.restype = i32
         lib.innr_maxsim_scores.argtypes = [
-            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i64, i32, i32, i32, i32, ptr,
+            ptr, ptr, ptr, ptr, f32, ptr, ptr, i32, i32, i32, i32, i64, i32, i32, i32, i32, i32,
+            i32, i32, ptr,
         ]
         lib.innr_maxsim_scores.restype = i32
         lib.innr_maxsim_scores_bf16.argtypes = [

@@ -4,9 +4,11 @@ Replaces the TPU kernel ``innr_tpu/kernels/sparse_knn.py:_sparse_kernel``
 (launched by ``fused_sparse_knn``): the k largest sparse dots of sorted
 ``(index, value)`` queries against a sparse corpus. The kernel is
 ``csrc/sparse_knn.cu`` (``sparse_scan``, then ``knn_merge`` from
-``csrc/knn.cu``): a binary search of each corpus entry into the query in
-shared memory, where the TPU swept the query with compare-selects. Its
-source note says what bounds it on the H100.
+``csrc/knn.cu``): one hash lookup of each corpus entry in a shared-memory
+table of the union of the query tile's ids, each with its queries' values
+and a mask of the queries that hold it, where the TPU swept the query with
+compare-selects. Its source note says what bounds it on the
+H100.
 
 Semantics are the JAX package's join (``innr_tpu/ops/sparse.py:
 _join_scores``), :func:`join_scores` here: query indices sorted ascending
@@ -27,8 +29,8 @@ multi-pass driver (:func:`.knn._multi_pass`).
 
 Dispatch: a CUDA tensor runs the kernel, or the call raises; a CPU tensor,
 or :func:`innr_tpu_torch.config.force_reference`, runs the plain version.
-Any query that fits in shared memory runs in the kernel (thousands of
-entries; :func:`.row_scan.row_scan_tile` raises above that).
+Any query whose table fits in shared memory runs in the kernel (thousands
+of entries; :func:`_table_tile` raises above that).
 """
 
 from __future__ import annotations
@@ -56,6 +58,8 @@ MAX_QUERY_NNZ = 256
 # in chunks with a running top-k.
 _PLAIN_CHUNK = 1 << 24
 _LOW32 = 0xFFFFFFFF
+# csrc/sparse_knn.cu: a hash slot holds a union index in 16 bits.
+_MAX_UNION = 1 << 16
 
 # Kernel passes launched (each pass launches sparse_scan, then knn_merge).
 # Incremented only where the kernels launch.
@@ -125,6 +129,41 @@ def sparse_knn_plain(q_idx, q_val, idx_t, val_t, k: int, excl=None):
     return split_composite(_plain_top(q_idx, q_val, idx_t, val_t, k, bound))
 
 
+def _table_smem(tile: int, lq: int, k: int, spread: int = 2) -> tuple[int, int]:
+    """``(bytes, hash bits)`` of a query tile's table in ``csrc/
+    sparse_knn.cu``: beside the top-k part (``row_scan.cuh``), each of the
+    at most ``tile Lq`` union ids holds ``tile`` values (``tile + 1``
+    floats apart for several queries) and a mask, and the hash at least
+    ``2^spread`` times as many 8-byte slots (16 at least)."""
+    u_max = max(1, tile * lq)
+    hbits = max(4, ((1 << spread) * u_max - 1).bit_length())
+    topk = 8 * (max(tile, 8) * k + row_scan.MAX_QUERY_TILE) + 4 * tile * row_scan.ROW_TILE
+    stride = tile + 1 if tile > 1 else 1
+    return topk + 8 * (1 << hbits) + 4 * u_max * (stride + 1) + 16, hbits
+
+
+def _table_tile(n_q: int, lq: int, k: int) -> tuple[int, int]:
+    """``(query tile, hash bits)``: the largest power of two <=
+    :func:`.row_scan.query_tile` whose table fits in shared memory with the
+    hash at most half full; then a quarter full where that fits too and
+    keeps two CTAs per SM if half full did. Raises :class:`ContractError`
+    naming the limit when a single query's table does not fit."""
+    tile = row_scan.query_tile(n_q)
+    while tile > 1 and _table_smem(tile, lq, k, 1)[0] > row_scan.SMEM_LIMIT:
+        tile //= 2
+    need, hbits = _table_smem(tile, lq, k, 1)
+    if need > row_scan.SMEM_LIMIT or tile * lq > _MAX_UNION:
+        raise ContractError(
+            f"innr_tpu_torch::sparse_scan: a query of {lq} entries needs "
+            f"{_table_smem(1, lq, k, 1)[0]} bytes of shared memory at k={k}; a CTA has at most "
+            f"{row_scan.SMEM_LIMIT}")
+    wide, wbits = _table_smem(tile, lq, k, 2)
+    two_per_sm = row_scan.SMEM_LIMIT // 2 - 1024
+    if wide <= row_scan.SMEM_LIMIT and (wide <= two_per_sm or need > two_per_sm):
+        hbits = wbits
+    return tile, hbits
+
+
 def _scan_pass(q_idx, q_val, idx_t, val_t, k: int, bound) -> torch.Tensor:
     """One kernel pass (sparse_scan + knn_merge): (Q, k) int64 composites."""
     global LAUNCHES
@@ -133,12 +172,12 @@ def _scan_pass(q_idx, q_val, idx_t, val_t, k: int, bound) -> torch.Tensor:
     lib = _build.load()
     n_q, lq = q_idx.shape
     l, n = idx_t.shape
-    tile = row_scan.row_scan_tile(n_q, k, 8 * lq, "sparse_scan")
+    tile, hbits = _table_tile(n_q, lq, k)
     out = _knn._scan_and_merge(
         "sparse_scan",
         lambda partial, slab_rows, stream: lib.innr_sparse_scan(
             q_idx.data_ptr(), q_val.data_ptr(), idx_t.data_ptr(), val_t.data_ptr(),
-            _knn._ptr(bound), partial, n_q, n, l, lq, k, tile, slab_rows, stream),
+            _knn._ptr(bound), partial, n_q, n, l, lq, hbits, k, tile, slab_rows, stream),
         n_q, n, k, tile, row_scan.ROW_TILE, idx_t.device)
     LAUNCHES += 1
     return out

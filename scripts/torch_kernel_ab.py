@@ -1,19 +1,29 @@
 #!/usr/bin/env python3
-"""A/B of the kNN scan (K1) and the tile scan (K14) of two innr_tpu_torch
-trees on one CUDA GPU.
+"""A/B of kernels of two innr_tpu_torch trees on one CUDA GPU.
 
-    python3 scripts/torch_kernel_ab.py ROOT TAG OUTDIR   # one tree, one turn
-    python3 scripts/torch_kernel_ab.py --compare OUTDIR  # after every turn
+    python3 scripts/torch_kernel_ab.py ROOT TAG OUTDIR [PARTS]  # one tree, one turn
+    python3 scripts/torch_kernel_ab.py --compare OUTDIR         # after every turn
 
 A turn imports ``innr_tpu_torch`` from ROOT (a checkout, e.g. a
 ``git archive`` of the parent commit unpacked under ``build/``), makes the
-inputs from fixed seeds on the card, and writes ``OUTDIR/TAG.pt``: K1's raw
-top-k ``(keys, idx)`` (``kernels.knn.fused_knn_keys_batch``) over Gaussian
-f32 10M x 128 and bf16 20M x 128 corpora in the dot, l2 and cosine modes at
-Q in {1, 32} and k in {10, 1000}, and ``batch_knn_dot(..., prune=True)`` on
-the clustered, cluster-ordered 10M x 128 corpus of ``chip_smoke.py``'s
-pruning cells (Q = 32, k = 10), with the times of each (CUDA events, median
-of 5). Run the turns as parent, this, this, parent in one call, so that
+inputs from fixed seeds on the card, and writes ``OUTDIR/TAG.pt`` with the
+results and times (CUDA events, median of 5) of the parts named in PARTS
+(comma-separated; all by default):
+
+- ``knn``: K1's raw top-k ``(keys, idx)`` (``kernels.knn.
+  fused_knn_keys_batch``) over Gaussian f32 10M x 128 and bf16 20M x 128
+  corpora in the dot, l2 and cosine modes at Q in {1, 32} and k in {10,
+  1000}, and ``batch_knn_dot(..., prune=True)`` on the clustered,
+  cluster-ordered 10M x 128 corpus of ``chip_smoke.py``'s pruning cells
+  (Q = 32, k = 10);
+- ``maxsim``: the f32 MaxSim scores (``kernels.maxsim_kernel.
+  fused_maxsim_scores_batch``) over ``chip_smoke.py``'s ColBERT corpus
+  (200K x 180 x 128, ragged lengths) at B in {1, 16}, with and without the
+  mask;
+- ``sparse``: the sparse scan's raw top-k (``kernels.sparse_knn.
+  fused_sparse_keys_batch``) over ``chip_smoke.py``'s two 10M x 32 sparse
+  corpora (WordPiece and hashed 32-bit ids) at Q in {1, 16}, k in {10,
+  1000}. Run the turns as parent, this, this, parent in one call, so that
 both trees meet the same card. ``--compare`` holds every turn's results to
 the first turn's, bit for bit, and prints one JSON object of the times.
 """
@@ -71,8 +81,64 @@ def clustered(gen, n: int, n_centers: int, dev):
     return rows, centers
 
 
-def turn(root: str, tag: str, outdir: str) -> None:
+def maxsim_part(out: dict, times: dict, dev) -> None:
+    import torch
+
+    import chip_smoke as cs
+    from innr_tpu_torch.kernels import maxsim_kernel as tm
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    docs, mask, _ = cs._colbert_corpus(gen, dev)
+    qs = torch.randn((16, 32, 128), generator=gen, device=dev)
+    qs = qs / qs.norm(dim=2, keepdim=True)
+    for n_b in (1, 16):
+        for name, m in (("mask", mask), ("nomask", None)):
+            key = f"maxsim_f32_b{n_b}_{name}"
+            out[key] = (tm.fused_maxsim_scores_batch(qs[:n_b], docs, m).cpu(),)
+            times[f"{key}_ms"] = median_ms(lambda: tm.fused_maxsim_scores_batch(qs[:n_b], docs, m))
+    del docs, mask
+    torch.cuda.empty_cache()
+
+
+def sparse_part(out: dict, times: dict, dev) -> None:
+    """chip_smoke.py's phase_sparse corpora and queries, drawn the same way."""
+    import torch
+
+    import chip_smoke as cs
+    from innr_tpu_torch.kernels import sparse_knn as tsp
+
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 7)
+    p = 1.0 / torch.arange(1, cs.VOCAB + 1, dtype=torch.float64, device=dev)
+    cdf = (torch.cumsum(p, 0) / p.sum()).float()
+    perm = torch.randperm(cs.VOCAB, generator=gen, device=dev).to(torch.int32)
+    ranks = torch.stack([torch.multinomial(p.float(), cs.QUERY_NNZ, replacement=False,
+                                           generator=gen) for _ in range(16)])
+    q_val = torch.randn((16, cs.QUERY_NNZ), generator=gen, device=dev).abs_()
+    hashed = torch.randint(-(2**31), 2**31, (cs.VOCAB,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    hashed[hashed == -1] = 0
+    for space in ("wordpiece", "hashed"):
+        to_id = perm if space == "wordpiece" else hashed[perm.long()]
+        ids, vals = cs._zipf_sparse_corpus(gen, dev, to_id, cdf)
+        q_idx, order = cs.unsigned_sort(to_id[ranks], 1)
+        qv = torch.gather(q_val, 1, order)
+        idx_t, val_t = ids.T.contiguous(), vals.T.contiguous()
+        del ids, vals
+        for n_q in (1, 16):
+            qi, qq = q_idx[:n_q].contiguous(), qv[:n_q].contiguous()
+            for k in (10, 1000):
+                key = f"sparse_{space}_q{n_q}_k{k}"
+                out[key] = tuple(t.cpu() for t in tsp.fused_sparse_keys_batch(qi, qq, idx_t,
+                                                                               val_t, k))
+                times[f"{key}_ms"] = median_ms(
+                    lambda: tsp.fused_sparse_keys_batch(qi, qq, idx_t, val_t, k))
+        del idx_t, val_t
+        torch.cuda.empty_cache()
+
+
+def turn(root: str, tag: str, outdir: str, parts: str = "knn,maxsim,sparse") -> None:
     sys.path.insert(0, str(Path(root).resolve()))
+    sys.path.append(str(Path(__file__).resolve().parent.parent))  # chip_smoke's cells
     import torch
 
     import innr_tpu_torch as itt
@@ -80,9 +146,25 @@ def turn(root: str, tag: str, outdir: str) -> None:
 
     Path(outdir).mkdir(parents=True, exist_ok=True)
     dev = torch.device("cuda", 0)
+    out, times = {}, {}
+    if "maxsim" in parts.split(","):
+        maxsim_part(out, times, dev)
+    if "sparse" in parts.split(","):
+        sparse_part(out, times, dev)
+    if "knn" in parts.split(","):
+        knn_part(itt, tk, out, times, dev)
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    torch.save({"out": out, "times": times, "gpu": gpu, "root": root},
+               Path(outdir) / f"{tag}.pt")
+    print(json.dumps({"tag": tag, "gpu": gpu, **times}), flush=True)
+
+
+def knn_part(itt, tk, out: dict, times: dict, dev) -> None:
+    import torch
+
     gen = torch.Generator(device=dev).manual_seed(SEED)
     qs = torch.randn((32, 128), generator=gen, device=dev)
-    out, times = {}, {}
     for name, n, dtype in (("f32", 10_000_000, torch.float32),
                            ("bf16", 20_000_000, torch.bfloat16)):
         rows = gaussian(gen, n, dtype, dev)
@@ -106,11 +188,6 @@ def turn(root: str, tag: str, outdir: str) -> None:
     res = itt.batch_knn_dot(qc, vb, 10, prune=True)
     out["prune_f32_dot"] = (torch.as_tensor(res.scores), torch.as_tensor(res.indices))
     times["prune_f32_dot_ms"] = median_ms(lambda: itt.batch_knn_dot(qc, vb, 10, prune=True))
-    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    torch.save({"out": out, "times": times, "gpu": gpu, "root": root},
-               Path(outdir) / f"{tag}.pt")
-    print(json.dumps({"tag": tag, "gpu": gpu, **times}), flush=True)
 
 
 def compare(outdir: str) -> int:
@@ -135,4 +212,4 @@ def compare(outdir: str) -> int:
 if __name__ == "__main__":
     if sys.argv[1] == "--compare":
         sys.exit(compare(sys.argv[2]))
-    turn(*sys.argv[1:4])
+    turn(*sys.argv[1:5])

@@ -64,7 +64,7 @@ def test_sources_ship_with_the_package():
         "assign.cu", "knn.cu", "maxsim.cu", "maxsim_bf16.cu", "packed.cu", "packed_knn.cu",
         "pruned.cu", "slot_knn.cu", "sparse_knn.cu"]
     assert sorted(p.name for p in (PKG / "csrc").glob("*.cuh")) == [
-        "mma.cuh", "packed.cuh", "row_scan.cuh", "topk.cuh", "vec.cuh"]
+        "maxsim_tokens.cuh", "mma.cuh", "packed.cuh", "row_scan.cuh", "topk.cuh", "vec.cuh"]
     text = (ROOT / "pyproject.toml").read_text()
     assert 'innr_tpu_torch = ["csrc/*.cu", "csrc/*.cuh"]' in text
     assert 'include = ["innr_tpu*"]' in text  # picks up innr_tpu_torch too

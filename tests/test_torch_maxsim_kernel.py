@@ -255,19 +255,34 @@ class TestPlainVersion:
     @pytest.mark.parametrize("n_b,tq,d", [(1, 1, 1), (1, 32, 128), (16, 32, 128), (17, 7, 96),
                                            (3, 33, 130), (1, 200, 128), (2, 129, 64)])
     def test_tiling_fits_and_holds_whole_queries(self, n_b, tq, d):
-        r, qpt, tt, warps = tmk._tiling(n_b, tq, d)
-        assert r in (1, 2, 4) and 1 <= warps <= 8 and tt % (32 * r) == 0
-        assert 1 <= qpt <= n_b and qpt * tq <= tt
-        d4 = -(-d // 4) * 4
-        assert 4 * (d4 * tt + warps * (8 * d4 + tt)) <= SMEM_LIMIT
+        for td in (1, 180, 5000):
+            qpt, mt, tpw, ts, seg, ctas, kb = tmk._tiling(n_b, tq, td, d)
+            assert 1 <= qpt <= n_b and qpt * tq <= mt and mt % 64 == 0 and mt <= max(256, tq + 63)
+            assert tpw in (1, 2) and kb % 8 == 0 and ts % 8 == 0
+            assert 8 <= ts <= round_up(seg, 8) and seg == min(td, 1024)
+            assert ts < 64 or ts % 64 == 0 or ts == round_up(seg, 8)
+            assert ctas in (1, 2) and (ctas == 1 or (tpw == 1 and kb == 0))
+            assert tmk._f32_smem(mt, ts, d, tpw, kb, seg) <= SMEM_LIMIT // ctas
 
     def test_tiling_b16_reads_the_corpus_four_times(self):
-        r, qpt, tt, warps = tmk._tiling(16, 32, 128)
-        assert (r, qpt, tt, warps) == (4, 4, 128, 8)
+        """Named for the FMA kernel's four reads; the tensor-core kernel
+        holds 256 query tokens, so B = 16 at Tq = 32 is two tiles: two
+        corpus reads, items of one 64-token chunk; Q = 1 is one row tile,
+        two CTAs per SM."""
+        qpt, mt, tpw, ts, seg, ctas, kb = tmk._tiling(16, 32, 180, 128)
+        assert (qpt, mt, tpw, ts, seg, ctas, kb) == (8, 256, 2, 64, 180, 1, 0)
+        assert -(-16 // qpt) == 2
+        assert tmk._tiling(1, 32, 180, 128)[2:6] == (1, 64, 180, 2)
 
     def test_tiling_raises_when_nothing_fits(self):
         with pytest.raises(ContractError, match="shared memory"):
-            tmk._tiling(1, 1, 8192)
+            tmk._tiling(1, 1, 8, 200_000)
+
+    def test_tiling_stages_a_wide_tile_per_block(self):
+        """D = 1024 leaves no room for a resident tile: it is staged per
+        pass in blocks of 128 dimensions."""
+        assert tmk._tiling(1, 32, 60, 1024)[6] == 128
+        assert tmk._tiling(1, 32, 180, 128)[6] == 0
 
     @pytest.mark.parametrize("n_b,tq,td,d", [(1, 1, 1, 1), (16, 32, 180, 128), (17, 33, 180, 130),
                                              (1, 33, 5, 96), (17, 1, 180, 128), (2, 300, 12, 64),
