@@ -22,11 +22,16 @@ and imports nothing of JAX. Phases:
                 D in {1, 127, 768}, k in {1, 10, cap + 3} (the last runs two
                 passes), N not a multiple of the slab size, with planted NaN,
                 +-inf and -0.0 rows. Cosine (unit queries) is held to 1e-5;
-              - the packed kNN scan and the per-row packed scores, binary and
-                ternary, on words drawn over all 32 bits (the sign bit of
-                the int32 view included), disjoint ternary planes and planted
-                duplicate rows (ties go to the lowest row), Q in
-                {1, 5, 16, 33}, D in {1, 77, 768} bits, k in {1, 10, cap + 3};
+              - the packed kNN scan (b1 tensor cores) and the per-row packed
+                scores, binary and ternary (disjoint and overlapping planes),
+                on words drawn over all 32 bits (the sign bit of the int32
+                view included), planted duplicate, all-zero and all-ones rows
+                (ties go to the lowest row), N = 1 and 0 mod 4 (word and
+                16-byte loads), Q in {1, 5, 16, 32, 33, 64} (query tiles 8
+                to 64), D in {1, 77, 288, 768, 2048} bits, k in {1, 10, cap,
+                cap + 3} (the last resumes after an exclusion bound); then
+                queries too wide to stay resident (W = 8000 binary, 4000
+                ternary), staged per item;
               - the tile scan (knn_scan over a survivor tile list) in all six
                 modes, f32 and bf16, D in {127, 128}, Q in {1, 5, 32}, k in
                 {1, 10, cap + 3}, tile heights {128, 200, 4736} (N ragged),
@@ -139,7 +144,9 @@ and imports nothing of JAX. Phases:
               read_ms / kernel_ms) for f32 10M x 128, bf16 20M x 128 and u8
               1M x 768 (Q=32, k=10) with the pairs K1 re-scored, and f32 at
               Q=1; for each packed kernel at the sizes
-              of 3b (with popcounts per ms); the host time of one
+              of 3b (with word scores per ms), and the packed scan at
+              TwoStageIndex's coarse shape (1M rows, Q=32, k=256, equal to
+              the plain version first); the host time of one
               TwoStageIndex.search_batch of 32 queries, host copy included,
               per coarse kind, and its packed passes; the pruned scan (tile
               kernel, prune=True end to end, plain) against K1's full scan
@@ -160,7 +167,9 @@ and imports nothing of JAX. Phases:
               record's small cell (1 x 32 tokens, 256 x 128 tokens, d=128).
               Every kernel's bound (the least time for its work: the bytes
               over 3.35 TB/s or its operations over the unit's peak, the
-              larger) is printed beside its time.
+              larger; the packed scan's products on the b1 tensor cores at
+              the rate scripts/packed_probe.py measured) is printed beside
+              its time.
 
 Every failed check raises, so the exit code is non-zero. The last two lines
 are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -198,9 +207,13 @@ N_MAXSIM, MAXSIM_TD, MAXSIM_D, MAXSIM_TQ = 200_000, 180, 128, 32
 # per-SM throughput for compute capability 9.0 at the clock the FP32 peak
 # implies (256 FP32 flops per clock per SM on 132 SMs: 1.98 GHz): INT32
 # add / compare 64 per clock per SM, popcount 16, shared-memory loads 32.
+# NVIDIA publishes no b1 (1-bit AND + popcount) tensor-core rate for the
+# H100: "b1" is the rate scripts/packed_probe.py measured on an H100 80GB
+# HBM3 at 700 W, in bit products (m x n x k) per second: wgmma m64n128k256
+# b1 7.81e15 (mma.sync m16n8k256, which the packed scan issues, 5.11e15).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"fp32": 67e12, "bf16": 989e12, "tf32": 495e12, "int32": 67e12 / 4,
-                  "popc": 67e12 / 16, "shared": 67e12 / 8}
+                  "popc": 67e12 / 16, "shared": 67e12 / 8, "b1": 7.81e15}
 
 
 def log(msg: str) -> None:
@@ -416,13 +429,15 @@ def words(gen, shape, dev):
     return torch.randint(-(2**31), 2**31, shape, generator=gen, device=dev, dtype=torch.int32)
 
 
-def planes(gen, kind: str, shape, dev) -> tuple:
-    """One plane of random words (binary) or two disjoint planes (ternary)."""
+def planes(gen, kind: str, shape, dev, overlap: bool = False) -> tuple:
+    """One plane of random words (binary) or two ternary planes: disjoint,
+    or with ``overlap`` drawn independently (a position may be in both, as
+    raw planes can be; the kernel and the plain version score them alike)."""
     a = words(gen, shape, dev)
     if kind == "binary":
         return (a,)
     b = words(gen, shape, dev)
-    return (a & b, a & ~b)
+    return (a, b) if overlap else (a & b, a & ~b)
 
 
 def phase_exact_packed(dev) -> int:
@@ -434,28 +449,51 @@ def phase_exact_packed(dev) -> int:
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     cap = tk.single_pass_k(1)
-    n = 3 * 1024 + 77
     checks = 0
-    for kind in ("binary", "ternary"):
-        for d in (1, 77, 768):
-            w = -(-d // 32)
-            rows = planes(gen, kind, (n, w), dev)
-            for p in rows:  # copies of row 5: ties must go to the lowest row
-                p[[100, 2000, n - 1]] = p[5].clone()
-            rows_t = tuple(p.T.contiguous() for p in rows)
-            for n_q in (1, 5, 16, 33):
-                qs = planes(gen, kind, (n_q, w), dev)
-                for q, p in zip(qs, rows):  # query 0 is row 5: its copies tie
-                    q[0] = p[5]
-                for k in (1, 10, cap + 3):
-                    expect_equal(f"exact packed_scan<{kind}> d={d} q={n_q} k={k}",
-                                 tp.fused_packed_keys_batch(qs, rows_t, k),
-                                 tp.packed_knn_plain(qs, rows_t, k))
-                    checks += 1
-            q1 = tuple(q[0] for q in planes(gen, kind, (1, w), dev))
-            if not torch.equal(th.packed_rows(q1, rows), th.hamming_rows_plain(q1, rows)):
-                raise AssertionError(f"exact packed_rows<{kind}> d={d}: kernel != plain")
-            checks += 1
+
+    def check(kind, rows_t, qs, k, what) -> None:
+        expect_equal(f"exact packed_scan<{kind}> {what} k={k}",
+                     tp.fused_packed_keys_batch(qs, rows_t, k),
+                     tp.packed_knn_plain(qs, rows_t, k))
+
+    # n % 4 == 1: the scan loads words one by one; n % 4 == 0: 16-byte loads.
+    for n in (3 * 1024 + 77, 3 * 1024 + 76):
+        for kind, overlap in (("binary", False), ("ternary", False), ("ternary", True)):
+            for d in (1, 77, 288, 768, 2048):
+                w = -(-d // 32)
+                rows = planes(gen, kind, (n, w), dev, overlap)
+                for p in rows:  # copies of row 5: ties must go to the lowest row
+                    p[[100, 2000, n - 1]] = p[5].clone()
+                    p[[7, 3000]] = 0   # all-zero rows
+                    p[[11, 2999]] = -1  # all-ones rows (both planes: overlapping)
+                rows_t = tuple(p.T.contiguous() for p in rows)
+                for n_q in (1, 5, 16, 32, 33, 64):
+                    qs = planes(gen, kind, (n_q, w), dev, overlap)
+                    for q, p in zip(qs, rows):  # query 0 is row 5: its copies tie
+                        q[0] = p[5]
+                        if n_q > 2:
+                            q[1] = -1  # an all-ones query
+                    for k in (1, 10, cap, cap + 3):
+                        check(f"{kind}{' overlap' if overlap else ''}", rows_t, qs, k,
+                              f"n={n} d={d} q={n_q}")
+                        checks += 1
+                q1 = tuple(q[0] for q in planes(gen, kind, (1, w), dev, overlap))
+                if not torch.equal(th.packed_rows(q1, rows), th.hamming_rows_plain(q1, rows)):
+                    raise AssertionError(f"exact packed_rows<{kind}> d={d}: kernel != plain")
+                checks += 1
+    # Queries too wide to stay resident in shared memory: staged per item.
+    n = 3 * 1024 + 76
+    for kind, w in (("binary", 8000), ("ternary", 4000)):
+        rows_t = tuple(p.T.contiguous() for p in planes(gen, kind, (n, w), dev, True))
+        for n_q in (5, 64):
+            tl = tp.tiling(n_q, w, 10, len(rows_t))
+            if tl.resident:
+                raise AssertionError(f"packed_scan<{kind}> W={w}: expected staged queries")
+            qs = planes(gen, kind, (n_q, w), dev, True)
+            for k in (10, cap + 3):
+                check(kind, rows_t, qs, k, f"W={w} (staged queries) q={n_q}")
+                checks += 1
+        del rows_t
     torch.cuda.synchronize()
     log(f"[exact] {checks} packed kernel-vs-plain checks agree bit for bit")
     return checks
@@ -1528,11 +1566,12 @@ def _assign_check(name: str, rows, cent, got, want) -> float:
 
 def _timed(name: str, kernel, plain, read, pops: int, b: tuple) -> tuple:
     """Kernel, plain and same-bytes read medians; logs the roofline fraction,
-    popcounts per ms (``pops`` popcounts per call) and the bound ``b``."""
+    word scores per ms (``pops`` words of a row scored against a query per
+    call) and the bound ``b``."""
     k_ms, p_ms, r_ms = _median_ms(kernel), _median_ms(plain), _median_ms(read)
     log(f"[timing] {name}: kernel {k_ms!r} ms, plain {p_ms!r} ms, same-bytes read "
         f"{r_ms!r} ms, roofline fraction (read/kernel) {r_ms / k_ms!r}, "
-        f"popcounts per ms {pops / k_ms!r}, {bound_text(b)}")
+        f"word scores per ms {pops / k_ms!r}, {bound_text(b)}")
     return k_ms, p_ms, r_ms
 
 
@@ -1551,6 +1590,7 @@ def phase_packed(dev, bounds: dict) -> tuple[dict, dict, dict]:
 
     import innr_tpu_torch as itt
     from innr_tpu_torch.kernels import hamming as th
+    from innr_tpu_torch.kernels import knn as tk
     from innr_tpu_torch.kernels import packed_knn as tp
     from innr_tpu_torch.ops.binary import binary_knn_batch
     from innr_tpu_torch.ops.ternary import ternary_knn_batch
@@ -1619,8 +1659,11 @@ def phase_packed(dev, bounds: dict) -> tuple[dict, dict, dict]:
 
     def scan_bound(n, planes, n_q, k):
         """Word planes read once, queries read, (Q, k) keys and rows written;
-        one popcount per word, plane and query (the scarcest unit)."""
-        return bound(4 * w * planes * (n + n_q) + 8 * n_q * k, popc=n * w * planes * n_q)
+        the products on the b1 tensor cores: 32 W bits per row and query,
+        plus popc(x) as one more column (binary), or both planes against
+        both query planes (ternary)."""
+        cols = n_q + 1 if planes == 1 else 4 * n_q
+        return bound(4 * w * planes * (n + n_q) + 8 * n_q * k, b1=n * 32 * w * cols)
 
     def rows_bound(n, planes):
         return bound(4 * w * planes * (n + 1) + 4 * n, popc=n * w * planes)
@@ -1629,7 +1672,7 @@ def phase_packed(dev, bounds: dict) -> tuple[dict, dict, dict]:
     bounds["packed_scan<ternary>"] = scan_bound(15_000_000, 2, n_q, k)
     bounds["packed_rows<binary>"] = rows_bound(30_000_000, 1)
     bounds["packed_rows<ternary>"] = rows_bound(15_000_000, 2)
-    scan_pops = 30_000_000 * w * n_q  # ternary: 2 popcounts a word over half the rows
+    scan_pops = 30_000_000 * w * n_q  # ternary: 2 words a row over half the rows
     times["packed_scan<binary>"] = _timed(
         f"packed_scan<binary> 30M x {d} bits, Q={n_q}, k={k}",
         lambda: tp.fused_packed_keys_batch((qb,), (bb.words_t,), k),
@@ -1650,6 +1693,22 @@ def phase_packed(dev, bounds: dict) -> tuple[dict, dict, dict]:
            lambda: tp.packed_knn_plain((qtp[:1], qtn[:1]), (tb1.pos_t, tb1.neg_t), k1),
            lambda: tb1.pos_t.view(torch.float32).sum() + tb1.neg_t.view(torch.float32).sum(),
            2 * n1 * w, scan_bound(n1, 2, 1, k1))
+    # TwoStageIndex's coarse shape (3 of the 5 launches per kind on the main
+    # paths): 32 queries, k = 256 a pass, over the 1M-row corpora.
+    (qb32,), (qtp32, qtn32) = planes(gen, "binary", (32, w), dev), planes(gen, "ternary", (32, w),
+                                                                           dev)
+    kc = tk.single_pass_k(32)
+    for name, qs, rows_t, n_planes in (
+            ("binary", (qb32,), (bb1.words_t,), 1),
+            ("ternary", (qtp32, qtn32), (tb1.pos_t, tb1.neg_t), 2)):
+        same(f"packed_scan<{name}> 1M Q=32 k={kc}", tp.fused_packed_keys_batch(qs, rows_t, kc),
+             tp.packed_knn_plain(qs, rows_t, kc))
+        _timed(f"packed_scan<{name}> 1M x {d}{' bits' if n_planes == 1 else ''}, Q=32, k={kc} "
+               f"(TwoStageIndex's coarse shape)",
+               lambda: tp.fused_packed_keys_batch(qs, rows_t, kc),
+               lambda: tp.packed_knn_plain(qs, rows_t, kc),
+               lambda: sum(p.view(torch.float32).sum() for p in rows_t),
+               n_planes * n1 * w * 32, scan_bound(n1, n_planes, 32, kc))
     times["packed_rows<binary>"] = _timed(
         f"packed_rows<binary> 30M x {d} bits",
         lambda: th.packed_rows((qb[0],), (bb.words,)),

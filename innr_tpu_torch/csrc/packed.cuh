@@ -1,4 +1,5 @@
-// Packed-word scoring shared by the packed scans (packed.cu, packed_knn.cu).
+// Packed-word scoring of the per-row scan (packed.cu); the kind constants
+// are shared with the kNN scan (packed_knn.cu).
 //
 // Binary vectors are uint32 words, bit i % 32 of word i / 32. Ternary
 // vectors are two such planes: pos (value +1) and neg (value -1), never both.

@@ -1,5 +1,5 @@
-// The parts of a one-row-per-thread top-k scan, shared by packed_scan
-// (packed_knn.cu), slot_scan (slot_knn.cu) and sparse_scan (sparse_knn.cu):
+// The parts of a one-row-per-thread top-k scan, shared by slot_scan
+// (slot_knn.cu) and sparse_scan (sparse_knn.cu):
 // the CTA's shared-memory top-k buffers, the offer of a tile's keys to
 // them, the fold of a query's buffers into one, the write of the slab's
 // partial top k for knn_merge (knn.cu), and the load of a tile's query

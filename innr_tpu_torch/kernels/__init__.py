@@ -18,9 +18,9 @@ launches the kernel or raises — never a silent fallback.
   ``csrc/sparse_knn.cu``);
 - :mod:`~innr_tpu_torch.kernels.maxsim_kernel` — MaxSim scores of a query
   batch over multi-vector documents (``csrc/maxsim.cu``);
-- :mod:`~innr_tpu_torch.kernels.row_scan` — the query tile of the three
-  one-row-per-thread scans (``packed_scan``, ``slot_scan``,
-  ``sparse_scan``), which share ``csrc/row_scan.cuh``.
+- :mod:`~innr_tpu_torch.kernels.row_scan` — the query tile of the two
+  one-row-per-thread scans (``slot_scan``, ``sparse_scan``), which share
+  ``csrc/row_scan.cuh``.
 
 Sources are compiled at first use by :mod:`innr_tpu_torch.kernels._build`;
 importing this package needs neither a GPU nor nvcc.

@@ -124,9 +124,12 @@ def load() -> ctypes.CDLL:
         ]
         lib.innr_nearest_centroid.restype = i32
         lib.innr_packed_scan.argtypes = [
-            i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, i32, ptr,
+            i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, i32, i32,
+            ptr,
         ]
         lib.innr_packed_scan.restype = i32
+        lib.innr_packed_grid.argtypes = [i32, i32, i32, i32, i32, ptr]
+        lib.innr_packed_grid.restype = i32
         lib.innr_packed_rows.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i64, i32, ptr]
         lib.innr_packed_rows.restype = i32
         lib.innr_slot_scan.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, i32, ptr]

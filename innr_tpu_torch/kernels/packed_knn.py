@@ -4,8 +4,15 @@ Replaces the TPU kernels of ``innr_tpu/kernels/packed_knn.py``:
 ``_binary_kernel`` / ``_binary_kernel_mq`` (the k smallest XOR-popcount
 counts) and ``_ternary_kernel`` / ``_ternary_kernel_mq`` (the k largest
 ternary dots), for one query or a batch. The kernel is
-``csrc/packed_knn.cu`` (``packed_scan``, then ``knn_merge`` from
-``csrc/knn.cu``); its source note says what bounds it on the H100.
+``csrc/packed_knn.cu``: ``packed_scan`` computes every (row, query) count
+on the b1 tensor cores (``mma.sync ... b1.and.popc``: Hamming as
+``popc(x) + popc(q) - 2 popc(x & q)``, the ternary dot as two sums over
+both planes), exact in int32, and offers a pair to the CTA's top-k only
+if its key reaches the query's threshold; ``packed_merge`` then selects
+from the slabs' partial lists only the keys that reach the best k-th key
+any CTA published. Its source note says what bounds it on the H100: the
+corpus read. :func:`tiling` picks the query tile (8, 16, 32 or 64 queries
+per CTA) and the shared-memory layout.
 
 The corpus is word-major, ``(W, N)`` int32 planes, the JAX package's cached
 transpose (``PackedBinaryBatch.words_t``): word w of neighbouring rows is
@@ -26,6 +33,10 @@ or :func:`innr_tpu_torch.config.force_reference`, runs the plain version.
 
 from __future__ import annotations
 
+import ctypes
+from contextlib import nullcontext
+from typing import NamedTuple
+
 import torch
 
 from innr_tpu_torch import config
@@ -39,7 +50,18 @@ from innr_tpu_torch.utils.order import composite_keys, split_composite
 # corpus rows in chunks of this size with a running top-k.
 _PLAIN_CHUNK = 1 << 25
 
-# Kernel passes launched (each pass launches packed_scan, then knn_merge),
+# The scan's geometry (csrc/packed_knn.cu): rows per CTA tile (slabs are
+# whole tiles), k-steps of 256 bits per item, warps per CTA, and the query
+# tiles it is built for.
+ROW_TILE = 128
+CHUNK_STEPS = 3
+_WARPS = 4
+QUERY_TILES = (8, 16, 32, 64)
+TILE_PAIRS = 4096
+MAX_WORDS = 1 << 24
+_PLANS: dict = {}
+
+# Kernel passes launched (each pass launches packed_scan, then packed_merge),
 # in all and by kind. Incremented only where the kernels launch.
 LAUNCHES = 0
 LAUNCHES_BY_KIND = {"binary": 0, "ternary": 0}
@@ -101,8 +123,95 @@ def packed_knn_plain(queries, planes_t, k: int, excl=None):
     return split_composite(_plain_top(queries, planes_t, k, bound))
 
 
-def _scan_pass(queries, planes_t, k: int, bound) -> torch.Tensor:
-    """One kernel pass (packed_scan + knn_merge): (Q, k) int64 composites."""
+class Tiling(NamedTuple):
+    """The scan's shape for one pass: queries per CTA, k-steps of 256 bits
+    per plane (``ceil(W / 8)``), shared-memory bytes per CTA, and whether
+    every k-step of the queries is resident (else staged per item)."""
+
+    query_tile: int
+    steps: int
+    smem: int
+    resident: bool
+
+
+def _align16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def smem_bytes(planes: int, query_tile: int, w: int, k: int, resident: bool) -> int:
+    """Shared-memory bytes of one CTA (``make_layout`` in
+    ``csrc/packed_knn.cu``): the (tile, k) int64 buffers, each query's pool
+    of a row tile's admitted composites, each warp's merge output, the
+    exclusion bounds, the queries' B fragments (all k-steps, or one item's),
+    the gate, popc(q), the pool counts and counters."""
+    steps = -(-w // 8)
+    at = _align16(8 * query_tile * k)
+    at = _align16(at + 8 * query_tile * 2 * ROW_TILE)
+    at = _align16(at + 8 * _WARPS * k)
+    at = _align16(at + 8 * query_tile)
+    at = _align16(at + 32 * planes * (steps if resident else CHUNK_STEPS) * query_tile)
+    at = _align16(at + 8 * query_tile)
+    at = _align16(at + 4 * query_tile)
+    at = _align16(at + 4 * query_tile)
+    return at + 16
+
+
+def tiling(n_q: int, w: int, k: int, planes: int, op: str = "packed_scan") -> Tiling:
+    """The smallest query tile of :data:`QUERY_TILES` that holds
+    ``min(n_q, 64)``, halved while it holds more than :data:`TILE_PAIRS`
+    top-k slots (tile x k: each warp merges the admitted pairs of a quarter
+    of the tile's queries in turn, so at large k narrower tiles, more CTAs
+    and more corpus reads finish sooner) and while it does not fit in
+    shared memory; the queries resident when they fit, else staged per
+    item. Raises :class:`ContractError` naming the limit when even 8
+    queries do not fit, or when W reaches :data:`MAX_WORDS` (the int32
+    keys and their gate need 32 W < 2^30)."""
+    if w >= MAX_WORDS:
+        raise ContractError(f"innr_tpu_torch::{op}: {w} words a row; the scan takes fewer than "
+                            f"{MAX_WORDS}")
+    tile = QUERY_TILES[0]
+    while tile < QUERY_TILES[-1] and tile < n_q:
+        tile *= 2
+    while tile > QUERY_TILES[0] and tile * k > TILE_PAIRS:
+        tile //= 2
+    steps = -(-w // 8)
+    while True:
+        for resident in (True, False):
+            smem = smem_bytes(planes, tile, w, k, resident)
+            if smem <= row_scan.SMEM_LIMIT:
+                return Tiling(tile, steps, smem, resident)
+        if tile == QUERY_TILES[0]:
+            raise ContractError(
+                f"innr_tpu_torch::{op}: k={k} needs {smem} bytes of shared memory for a tile "
+                f"of {tile} queries; a CTA has at most {row_scan.SMEM_LIMIT}")
+        tile //= 2
+
+
+def _plan(lib, binary: bool, n_q: int, w: int, n: int, k: int, dev) -> tuple:
+    """``(tiling, slab_rows, n_slabs)`` of one pass: one wave of the CTAs
+    resident per SM at this shape, as the library plans its launch (its
+    shared-memory bytes checked against :func:`smem_bytes`). Cached per
+    shape."""
+    key = (binary, n_q, w, n, k, dev)
+    if key not in _PLANS:
+        tl = tiling(n_q, w, k, 1 if binary else 2)
+        info = (ctypes.c_int * 2)()
+        with torch.cuda.device(dev):
+            rc = lib.innr_packed_grid(0 if binary else 1, tl.query_tile, w, k,
+                                      int(tl.resident), info)
+        if rc != 0 or info[0] != tl.smem:
+            raise RuntimeError(f"innr_tpu_torch: packed_grid failed (cudaError {rc}); shared "
+                               f"bytes {info[0]}, expected {tl.smem}")
+        slab_rows = _knn._slab_rows(n, -(-n_q // tl.query_tile), k, dev, ROW_TILE,
+                                    max(1, info[1]), 1)
+        _PLANS[key] = (tl, slab_rows, -(-n // slab_rows))
+    return _PLANS[key]
+
+
+def _scan_pass(queries, planes_t, k: int, bound, split: bool = False):
+    """One kernel pass (packed_scan, then packed_merge, in one library
+    call): (Q, k) int64 composites, or with ``split`` the ``(keys, idx)``
+    int32 pair."""
     global LAUNCHES
     from innr_tpu_torch.kernels import _build
 
@@ -110,18 +219,31 @@ def _scan_pass(queries, planes_t, k: int, bound) -> torch.Tensor:
     n_q, w = queries[0].shape
     n = planes_t[0].shape[1]
     binary = len(planes_t) == 1
-    tile = row_scan.row_scan_tile(n_q, k, 4 * len(planes_t) * w, "packed_scan")
-    out = _knn._scan_and_merge(
-        "packed_scan",
-        lambda partial, slab_rows, stream: lib.innr_packed_scan(
-            0 if binary else 1, queries[0].data_ptr(),
-            None if binary else queries[1].data_ptr(), planes_t[0].data_ptr(),
-            None if binary else planes_t[1].data_ptr(), _knn._ptr(bound),
-            partial, n_q, n, w, k, tile, slab_rows, stream),
-        n_q, n, k, tile, row_scan.ROW_TILE, planes_t[0].device)
+    dev = planes_t[0].device
+    tl, slab_rows, n_slabs = _plan(lib, binary, n_q, w, n, k, dev)
+    # One scratch allocation: the slabs' partial lists, the k-th keys, the
+    # composites (without split). Launches go to the current device.
+    n_part, n_kth = n_slabs * n_q * k, -(-n_q // 2)
+    with torch.cuda.device(dev) if dev.index != torch.cuda.current_device() else nullcontext():
+        scratch = torch.empty(n_part + n_kth + (0 if split else n_q * k), dtype=torch.int64,
+                              device=dev)
+        base = scratch.data_ptr()
+        if split:
+            res = torch.empty((2, n_q, k), dtype=torch.int32, device=dev)
+            outs = (None, res.data_ptr(), res.data_ptr() + 4 * n_q * k)
+        else:
+            res = scratch[n_part + n_kth:].view(n_q, k)
+            outs = (res.data_ptr(), None, None)
+        rc = lib.innr_packed_scan(
+            0 if binary else 1, queries[0].data_ptr(), None if binary else queries[1].data_ptr(),
+            planes_t[0].data_ptr(), None if binary else planes_t[1].data_ptr(), _knn._ptr(bound),
+            base + 8 * n_part, base, *outs, n_q, n, w, k, tl.query_tile, int(tl.resident),
+            slab_rows, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"innr_tpu_torch: packed_scan launch failed, cudaError {rc}")
     LAUNCHES += 1
     LAUNCHES_BY_KIND["binary" if binary else "ternary"] += 1
-    return out
+    return (res[0], res[1]) if split else res
 
 
 def fused_packed_keys_batch(queries, planes_t, k: int):
@@ -129,16 +251,17 @@ def fused_packed_keys_batch(queries, planes_t, k: int):
     better) and int32 row indices, both (Q, k), for any k in [1, N]."""
     queries, planes_t = _check(queries, planes_t, k, "fused_packed_keys_batch")
     dev = planes_t[0].device
+    cap = _knn.single_pass_k(queries[0].shape[0])
     if dev.type == "cpu" or config.reference_forced():
         run_pass = _plain_top
     elif dev.type == "cuda":
+        if k <= cap:  # one pass: the merge writes keys and rows itself
+            return _scan_pass(queries, planes_t, k, None, split=True)
         run_pass = _scan_pass
     else:
         raise ContractError(f"innr_tpu_torch::packed_knn: unsupported device {dev}")
-    comp = _knn._multi_pass(
-        lambda pass_k, bound: run_pass(queries, planes_t, pass_k, bound),
-        k, _knn.single_pass_k(queries[0].shape[0]),
-    )
+    comp = _knn._multi_pass(lambda pass_k, bound: run_pass(queries, planes_t, pass_k, bound),
+                            k, cap)
     return split_composite(comp)
 
 

@@ -23,7 +23,13 @@ results and times (CUDA events, median of 5) of the parts named in PARTS
 - ``sparse``: the sparse scan's raw top-k (``kernels.sparse_knn.
   fused_sparse_keys_batch``) over ``chip_smoke.py``'s two 10M x 32 sparse
   corpora (WordPiece and hashed 32-bit ids) at Q in {1, 16}, k in {10,
-  1000}. Run the turns as parent, this, this, parent in one call, so that
+  1000};
+- ``packed``: the packed scan's raw top-k (``kernels.packed_knn.
+  fused_packed_keys_batch``) over a binary 30M x 768-bit corpus and a
+  ternary 15M x 768 one (random words over all 32 bits, disjoint planes, as
+  ``chip_smoke.py`` draws them, made word-major) at Q in {1, 16, 32}, k in
+  {10, 640} (640: three passes, the second and third after an exclusion
+  bound). Run the turns as parent, this, this, parent in one call, so that
 both trees meet the same card. ``--compare`` holds every turn's results to
 the first turn's, bit for bit, and prints one JSON object of the times.
 """
@@ -136,7 +142,28 @@ def sparse_part(out: dict, times: dict, dev) -> None:
         torch.cuda.empty_cache()
 
 
-def turn(root: str, tag: str, outdir: str, parts: str = "knn,maxsim,sparse") -> None:
+def packed_part(out: dict, times: dict, dev) -> None:
+    import torch
+
+    import chip_smoke as cs
+    from innr_tpu_torch.kernels import packed_knn as tp
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    w = 24
+    for kind, n in (("binary", 30_000_000), ("ternary", 15_000_000)):
+        planes_t = cs.planes(gen, kind, (w, n), dev)
+        queries = cs.planes(gen, kind, (32, w), dev)
+        for n_q in (1, 16, 32):
+            qs = tuple(q[:n_q].contiguous() for q in queries)
+            for k in (10, 640):
+                key = f"packed_{kind}_q{n_q}_k{k}"
+                out[key] = tuple(t.cpu() for t in tp.fused_packed_keys_batch(qs, planes_t, k))
+                times[f"{key}_ms"] = median_ms(lambda: tp.fused_packed_keys_batch(qs, planes_t, k))
+        del planes_t
+        torch.cuda.empty_cache()
+
+
+def turn(root: str, tag: str, outdir: str, parts: str = "knn,maxsim,sparse,packed") -> None:
     sys.path.insert(0, str(Path(root).resolve()))
     sys.path.append(str(Path(__file__).resolve().parent.parent))  # chip_smoke's cells
     import torch
@@ -153,6 +180,8 @@ def turn(root: str, tag: str, outdir: str, parts: str = "knn,maxsim,sparse") -> 
         sparse_part(out, times, dev)
     if "knn" in parts.split(","):
         knn_part(itt, tk, out, times, dev)
+    if "packed" in parts.split(","):
+        packed_part(out, times, dev)
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     torch.save({"out": out, "times": times, "gpu": gpu, "root": root},

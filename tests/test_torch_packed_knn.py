@@ -250,6 +250,23 @@ class TestKernelsOnCuda:
         assert all(torch.equal(x, y) for x, y in zip(got, want))
 
     @pytest.mark.parametrize("kind", ["binary", "ternary"])
+    @pytest.mark.parametrize("w", [9, 64])
+    @pytest.mark.parametrize("n_q,k", [(32, 10), (64, 256)])
+    def test_scan_wide_tiles_and_overlapping_planes(self, cuda_device, kind, w, n_q, k):
+        """Query tiles of 32 and 64, ragged and multi-chunk words, ternary
+        planes that share positions, rows 3077 (the 4-word loads' tail)."""
+        gen = torch.Generator(device=cuda_device).manual_seed(9)
+        n_planes = 1 if kind == "binary" else 2
+        planes = tuple(_device_words(gen, (w, 3077), cuda_device) for _ in range(n_planes))
+        qs = tuple(_device_words(gen, (n_q, w), cuda_device) for _ in range(n_planes))
+        for p, q in zip(planes, qs):
+            p[:, 100:140] = p[:, 5:6]  # duplicate rows tie
+            q[0] = p[:, 5]
+        got = tpk.fused_packed_keys_batch(qs, planes, k)
+        want = tpk.packed_knn_plain(qs, planes, k)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+    @pytest.mark.parametrize("kind", ["binary", "ternary"])
     @pytest.mark.parametrize("w", [3, 24])
     def test_rows_match_plain_exactly(self, cuda_device, kind, w):
         gen = torch.Generator(device=cuda_device).manual_seed(8)
