@@ -14,8 +14,8 @@ and imports nothing of JAX. Phases:
               power limit, and ptxas' register / spill report.
 2. exact    — every kernel against its plain PyTorch version on the same
               device tensors, bit for bit (NaN payloads canonicalised):
-              - the kNN kernel (f32 and bf16: tensor-core scores, an
-                exact re-score within a proven margin; u8: FP32 FMAs) on
+              - the kNN kernel (tensor-core scores, an exact re-score
+                within a proven margin) on
                 integer-valued data (every dot and L2 score
                 is then exact, so keys and indices must agree, ties
                 included) for every mode and corpus dtype, Q in {1, 5, 32},
@@ -43,10 +43,12 @@ and imports nothing of JAX. Phases:
                 arithmetic its products cannot represent: f32 rows of odd
                 integers in [2049, 4095] (TF32 drops the low bit), bf16
                 rows +-2^e (1 + j/16) whose near ties only the tensor
-                core's accumulation separates, planted duplicates and
-                near ties, integer queries; six modes, D in {1, 127, 128,
-                768}, Q in {1, 5, 32, 67}, k in {1, 10, cap + 3}, and 1M
-                rows at D = 128; with the re-scored pairs per query;
+                core's accumulation separates, u8 codes against queries
+                with 18 significant bits (the hi/lo bf16 split drops
+                some), planted duplicates and near ties, integer queries;
+                six modes, D in {1, 127, 128, 768}, Q in {1, 5, 32, 67},
+                k in {1, 10, cap + 3}, and 1M rows at D = 128 (u8: 768);
+                with the re-scored pairs per query;
               - the nearest-centroid pass, f32 / bf16 / u8 rows, D in
                 {7, 128, 300}, KC in {1, 3, 256, 2049, 16896}, with exact
                 ties and an all-NaN row; and its tensor-core shortlist on
@@ -141,9 +143,10 @@ and imports nothing of JAX. Phases:
                  planted document first.
 4. timing   — kernel, plain version and a same-bytes ``torch.sum`` read
               (CUDA events, median of 7 after warm-up; roofline fraction =
-              read_ms / kernel_ms) for f32 10M x 128, bf16 20M x 128 and u8
-              1M x 768 (Q=32, k=10) with the pairs K1 re-scored, and f32 at
-              Q=1; for each packed kernel at the sizes
+              read_ms / kernel_ms; share = bound / kernel) for f32 10M x
+              128, bf16 20M x 128 and u8 1M x 768 (Q=32, k=10) with the
+              pairs K1 re-scored, f32 and u8 at Q=1, and u8 4M x 768 at
+              Q=32 and Q=1; for each packed kernel at the sizes
               of 3b (with word scores per ms), and the packed scan at
               TwoStageIndex's coarse shape (1M rows, Q=32, k=256, equal to
               the plain version first); the host time of one
@@ -372,9 +375,8 @@ def phase_exact(dev) -> int:
     cap = tk.single_pass_k(1)
     n = 3 * 1024 + 77
     checks = 0
+    modes = ("dot", "l2", "cosine", "dotm", "l2m", "cosinem")
     for dtype in (torch.float32, torch.bfloat16, torch.uint8):
-        modes = ("dot",) if dtype == torch.uint8 else (
-            "dot", "l2", "cosine", "dotm", "l2m", "cosinem")
         for d in (1, 127, 768):
             rows = _int_corpus(gen, n, d, dtype, dev)
             norms2 = tk._norms2(rows)
@@ -690,12 +692,18 @@ def phase_exact_tc(dev) -> int:
     +-2^e (1 + j/16), e in [-2, 1], with the same duplicates and rows one
     bf16 ulp apart, so the products span 2^-9 to 2^5 and the tensor core's
     accumulation, not the products' rounding, separates near scores; every
-    FP32 sum is still exact. All six modes (integer queries in every mode,
-    cosine too: each score is one rounding of an exact value), D in {1,
-    127, 128, 768}, Q in {1, 5, 32, 67} (67: two query tiles of 64), k in
-    {1, 10, cap + 3}; then 1M rows at D = 128, Q in {1, 32}, k = 10, where
-    the slabs are long enough for the gate to reject. Logs the re-scored
-    pairs (``knn.rescore_stats``)."""
+    FP32 sum is still exact. u8: uniform codes, with codes below 16 in the
+    first four dimensions, against integer queries in [-8, 8] that hold, in
+    one or two of those dimensions, +-v with v odd in [2^17, 2^18): 18
+    significant bits, which the hi/lo bf16 split cannot represent, while
+    every FP32 dot stays an integer below 2^24, exact in any order; rows of
+    codes 0 and 255, duplicates and rows one code apart planted. All six
+    modes (integer queries in every mode, cosine too: each score is one
+    rounding of an exact value), D in {1, 127, 128, 768}, Q in {1, 5, 32,
+    67} (67: two query tiles of 64), k in {1, 10, cap + 3}; then 1M rows at
+    D = 128 (u8: 768), Q in {1, 32}, k = 10, where the slabs are long
+    enough for the gate to reject. Logs the re-scored pairs
+    (``knn.rescore_stats``)."""
     import torch
 
     from innr_tpu_torch.kernels import knn as tk
@@ -708,6 +716,11 @@ def phase_exact_tc(dev) -> int:
     def corpus(n, d, dtype):
         if dtype == torch.float32:
             rows = (2 * torch.randint(1024, 2048, (n, d), generator=gen, device=dev) + 1).float()
+        elif dtype == torch.uint8:
+            rows = torch.randint(0, 256, (n, d), generator=gen, device=dev, dtype=torch.uint8)
+            rows[:, :4] %= 16
+            rows[5], rows[6] = 0, 255
+            rows[6, :4] = 15
         else:
             j = torch.randint(0, 16, (n, d), generator=gen, device=dev)
             e = torch.randint(-2, 2, (n, d), generator=gen, device=dev).float()
@@ -718,6 +731,9 @@ def phase_exact_tc(dev) -> int:
         near = rows[src[32:]].clone()
         if dtype == torch.float32:
             near[:, 0] += 2.0
+        elif dtype == torch.uint8:
+            top = 15 if d <= 4 else 255
+            near[:, -1] = torch.where(near[:, -1] < top, near[:, -1] + 1, near[:, -1] - 1)
         else:
             near.view(torch.int16)[:, 0] += 1
         rows[n // 2 + 32:n // 2 + 64] = near
@@ -728,12 +744,26 @@ def phase_exact_tc(dev) -> int:
             "l2m": torch.stack([norms2, mask]), "cosinem": torch.stack([inv, mask]),
         }
 
+    def u8_queries(n_q, d):
+        """Integers in [-8, 8], and +-v, v odd in [2^17, 2^18), in one or
+        two of the first four dimensions (where the codes are below 16)."""
+        qs = torch.randint(-8, 9, (n_q, d), generator=gen, device=dev).float()
+        for _ in range(min(2, d)):
+            col = torch.randint(0, min(4, d), (n_q,), generator=gen, device=dev)
+            v = 2**17 + 1 + 2 * torch.randint(0, 2**16, (n_q,), generator=gen, device=dev)
+            sign = torch.where(torch.rand(n_q, generator=gen, device=dev) < 0.5, -1, 1)
+            qs[torch.arange(n_q, device=dev), col] = (sign * v).float()
+        return qs
+
     def check(rows, aux_by_mode, queries, ks):
         nonlocal checks
         n, d = rows.shape
         order, n_surv = _plans(gen, -(-n // tile_n), dev)["scattered"]
         for n_q in queries:
-            qs = torch.randint(-8, 9, (n_q, d), generator=gen, device=dev).float()
+            if rows.dtype == torch.uint8:
+                qs = u8_queries(n_q, d)
+            else:
+                qs = torch.randint(-8, 9, (n_q, d), generator=gen, device=dev).float()
             for mode, aux in aux_by_mode.items():
                 for k in ks:
                     name = f"exact TC near ties {rows.dtype} n={n} d={d} q={n_q} {mode} k={k}"
@@ -748,11 +778,11 @@ def phase_exact_tc(dev) -> int:
                         qs, rows, aux, order, n_surv, tile_n, k, mode))
                     checks += 2
 
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.uint8):
         for d in (1, 127, 128, 768):
             rows, aux_by_mode = corpus(3 * 1024 + 77, d, dtype)
             check(rows, aux_by_mode, (1, 5, 32, 67), (1, 10, cap + 3))
-        rows, aux_by_mode = corpus(1_000_000, 128, dtype)
+        rows, aux_by_mode = corpus(1_000_000, 768 if dtype == torch.uint8 else 128, dtype)
         check(rows, aux_by_mode, (1, 32), (10,))
         del rows, aux_by_mode
     for d in (1, 127, 128, 768):
@@ -1121,10 +1151,31 @@ def _median_ms(fn, reps: int = 7) -> float:
     return statistics.median(times)
 
 
-def phase_timing(corpora: dict, bounds: dict) -> dict:
+def _time_knn(rows, qs) -> tuple:
+    """K1 (dot, k=10) on ``rows`` against its plain version and a same-bytes
+    read: ``(kernel, plain, read)`` ms, and its bound; logs them with the
+    share (bound / kernel), the read's fraction, the re-scored pairs and
+    the query tile."""
     import torch
 
     from innr_tpu_torch.kernels import knn as tk
+
+    kernel = _median_ms(lambda: tk.fused_knn_keys_batch(qs, rows, None, 10, "dot"))
+    plain = _median_ms(lambda: tk.knn_plain(qs, rows, None, 10, "dot"))
+    # The corpus bytes viewed as float32: a read at full bandwidth (a
+    # uint8 sum accumulates in int64 and runs far slower than a read).
+    read = _median_ms(lambda: rows.view(torch.float32).sum())
+    (n, d), n_q = rows.shape, qs.shape[0]
+    b, note = _knn_bound(rows, n_q, 10)
+    log(f"[timing] {str(rows.dtype).removeprefix('torch.')} {n} x {d}, Q={n_q}, k=10: kernel "
+        f"{kernel!r} ms, plain {plain!r} ms, same-bytes read {read!r} ms, share (bound/kernel) "
+        f"{b[0] / kernel!r}, roofline fraction (read/kernel) {read / kernel!r}, "
+        f"{bound_text(b)}{note}, query tile {tk._grid(rows, n_q, 10)[0]}")
+    return (kernel, plain, read), b
+
+
+def phase_timing(corpora: dict, bounds: dict) -> dict:
+    import torch
 
     out = {}
     for name, rows, qs in (
@@ -1132,26 +1183,18 @@ def phase_timing(corpora: dict, bounds: dict) -> dict:
         ("bfloat16", corpora["bf16"], corpora["qs128"]),
         ("uint8", corpora["u8"], corpora["qs768"]),
     ):
-        kernel = _median_ms(lambda: tk.fused_knn_keys_batch(qs, rows, None, 10, "dot"))
-        plain = _median_ms(lambda: tk.knn_plain(qs, rows, None, 10, "dot"))
-        # The corpus bytes viewed as float32: a read at full bandwidth (a
-        # uint8 sum accumulates in int64 and runs far slower than a read).
-        read = _median_ms(lambda: rows.view(torch.float32).sum())
-        out[name] = (kernel, plain, read)
-        n, d = rows.shape
-        n_q = qs.shape[0]
-        b, note = _knn_bound(rows, n_q, 10)
-        bounds[f"knn_scan+knn_merge<{name}>"] = b
-        log(f"[timing] {name} {n} x {d}, Q={n_q}, k=10: kernel {kernel!r} ms, "
-            f"plain {plain!r} ms, same-bytes read {read!r} ms, "
-            f"roofline fraction (read/kernel) {read / kernel!r}, {bound_text(b)}{note}")
-    # A single query: the query tile narrows to 8 columns.
-    rows, q1 = corpora["f32"], corpora["qs128"][:1].contiguous()
-    kernel = _median_ms(lambda: tk.fused_knn_keys_batch(q1, rows, None, 10, "dot"))
-    plain = _median_ms(lambda: tk.knn_plain(q1, rows, None, 10, "dot"))
-    b, note = _knn_bound(rows, 1, 10)
-    log(f"[timing] float32 {rows.shape[0]} x 128, Q=1, k=10: kernel {kernel!r} ms, plain "
-        f"{plain!r} ms, {bound_text(b)}{note}, query tile {tk._grid(rows, 1, 10)[0]}")
+        out[name], bounds[f"knn_scan+knn_merge<{name}>"] = _time_knn(rows, qs)
+    # A single query (the query tile narrows to 8 columns), then u8 at 4M x
+    # 768 (3.07 GB of uniform codes) at Q=32 and at Q=1 (batch_knn_u8's form).
+    _time_knn(corpora["f32"], corpora["qs128"][:1].contiguous())
+    _time_knn(corpora["u8"], corpora["qs768"][:1].contiguous())
+    gen = torch.Generator(device=corpora["u8"].device).manual_seed(SEED + 11)
+    big = torch.randint(0, 256, (4_000_000, 768), generator=gen, device=corpora["u8"].device,
+                        dtype=torch.uint8)
+    for n_q in (32, 1):
+        _time_knn(big, corpora["qs768"][:n_q].contiguous())
+    del big
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1160,8 +1203,8 @@ def _knn_bound(rows, n_q: int, k: int, read_rows: int | None = None) -> tuple:
     ``rows``, and a note of its re-scored pairs: the corpus (or surviving)
     bytes, the queries and the result, against the tensor-core products
     (f32: three TF32 products per pair and dimension, 3xTF32; bf16: one;
-    u8 codes meet f32 queries on the FP32 pipe) and the FP32 FMAs of the
-    pairs the last launch re-scored."""
+    u8: two bf16 products, the codes against the query's hi and lo parts)
+    and the FP32 FMAs of the pairs the last launch re-scored."""
     import torch
 
     from innr_tpu_torch.kernels import knn as tk
@@ -1169,13 +1212,10 @@ def _knn_bound(rows, n_q: int, k: int, read_rows: int | None = None) -> tuple:
     n, d = rows.shape
     read_rows = n if read_rows is None else read_rows
     unit, parts = {torch.float32: ("tf32", 3), torch.bfloat16: ("bf16", 1),
-                   torch.uint8: ("fp32", 1)}[rows.dtype]
-    ops = {unit: parts * 2 * n_q * read_rows * d}
-    note = ""
-    if rows.dtype != torch.uint8:
-        _, _, pairs = tk.rescore_stats()
-        ops["fp32"] = 2 * d * pairs
-        note = f", re-scored {pairs} pairs ({pairs / n_q!r} per query)"
+                   torch.uint8: ("bf16", 2)}[rows.dtype]
+    _, _, pairs = tk.rescore_stats()
+    ops = {unit: parts * 2 * n_q * read_rows * d, "fp32": 2 * d * pairs}
+    note = f", re-scored {pairs} pairs ({pairs / n_q!r} per query)"
     n_bytes = read_rows * d * rows.element_size() + n_q * d * 4 + n_q * k * 8
     return bound(n_bytes, **ops), note
 

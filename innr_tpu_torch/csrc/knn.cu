@@ -30,71 +30,80 @@
 // __fmul_rn(dot, aux) (cosine). bf16 corpora: queries are rounded to bf16
 // first, so every product of two bf16 values is exact in fp32 and only the
 // sums round, as on the TPU. u8 corpora: codes widen to fp32 and multiply
-// the full fp32 query. The TPU instead splits the query into a hi/lo bf16
-// pair (innr_tpu/kernels/knn.py:236-261); the two differ by about 2^-18
-// relative per product. With integer-valued inputs every score is exact in
-// both and the kernel agrees with the plain version bit for bit.
+// the full fp32 query. The TPU instead sums the codes' products with a hi/lo
+// bf16 split of the query (innr_tpu/kernels/knn.py:236-261), which drops up
+// to 2^-16 of each product. With integer-valued inputs every score is exact
+// in both and the kernel agrees with the plain version bit for bit.
 //
-// Design, f32 and bf16 corpora (knn_scan_tc): tensor-core scores, a proven
+// Design, every corpus dtype (knn_scan_tc): tensor-core scores, a proven
 // gate, an exact re-score.
 // 1. Grid (corpus slabs x query tiles), one wave of resident CTAs. A CTA is
 //    one warpgroup; its query tile is NQ = 8, 16, 32 or 64 queries (the
 //    smallest that holds min(Q, 64), narrowed when its top-k buffers do not
 //    fit), so a Q of 1 computes 8 columns and a batch of up to 64 reads the
 //    corpus once. The queries sit in shared memory in mma.cuh's K-major
-//    layout (f32 as is, bf16 rounded to bf16), all of D when they fit, else
-//    staged chunk by chunk, with their dimensions permuted as the rows'
-//    (below).
+//    layout (f32 as is with its TF32 low part, bf16 rounded to bf16, u8's
+//    as bf16 q_hi and q_lo), all of D when they fit, else staged chunk by
+//    chunk, with their dimensions permuted as the rows' (below).
 // 2. The CTA walks its slab in tiles of 64 rows (wgmma m) and chunks of 128
-//    dimensions; the accumulators carry across chunks. The rows never touch
-//    shared memory: each thread loads its two rows' share of a chunk from
-//    global memory straight into registers, 16-byte vectors in the layout
-//    of wgmma's A fragment (a permutation of the dimensions, matched by the
-//    queries'), and the next item's loads are in flight while this one
-//    multiplies, keys and re-scores (two register sets; one wave of CTAs,
-//    two or three per SM, so 64 KB and more in flight per SM). The raw f32
+//    dimensions (u8: 256); the accumulators carry across chunks. The rows
+//    never touch shared memory: each thread loads its two rows' share of a
+//    chunk from global memory straight into registers, 16-byte vectors in
+//    the layout of wgmma's A fragment (a permutation of the dimensions,
+//    matched by the queries'), and the next item's loads are in flight while
+//    this one multiplies, keys and re-scores (two register sets; one wave of
+//    CTAs, one to three per SM, 16 KB or more in flight per SM). The raw f32
 //    bits go to TF32 wgmma (m64nNk8) three times per step, as 3xTF32
 //    (x_hi q_hi + x_hi q_lo + x_lo q_hi: the low parts exact remainders, q_lo
 //    staged beside q, x_lo made in registers), so each product keeps about
 //    3 2^-20 of error, not TF32's 2^-9; bf16 runs bf16 wgmma (m64nNk16),
-//    whose products are exact. Each row's squared norm is
-//    summed from the same registers (the mode's aux is the caller's and is
-//    not trusted as a norm).
+//    whose products are exact; u8 widens each code in registers to bf16
+//    (exact: a byte permute into the f32 2^23 + c, minus 2^23, the top half)
+//    and runs bf16 wgmma twice per step, against q_hi and q_lo: the TPU's
+//    split, exact products that drop at most 2^-16 of each. Each row's
+//    squared norm is summed from the same registers (u8: by dp4a, in
+//    integers); the mode's aux is the caller's and is not trusted as a norm.
 // 3. Gate. kernels/knn.py:knn_margin bounds |s~ - s| per (row, query) by
 //    T = kappa ||q|| ||x|| f + m_abs f + m_aux |aux| (f = |aux| for cosine,
 //    else 1; kappa ||q|| arrives per query, +inf for a query that is not
 //    finite or not below 2^50; a row whose squared norm is not below 2^100
-//    gets ||x|| = +inf): truncated operands, tensor-core accumulation, the
-//    FMA chain, the mode's transform and the compare's roundings, times 2.
+//    gets ||x|| = +inf): truncated or split operands, tensor-core
+//    accumulation, the FMA chain, the mode's transform and the compare's
+//    roundings, times 2.
 //    A pair is admitted when s~ + T (l2: s~ - T) could still reach the
 //    query's k-th best exact score in the CTA's buffer, compared with >=
 //    (an equal score wins on a lower row); a NaN anywhere admits. A row
 //    that fails the mask is admitted only while the buffer has room for
 //    INT_MIN keys. Admitted (row, query) pairs go to a list in shared
-//    memory (a warp vote, then one warp-aggregated slot claim per
-//    register).
-// 4. Re-score, once 128 pairs are pending or the CTA's work ends (the
-//    thresholds lag meanwhile, which only admits more), in rounds of 128:
-//    each thread re-scores one pair with the exact arithmetic above from
-//    global memory (the row was just read: L1 / L2), keys it and applies the
-//    mask and the exclusion bound; then warp w, which owns queries w, w +
-//    4, ..., offers the round's composites of its queries to their sorted
-//    buffers (topk.cuh: warp_offer), and each threshold is re-read from its
-//    query's k-th key, or the best k-th key any CTA has published (a
-//    per-query int in global memory, atomicMax): k rows anywhere that beat
-//    a row keep it out of the final top k, so on clustered corpora the CTAs
-//    stop re-scoring rows of the lesser clusters. Composites are unique, so
-//    the selection is a set function: a pair left out could never have
-//    entered the merged top k, and the result equals the FMA scan's bit for
-//    bit. Each launch adds its re-scored pairs to a device counter.
+//    memory (a warp vote, then one warp-aggregated slot claim per register
+//    any lane admits from). On the CTA's first tile (k <= 64, no exclusion
+//    bound) the threshold starts at each query's k-th best s~ - T (l2:
+//    s~ + T) over the tile's passing rows, not open: k rows reach it, so
+//    the first tile admits about k rows per query, not 64.
+// 4. Re-score, once 32 pairs per warp that owns a live query are pending (128
+//    from four queries on) or the CTA's work ends (the thresholds lag
+//    meanwhile, which only admits more): warp w, which owns queries w, w + 4,
+//    ..., gathers the pending pairs of its queries into its queue and
+//    re-scores them 32 at a time, one per lane, with the exact arithmetic
+//    above from global memory (the row was just read: L2; a batch's query
+//    loads touch at most NQ / 4 queries), keys them, applies the mask and the
+//    exclusion bound and merges the composites into their sorted buffers
+//    (topk.cuh: warp_merge, one merge per query and batch). Then the warp sets
+//    each of its queries' thresholds from a key that k rows anywhere reach,
+//    which keeps every row below it out of the final top k: the buffer's k-th
+//    key; or, from a per-query row in global memory where every CTA publishes
+//    its buffer's key at rank r = ceil(2 k / CTAs), the row's m-th best key,
+//    m = ceil(k / r) (m CTAs with r rows each): a bound drawn from all the
+//    slabs, not one, so the CTAs stop re-scoring rows that only beat their own
+//    slab's k-th; or the best such key any CTA has kept (a per-query int,
+//    atomicMax), which each tile also reads between rounds. Composites are
+//    unique, so the selection is a set function: a pair left out could never
+//    have entered the merged top k, and the result is the top k of the exact
+//    scores of every row, bit for bit. Each launch adds its re-scored pairs to
+//    a device counter.
 // The slab's top k per query goes to partial[(slab, q, k)]. knn_merge: one
 // CTA per query selects the final top k from all slabs' partials the same
 // way.
-//
-// u8 corpora keep the FMA scan (knn_scan_fma): 32 queries per CTA of 256
-// threads, 128-row tiles staged one 32-dimension chunk ahead in registers,
-// a 4-row x 4-query register tile per thread, and each warp keying its
-// queries' candidates straight from registers.
 //
 // The pruned scan (innr_knn_scan_tiles) replaces the TPU kernels
 // innr_tpu/kernels/pruned_knn.py:_pruned_kernel (static grid) and
@@ -110,42 +119,36 @@
 //
 // What bounds it on the H100: reading the corpus. At Q = 32 the 3xTF32
 // products of 10M x 128 are 246 GFLOP, 0.50 ms at TF32's 495 TFLOP/s (bf16
-// 20M x 128: 164 GFLOP, 0.17 ms at 989), against 1.53 ms for its 5.12 GB
-// at 3.35 TB/s; the gate
-// costs a few instructions per pair and the re-scores are about k ln(rows
-// per slab / k) per query and slab after the buffers fill (PERF.md gives
-// the measured times and re-scored pairs). With one warpgroup per CTA the
-// products, gate and re-score of a tile run in lockstep; the next item's
-// loads overlap them, and the other CTAs on the SM overlap each other. The
-// u8 FMA scan is bound by the FP32 pipe and shared-memory issue in its
-// register tile.
-// Left for later: u8 on the tensor cores (the TPU's hi/lo bf16 query
-// split), batched inserts for large k (at k = 256 each slab re-scores and
-// inserts about k (1 + ln(rows / k)) pairs per query), a merge that skips
-// slabs by their sorted partials.
+// 20M x 128: 164 GFLOP, 0.17 ms at 989; u8 1M x 768, two bf16 products a
+// pair and dimension: 98 GFLOP, 0.10 ms), against 1.53 ms for its 5.12 GB
+// at 3.35 TB/s (u8: 0.23 ms for 768 MB); u8's widening costs about 2.5
+// instructions a code (0.07 ms over 1M x 768 at the SMs' issue rate). The
+// gate costs a few instructions per pair; the re-scores, each D FMAs in a
+// chain that reads its row and query from L2, are what the thresholds let
+// through (PERF.md gives the measured times, re-scored pairs and the
+// phases' shares from scripts/knn_probe.py). With one warpgroup per CTA
+// the products, gate and re-score of a tile run in lockstep; the next
+// item's loads overlap them, and the other CTAs on the SM overlap each
+// other. u8's queries take 4 bytes a dimension in shared memory (both
+// parts), 98 KB at Q = 32 and D = 768, so two CTAs fit an SM there, and
+// the loads alone (16 KB a CTA in flight) read at about 0.7 of the HBM
+// rate. Left for later: more bytes in flight per SM (a 384-dimension u8
+// item and an L2 prefetch of the next tile did not help), a merge that
+// skips slabs by their sorted partials.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstdint>
-#include <type_traits>
 
 #include "mma.cuh"   // K-major tiles, wgmma, cp.async
-#include "topk.cuh"  // total_key, composite, warp_insert, warp_offer
+#include "topk.cuh"  // total_key, composite, warp_offer, warp_merge
 #include "vec.cuh"   // widen, Vec16, vector_loads
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // knn_merge, fill_int
 constexpr int kWarps = kThreads / 32;
-constexpr int kRowTile = 128;                // rows per tile (FMA scan); slabs are whole tiles
-constexpr int kQueryTile = 32;               // queries per CTA (FMA scan)
-constexpr int kDimChunk = 32;                // dimensions staged at a time (FMA scan)
-constexpr int kRowsPerThread = kRowTile / 32;
-constexpr int kQueriesPerThread = kQueryTile / kWarps;
-constexpr int kRowStride = kRowTile + 1;     // padded: conflict-free transpose
-
-static_assert(kQueriesPerThread == 4, "the float4 query read assumes 4");
 
 // Queries join a bf16 corpus rounded to bf16 (products are then exact).
 template <typename T>
@@ -158,219 +161,54 @@ __device__ __forceinline__ float query_value<__nv_bfloat16>(float q) {
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
 
 // ---------------------------------------------------------------------------
-// The FMA scan (u8 corpora)
-// ---------------------------------------------------------------------------
-
-// One (row tile, dimension chunk) of rows and queries, staged in registers
-// so that its global loads are in flight while the previous chunk computes.
-// kVector: 16-byte loads (needs D % elements-per-16-bytes == 0 and a 16-byte
-// aligned corpus); otherwise one element per load.
-template <typename T, bool kVector>
-struct Stage {
-  static constexpr int kVec = kVector ? Vec16<T>::kElems : 1;
-  static constexpr int kVecsPerRow = kDimChunk / kVec;
-  static constexpr int kLoads = kRowTile * kVecsPerRow / kThreads;
-  static constexpr int kQueryLoads = kQueryTile * kDimChunk / kThreads;
-  using Raw = typename std::conditional<kVector, uint4, float>::type;
-
-  Raw rows[kLoads];
-  float queries[kQueryLoads];
-
-  __device__ __forceinline__ void load(const T* __restrict__ src, const float* __restrict__ qs,
-                                       long long t0, long long row_end, int d0, int d, int q0,
-                                       int n_q, int tid) {
-#pragma unroll
-    for (int l = 0; l < kLoads; ++l) {
-      const int f = tid + l * kThreads, r = f / kVecsPerRow, v = f % kVecsPerRow;
-      const long long row = t0 + r;
-      const int col = d0 + v * kVec;
-      const bool ok = row < row_end && col < d;
-      const size_t at = static_cast<size_t>(row) * d + col;
-      if constexpr (kVector) {
-        rows[l] = ok ? *reinterpret_cast<const uint4*>(src + at) : make_uint4(0u, 0u, 0u, 0u);
-      } else {
-        rows[l] = ok ? widen(src[at]) : 0.0f;
-      }
-    }
-#pragma unroll
-    for (int l = 0; l < kQueryLoads; ++l) {
-      const int f = tid + l * kThreads, qq = f / kDimChunk, c = f % kDimChunk;
-      const int col = d0 + c;
-      queries[l] = (q0 + qq < n_q && col < d)
-                       ? query_value<T>(qs[static_cast<size_t>(q0 + qq) * d + col])
-                       : 0.0f;
-    }
-  }
-
-  // rows_s[c][r] (padded stride: conflict-free), q_s[c][q].
-  __device__ __forceinline__ void store(float* rows_s, float* q_s, int tid) const {
-#pragma unroll
-    for (int l = 0; l < kLoads; ++l) {
-      const int f = tid + l * kThreads, r = f / kVecsPerRow, v = f % kVecsPerRow;
-      if constexpr (kVector) {
-#pragma unroll
-        for (int j = 0; j < kVec; ++j)
-          rows_s[(v * kVec + j) * kRowStride + r] = Vec16<T>::get(rows[l], j);
-      } else {
-        rows_s[v * kRowStride + r] = rows[l];
-      }
-    }
-#pragma unroll
-    for (int l = 0; l < kQueryLoads; ++l) {
-      const int f = tid + l * kThreads;
-      q_s[(f % kDimChunk) * kQueryTile + f / kDimChunk] = queries[l];
-    }
-  }
-};
-
-// CTA x scans the slab of rows [x * slab_rows, (x + 1) * slab_rows). With
-// kTiles (the pruned scan) the work is instead the chunks of chunk_rows rows
-// of the live tiles order[0..*n_live) of slab_rows rows each, dealt to the
-// CTAs in turn (item i to CTA i % gridDim.x); a CTA keeps one top-k buffer
-// over all its items and writes one partial list, empty when it had none.
-// kTiles is a template parameter so that K1's instantiation carries none of
-// the tile list's state.
-template <typename T, bool kVector, bool kTiles>
-__global__ void __launch_bounds__(kThreads, 2) knn_scan_fma(
-    const float* __restrict__ qs, const T* __restrict__ rows,
-    const float* __restrict__ aux, const float* __restrict__ mask,
-    const long long* __restrict__ excl, const int* __restrict__ order,
-    const int* __restrict__ n_live, long long* __restrict__ partial,
-    int n_q, long long n, int d, int k, int score, long long slab_rows,
-    long long chunk_rows) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  long long* best = reinterpret_cast<long long*>(smem);             // [32][k]
-  float* rows_s = reinterpret_cast<float*>(best + kQueryTile * k);  // [32][129]
-  float* q_s = rows_s + kDimChunk * kRowStride;                     // [32][32]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = blockIdx.y * kQueryTile;
-  const int wq0 = q0 + warp * kQueriesPerThread;  // this warp's first query
-  const int n_chunks = (d + kDimChunk - 1) / kDimChunk;
-  for (int i = tid; i < kQueryTile * k; i += kThreads) best[i] = LLONG_MIN;
-  long long bound[kQueriesPerThread];
-#pragma unroll
-  for (int j = 0; j < kQueriesPerThread; ++j)
-    bound[j] = (excl != nullptr && wq0 + j < n_q) ? excl[wq0 + j] : LLONG_MAX;
-
-  float acc[kRowsPerThread][kQueriesPerThread];
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-    for (int j = 0; j < kQueriesPerThread; ++j) acc[i][j] = 0.0f;
-
-  // One pipeline over all of the CTA's rows: the next chunk's loads, in
-  // the same row tile, the next one or (kTiles) the next item, are in flight
-  // while the current chunk computes. Without kTiles the rows are one slab.
-  Stage<T, kVector> stage;
-  long long t0 = static_cast<long long>(blockIdx.x) * slab_rows;
-  long long row_end = min(n, t0 + slab_rows);
-  long long item = blockIdx.x, per_tile = 1, items = 0;
-  // This CTA's next non-empty item after `item` and its rows [t0, end), or
-  // an empty range when none is left.
-  auto next_item = [&](long long& t0, long long& end) {
-    t0 = end = 0;
-    for (item += gridDim.x; item < items; item += gridDim.x) {
-      const long long tile_begin = order[item / per_tile] * slab_rows;
-      t0 = tile_begin + item % per_tile * chunk_rows;
-      end = min(n, min(tile_begin + slab_rows, t0 + chunk_rows));
-      if (t0 < end) break;
-    }
-  };
-  if constexpr (kTiles) {
-    per_tile = (slab_rows + chunk_rows - 1) / chunk_rows;
-    items = static_cast<long long>(*n_live) * per_tile;
-    item -= gridDim.x;
-    next_item(t0, row_end);
-  }
-  int ch = 0;
-  if (t0 < row_end) stage.load(rows, qs, t0, row_end, 0, d, q0, n_q, tid);
-  while (t0 < row_end) {
-    stage.store(rows_s, q_s, tid);
-    __syncthreads();
-    int next_ch = ch + 1;
-    long long next_t0 = t0, next_end = row_end;
-    if (next_ch == n_chunks) {
-      next_ch = 0;
-      next_t0 += kRowTile;
-      if constexpr (kTiles) {
-        if (next_t0 >= row_end) next_item(next_t0, next_end);
-      }
-    }
-    if (next_t0 < next_end)
-      stage.load(rows, qs, next_t0, next_end, next_ch * kDimChunk, d, q0, n_q, tid);
-
-    const int c_end = min(kDimChunk, d - ch * kDimChunk);
-    for (int c = 0; c < c_end; ++c) {
-      const float4 qv =
-          *reinterpret_cast<const float4*>(&q_s[c * kQueryTile + warp * kQueriesPerThread]);
-      const float qa[kQueriesPerThread] = {qv.x, qv.y, qv.z, qv.w};
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i) {
-        const float rv = rows_s[c * kRowStride + lane + 32 * i];
-#pragma unroll
-        for (int j = 0; j < kQueriesPerThread; ++j) acc[i][j] = fmaf(rv, qa[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
-
-    if (next_ch == 0) {  // the tile's last chunk: key and select its rows
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i) {
-        const long long row = t0 + lane + 32 * i;
-        const bool valid = row < row_end;
-        const float a = (valid && aux != nullptr) ? aux[row] : 0.0f;
-        const bool pass = !(valid && mask != nullptr) || mask[row] > 0.0f;
-#pragma unroll
-        for (int j = 0; j < kQueriesPerThread; ++j) {
-          float s = acc[i][j];
-          acc[i][j] = 0.0f;
-          if (wq0 + j >= n_q) continue;  // uniform across the warp
-          if (score == 1) s = __fsub_rn(a, __fmul_rn(2.0f, s));
-          else if (score == 2) s = __fmul_rn(s, a);
-          int key = total_key(s);
-          if (score == 1) key = ~key;
-          if (!pass) key = INT_MIN;
-          long long c = composite(key, row);
-          if (!valid || c >= bound[j]) c = LLONG_MIN;
-          warp_offer(best + (warp * kQueriesPerThread + j) * k, k, c, lane);
-        }
-      }
-    }
-    t0 = next_t0;
-    row_end = next_end;
-    ch = next_ch;
-  }
-  __syncthreads();
-  for (int f = tid; f < kQueryTile * k; f += kThreads) {
-    const int q = q0 + f / k;
-    if (q < n_q)
-      partial[(static_cast<size_t>(blockIdx.x) * n_q + q) * k + f % k] = best[f];
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The tensor-core scan (f32 and bf16 corpora)
+// The tensor-core scan
 // ---------------------------------------------------------------------------
 
 constexpr int kTcThreads = kWgThreads;  // one warpgroup
 constexpr int kTcWarps = kTcThreads / 32;
 constexpr int kTcRows = 64;             // rows per tile: wgmma m
-constexpr int kChunk = 128;             // dimensions staged at a time
 constexpr int kTcQueryMax = 64;         // the widest query tile: wgmma n
+constexpr int kQueue = 64;              // a warp's re-score queue: two batches of 32
+constexpr int kPubPerLane = 16;         // published keys a lane reads (up to 512 CTAs)
 constexpr size_t kSmemMax = 232448;     // dynamic shared memory a block may use
 
-// A chunk of 128 dimensions of a row is loaded as 16-byte vectors: thread
-// t of a quad (t = lane % 4) takes vectors 4 j + t (j = 0, 1, ...), so a
-// quad reads 64 contiguous bytes at a time, and the k-step s takes words
-// 2 (s % 2) and 2 (s % 2) + 1 of vector j = s / 2 as its A fragment (a0 /
-// a2: the first row, a1 / a3: the second). So the tensor core's k
+// A chunk of Tc<T>::kChunk dimensions of a row is loaded as kVecs 16-byte
+// vectors per thread: thread t of a quad (t = lane % 4) takes vectors 4 j +
+// t (j = 0, 1, ...), so a quad reads 64 contiguous bytes at a time. f32 and
+// bf16: k-step s takes words 2 (s % 2) and 2 (s % 2) + 1 of vector j = s / 2
+// as its A fragment (a0 / a2: the first row, a1 / a3: the second); u8: word
+// s % 4 of vector s / 4, widened to two bf16x2 words. So the tensor core's k
 // positions are a permutation of the dimensions (perm_dim), and the queries
-// are staged in the same permutation.
+// are staged in the same permutation. Tc<T>::Q is the queries' staged type.
 template <typename T> struct Tc;
 // The low part of an f32 operand: x minus its TF32 truncation, exact.
 __device__ __forceinline__ uint32_t tf32_low(uint32_t w) {
   return __float_as_uint(__fsub_rn(__uint_as_float(w), __uint_as_float(w & 0xFFFFE000u)));
+}
+
+// Words 2 (st % 2) and + 1 of vector st / 2 of both rows: the A fragment of
+// k-step st where a step takes half a vector (f32, bf16).
+template <int V>
+__device__ __forceinline__ void half_vector(const uint4 (&v)[2][V], int st, uint32_t (&a)[4]) {
+  const int j = st >> 1, w = 2 * (st & 1);
+  a[0] = word(v[0][j], w);
+  a[1] = word(v[1][j], w);
+  a[2] = word(v[0][j], w + 1);
+  a[3] = word(v[1][j], w + 1);
+}
+
+// Both rows' squared norms += their elements' squares, an fmaf chain.
+template <typename T, int V>
+__device__ __forceinline__ void fma_norms(float (&n2)[2], const uint4 (&v)[2][V]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+#pragma unroll
+      for (int e = 0; e < Vec16<T>::kElems; ++e) {
+        const float x = Vec16<T>::get(v[h][j], e);
+        n2[h] = fmaf(x, x, n2[h]);
+      }
 }
 
 // f32: three TF32 products per k-step, x_hi q_hi + x_hi q_lo + x_lo q_hi
@@ -378,15 +216,25 @@ __device__ __forceinline__ uint32_t tf32_low(uint32_t w) {
 // and q_hi, and x_lo, q_lo are the exact remainders, themselves truncated),
 // which leaves about 3 2^-20 of each product, not TF32's 2^-9.
 template <> struct Tc<float> {
-  static constexpr int kSteps = 16;  // m64nNk8
-  static constexpr int kSplit = 2;   // query parts staged: q_hi, q_lo
+  using Q = float;
+  static constexpr int kChunk = 128;  // dimensions per item
+  static constexpr int kSteps = 16;   // m64nNk8
+  static constexpr int kVecs = 8;
+  static constexpr int kSplit = 2;    // query parts staged: q_hi, q_lo
   static constexpr int kMinBlocks = 2;
-  template <int A>
-  __device__ static void mma(float (&acc)[A], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                             uint64_t b_hi, uint64_t b_lo) {
-    wgmma_tf32_rs(acc, a0, a1, a2, a3, b_hi);
-    wgmma_tf32_rs(acc, a0, a1, a2, a3, b_lo);
-    wgmma_tf32_rs(acc, tf32_low(a0), tf32_low(a1), tf32_low(a2), tf32_low(a3), b_hi);
+  template <int A, int V>
+  __device__ __forceinline__ static void mma(float (&acc)[A], const uint4 (&v)[2][V], int st,
+                                             uint64_t b_hi, uint64_t b_lo) {
+    uint32_t a[4];
+    half_vector(v, st, a);
+    wgmma_tf32_rs(acc, a[0], a[1], a[2], a[3], b_hi);
+    wgmma_tf32_rs(acc, a[0], a[1], a[2], a[3], b_lo);
+    wgmma_tf32_rs(acc, tf32_low(a[0]), tf32_low(a[1]), tf32_low(a[2]), tf32_low(a[3]), b_hi);
+  }
+  template <int V>
+  __device__ __forceinline__ static void add_norms(float (&n2)[2],
+                                                   const uint4 (&v)[2][V]) {
+    fma_norms<float>(n2, v);
   }
   // The query's part `part` (0: as is, 1: its low part) as staged.
   __device__ static float stored(float q, int part) {
@@ -406,13 +254,23 @@ template <> struct Tc<float> {
 };
 // bf16: the products of bf16 rows and bf16-rounded queries are exact.
 template <> struct Tc<__nv_bfloat16> {
+  using Q = __nv_bfloat16;
+  static constexpr int kChunk = 128;
   static constexpr int kSteps = 8;  // m64nNk16
+  static constexpr int kVecs = 4;
   static constexpr int kSplit = 1;
   static constexpr int kMinBlocks = 3;
-  template <int A>
-  __device__ static void mma(float (&acc)[A], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                             uint64_t b, uint64_t) {
-    wgmma_bf16_rs(acc, a0, a1, a2, a3, b);
+  template <int A, int V>
+  __device__ __forceinline__ static void mma(float (&acc)[A], const uint4 (&v)[2][V], int st,
+                                             uint64_t b, uint64_t) {
+    uint32_t a[4];
+    half_vector(v, st, a);
+    wgmma_bf16_rs(acc, a[0], a[1], a[2], a[3], b);
+  }
+  template <int V>
+  __device__ __forceinline__ static void add_norms(float (&n2)[2],
+                                                   const uint4 (&v)[2][V]) {
+    fma_norms<__nv_bfloat16>(n2, v);
   }
   __device__ static __nv_bfloat16 stored(float q, int) { return __float2bfloat16_rn(q); }
   __device__ static __nv_bfloat16 zero() { return __float2bfloat16_rn(0.0f); }
@@ -429,19 +287,87 @@ template <> struct Tc<__nv_bfloat16> {
   }
 };
 
+// Codes 2 h and 2 h + 1 of a word of four, as one bf16x2 word of an A
+// fragment (the first in the low half): each code c widened to f32
+// (vec.cuh: code_f32), whose top 16 bits are the bf16 c (c has at most 8
+// significant bits).
+__device__ __forceinline__ uint32_t codes_bf16x2(uint32_t w, int h) {
+  return __byte_perm(__float_as_uint(code_f32(w, 2 * h)), __float_as_uint(code_f32(w, 2 * h + 1)),
+                     0x7632u);
+}
+
+// u8: codes 0..255 are exact in bf16, and the query is split as on the TPU
+// into q_hi = bf16(q) and q_lo = bf16(q - q_hi) (0 where q is not finite):
+// two bf16 products per k-step, each exact, which leave at most 2^-16 of
+// each product. A chunk is 256 dimensions, so each thread loads 4 vectors
+// of 16 codes per row and item (as bf16's 4 of 8 elements): the bytes in
+// flight per CTA are bf16's.
+template <> struct Tc<uint8_t> {
+  using Q = __nv_bfloat16;
+  static constexpr int kChunk = 256;
+  static constexpr int kSteps = 16;  // m64nNk16
+  static constexpr int kVecs = 4;
+  static constexpr int kSplit = 2;   // q_hi, q_lo
+  static constexpr int kMinBlocks = 3;
+  template <int A, int V>
+  __device__ __forceinline__ static void mma(float (&acc)[A], const uint4 (&v)[2][V], int st,
+                                             uint64_t b_hi, uint64_t b_lo) {
+    const uint32_t x0 = word(v[0][st >> 2], st & 3), x1 = word(v[1][st >> 2], st & 3);
+    const uint32_t a0 = codes_bf16x2(x0, 0), a1 = codes_bf16x2(x1, 0);
+    const uint32_t a2 = codes_bf16x2(x0, 1), a3 = codes_bf16x2(x1, 1);
+    wgmma_bf16_rs(acc, a0, a1, a2, a3, b_hi);
+    wgmma_bf16_rs(acc, a0, a1, a2, a3, b_lo);
+  }
+  // Each row's squares in integers: a chunk's 64 codes a thread give at
+  // most 64 x 255^2 < 2^24, exact in f32.
+  template <int V>
+  __device__ __forceinline__ static void add_norms(float (&n2)[2],
+                                                   const uint4 (&v)[2][V]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      unsigned s = 0u;
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+#pragma unroll
+        for (int w = 0; w < 4; ++w) s = __dp4a(word(v[h][j], w), word(v[h][j], w), s);
+      n2[h] += static_cast<float>(s);
+    }
+  }
+  __device__ static __nv_bfloat16 stored(float q, int part) {
+    const __nv_bfloat16 hi = __float2bfloat16_rn(q);
+    if (part == 0) return hi;
+    return __float2bfloat16_rn(isfinite(q) ? __fsub_rn(q, __bfloat162float(hi)) : 0.0f);
+  }
+  __device__ static __nv_bfloat16 zero() { return __float2bfloat16_rn(0.0f); }
+  // Four codes from col (zeros past d or off the item).
+  __device__ static unsigned word_of(const uint8_t* src, int col, int d, bool in) {
+    unsigned w = 0u;
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      if (in && col + b < d) w |= static_cast<unsigned>(src[col + b]) << (8 * b);
+    return w;
+  }
+  // Step s = kk / 16 (word s % 4 of vector s / 4), position q = kk % 16:
+  // quad thread (q % 8) / 2, code q % 2 + 2 (q / 8) of the word.
+  __device__ static int perm_dim(int kk) {
+    const int s = kk >> 4, q = kk & 15;
+    return 64 * (s >> 2) + 16 * ((q & 7) >> 1) + 4 * (s & 3) + (q & 1) + 2 * (q >> 3);
+  }
+};
+
 // Byte offsets of a CTA's shared memory: the top-k buffers, the queries
 // (all of D, or one chunk), a tile's admitted pairs, per-query words.
 struct TcLayout {
   int nq, dpad, n_dch;  // query tile, D padded to whole chunks, chunks
   bool q_res;           // all of D of the queries resident
-  size_t best, q, q_part, list, rcomp, bound, thr, kq, red, total;
+  size_t best, q, q_part, list, queue, bound, thr, kq, red, total;
 };
 
 inline size_t align128(size_t x) { return (x + 127) & ~static_cast<size_t>(127); }
 
 template <typename T>
 TcLayout tc_layout(int nq, int d, int k, bool q_res) {
-  constexpr int chunk = kChunk;
+  constexpr int chunk = Tc<T>::kChunk;
   TcLayout L{};
   L.nq = nq;
   L.n_dch = (d + chunk - 1) / chunk;
@@ -451,12 +377,12 @@ TcLayout tc_layout(int nq, int d, int k, bool q_res) {
   L.best = at;
   at = align128(at + sizeof(long long) * nq * k);
   L.q = at;  // Tc<T>::kSplit parts, each nq x (dpad or chunk)
-  L.q_part = align128(sizeof(T) * nq * (q_res ? L.dpad : chunk));
+  L.q_part = align128(sizeof(typename Tc<T>::Q) * nq * (q_res ? L.dpad : chunk));
   at += Tc<T>::kSplit * L.q_part;
   L.list = at;  // pending admitted pairs: under 128, plus a tile's 64 x nq
   at = align128(at + (sizeof(int) + 1) * (kTcRows * nq + kTcThreads));
-  L.rcomp = at;  // one re-scoring round's composites
-  at += sizeof(long long) * kTcThreads;
+  L.queue = at;  // each warp's queue of pairs to re-score: 64 rows, 64 queries
+  at += (sizeof(int) + 1) * kQueue * kTcWarps;
   L.bound = at;
   at += 8 * kTcQueryMax;
   L.thr = at;
@@ -493,7 +419,7 @@ struct TcArgs {
   const float* qmeta;  // per query: kappa ||q|| (+inf: always re-scored)
   float m_abs, m_aux;  // the margin's absolute and |aux| terms
   unsigned long long* rescored;
-  int* kth;  // per query: the best k-th key any CTA's buffer has held
+  int* kth;  // per query a shared key k rows reach, then the published table
   const int* order;
   const int* n_live;
   long long* partial;
@@ -542,7 +468,7 @@ __device__ __forceinline__ void load_rows(uint4 (&v)[2][V], const TcArgs& p, con
                                           int g, int quad) {
   constexpr int kE = 16 / sizeof(T);
   const T* rows = static_cast<const T*>(p.rows);
-  const int k0 = c.ch * kChunk + kE * quad;
+  const int k0 = c.ch * Tc<T>::kChunk + kE * quad;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const long long row = c.t0 + g + 8 * h;
@@ -566,15 +492,16 @@ __device__ __forceinline__ void load_rows(uint4 (&v)[2][V], const TcArgs& p, con
 
 // Queries [q0, q0 + nq) x the chunks [ch0, ch0 + n_ch) into dst (K-major,
 // nq rows, k positions permuted as perm_dim), as the tensor cores read
-// them (bf16: rounded); zeros past n_q and d.
+// them (bf16: rounded; f32, u8: both parts); zeros past n_q and d.
 template <typename T>
-__device__ void stage_queries(T* dst, size_t part_elems, const float* __restrict__ qs, int q0,
-                              int n_q, int d, int nq, int ch0, int n_ch) {
-  constexpr int kE = 16 / sizeof(T);
-  const int width = n_ch * kChunk;
+__device__ void stage_queries(typename Tc<T>::Q* dst, size_t part_elems,
+                              const float* __restrict__ qs, int q0, int n_q, int d, int nq,
+                              int ch0, int n_ch) {
+  constexpr int kE = 16 / sizeof(typename Tc<T>::Q), chunk = Tc<T>::kChunk;
+  const int width = n_ch * chunk;
   for (int f = threadIdx.x; f < nq * width; f += kTcThreads) {
     const int r = f / width, kk = f % width;
-    const int col = (ch0 + kk / kChunk) * kChunk + Tc<T>::perm_dim(kk % kChunk);
+    const int col = (ch0 + kk / chunk) * chunk + Tc<T>::perm_dim(kk % chunk);
     const bool ok = q0 + r < n_q && col < d;
     const float v = ok ? qs[static_cast<size_t>(q0 + r) * d + col] : 0.0f;
 #pragma unroll
@@ -585,8 +512,8 @@ __device__ void stage_queries(T* dst, size_t part_elems, const float* __restrict
 }
 
 // The exact dot of row `row` and query q from global memory: fmaf in
-// dimension order from +0.0 on the widened values, the FMA scan's
-// arithmetic (bf16 corpora: the query rounded to bf16).
+// dimension order from +0.0 on the widened values and the f32 query (bf16
+// corpora: the query rounded to bf16).
 template <typename T>
 __device__ __forceinline__ float exact_dot(const TcArgs& p, long long row, int q) {
   constexpr int kE = 16 / sizeof(T);
@@ -625,14 +552,13 @@ template <typename T, int NQ, bool kTiles>
 __global__ void __launch_bounds__(kTcThreads, Tc<T>::kMinBlocks) knn_scan_tc(TcArgs p,
                                                                              TcLayout L) {
   extern __shared__ __align__(128) unsigned char smem[];
-  // 16-byte vectors per row, thread and chunk: 8 f32, 4 bf16.
-  constexpr int kAcc = NQ / 2, kSteps = Tc<T>::kSteps, kVecs = kSteps / 2;
+  using Q = typename Tc<T>::Q;
+  constexpr int kAcc = NQ / 2, kSteps = Tc<T>::kSteps, kVecs = Tc<T>::kVecs;
   long long* best = reinterpret_cast<long long*>(smem + L.best);  // [NQ][k]
-  T* q_s = reinterpret_cast<T*>(smem + L.q);                      // [dpad or chunk][NQ], K-major
+  Q* q_s = reinterpret_cast<Q*>(smem + L.q);                      // [dpad or chunk][NQ], K-major
   constexpr int kCap = kTcRows * NQ + kTcThreads;
   int* list_row = reinterpret_cast<int*>(smem + L.list);  // [kCap] rows, [kCap] queries
   unsigned char* list_c = reinterpret_cast<unsigned char*>(list_row + kCap);
-  long long* rcomp = reinterpret_cast<long long*>(smem + L.rcomp);         // [128]
   long long* bound = reinterpret_cast<long long*>(smem + L.bound);  // [NQ]
   float* thr = reinterpret_cast<float*>(smem + L.thr);              // [NQ]
   float* kq = reinterpret_cast<float*>(smem + L.kq);                // [NQ]
@@ -640,6 +566,10 @@ __global__ void __launch_bounds__(kTcThreads, Tc<T>::kMinBlocks) knn_scan_tc(TcA
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, quad = lane & 3;
   const int g = 16 * warp + (lane >> 2);  // this thread's rows g and g + 8 of a tile
+  int* queue_row = reinterpret_cast<int*>(smem + L.queue) + warp * kQueue;  // this warp's
+  unsigned char* queue_c =
+      reinterpret_cast<unsigned char*>(smem + L.queue + sizeof(int) * kQueue * kTcWarps) +
+      warp * kQueue;
   const int q0 = blockIdx.y * NQ, k = p.k, score = p.score;
   const float open = score == 1 ? inf_f() : -inf_f();
   for (int i = tid; i < NQ * k; i += kTcThreads) best[i] = LLONG_MIN;
@@ -651,7 +581,7 @@ __global__ void __launch_bounds__(kTcThreads, Tc<T>::kMinBlocks) knn_scan_tc(TcA
     bound[tid] = (live && p.excl != nullptr) ? p.excl[q] : LLONG_MAX;
   }
   if (tid == 0) red[0] = red[1] = red[2] = red[3] = 0u;
-  const size_t part = L.q_part / sizeof(T);  // elements of one query part
+  const size_t part = L.q_part / sizeof(Q);  // elements of one query part
   if (L.q_res) stage_queries<T>(q_s, part, p.qs, q0, p.n_q, p.d, NQ, 0, L.n_dch);
   fence_async_shared();
   __syncthreads();
@@ -672,7 +602,8 @@ __global__ void __launch_bounds__(kTcThreads, Tc<T>::kMinBlocks) knn_scan_tc(TcA
 
   float acc[kAcc], n2[2] = {0.0f, 0.0f};
   unsigned count = 0;
-  int pending = 0;  // admitted pairs in the list, not yet re-scored
+  int pending = 0;          // admitted pairs in the list, not yet re-scored
+  int published = INT_MIN;  // (tid < NQ) query tid's best published k-th key
   for (int tile = 0; next.t0 < next.end;) {
     const Cursor it = next;
 #pragma unroll
@@ -691,32 +622,21 @@ __global__ void __launch_bounds__(kTcThreads, Tc<T>::kMinBlocks) knn_scan_tc(TcA
 #pragma unroll
       for (int j = 0; j < kAcc; ++j) acc[j] = 0.0f;
       n2[0] = n2[1] = 0.0f;
+      if (tid < NQ && q0 + tid < p.n_q) published = __ldcg(p.kth + q0 + tid);
     }
     const uint32_t b0 =
-        smem_u32(q_s + (L.q_res ? static_cast<size_t>(it.ch) * kChunk * NQ : 0));
-    const uint32_t b1 = b0 + static_cast<uint32_t>(L.q_part);  // f32: the low parts
+        smem_u32(q_s + (L.q_res ? static_cast<size_t>(it.ch) * Tc<T>::kChunk * NQ : 0));
+    const uint32_t b1 = b0 + static_cast<uint32_t>(L.q_part);  // f32, u8: the low parts
 #pragma unroll
     for (int j = 0; j < kAcc; ++j) fence_operand(acc[j]);
     wgmma_fence();
 #pragma unroll
-    for (int st = 0; st < kSteps; ++st) {
-      const uint4& lo = cur[0][st >> 1];
-      const uint4& hi = cur[1][st >> 1];
-      const int w = 2 * (st & 1);
-      Tc<T>::mma(acc, word(lo, w), word(hi, w), word(lo, w + 1), word(hi, w + 1),
-                 kmajor_desc(b0 + st * 2 * NQ * 16, NQ), kmajor_desc(b1 + st * 2 * NQ * 16, NQ));
-    }
+    for (int st = 0; st < kSteps; ++st)
+      Tc<T>::mma(acc, cur, st, kmajor_desc(b0 + st * 2 * NQ * 16, NQ),
+                 kmajor_desc(b1 + st * 2 * NQ * 16, NQ));
     wgmma_commit();
     // The rows' squared norms (this thread's quarter), under the products.
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int j = 0; j < kVecs; ++j)
-#pragma unroll
-        for (int e = 0; e < 16 / static_cast<int>(sizeof(T)); ++e) {
-          const float x = Vec16<T>::get(cur[h][j], e);
-          n2[h] = fmaf(x, x, n2[h]);
-        }
+    Tc<T>::add_norms(n2, cur);
     wgmma_wait<0>();
 #pragma unroll
     for (int j = 0; j < kAcc; ++j) fence_operand(acc[j]);
@@ -744,6 +664,49 @@ __global__ void __launch_bounds__(kTcThreads, Tc<T>::kMinBlocks) knn_scan_tc(TcA
       kx[h] = xn * rowf;
       cx[h] = fmaf(p.m_aux, fabsf(a[h]), p.m_abs * rowf);
     }
+    // Register i's tensor-core score in the mode's terms and its margin.
+    auto gate_terms = [&](int i, float& sv, float& tb) {
+      const int h = (i >> 1) & 1;
+      sv = acc[i];
+      if (score == 1) sv = fmaf(-2.0f, sv, a[h]);
+      else if (score == 2) sv = sv * a[h];
+      tb = fmaf(kq[acc_col(i, tid)], kx[h], cx[h]);
+    };
+    // The CTA's first tile (k <= 64, no exclusion bound): each query's k-th
+    // best of the bounds s~ - T (l2: s~ + T) of the tile's passing rows is a
+    // threshold: k rows reach it, so no row whose s~ + T (l2: s~ - T) falls
+    // short of it can enter the top k, and the buffers start near their
+    // k-th, not open (those k rows are admitted). Each warp selects for its
+    // queries from a [NQ][64] table in the list's space (empty here).
+    if (tile == 0 && k <= kTcRows && p.excl == nullptr) {
+      float* lb = reinterpret_cast<float*>(list_row);
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) {
+        const int h = (i >> 1) & 1, c = acc_col(i, tid);
+        float v = -inf_f();  // no bound: the row is outside, fails or is NaN
+        if (ok[h] && pass[h] && q0 + c < p.n_q) {
+          float sv, tb;
+          gate_terms(i, sv, tb);
+          const float b = score == 1 ? -(sv + tb) : sv - tb;
+          if (b == b) v = b;
+        }
+        lb[c * kTcRows + g + 8 * h] = v;
+      }
+      __syncthreads();
+      for (int c = warp; c < NQ; c += kTcWarps) {
+        const float v0 = lb[c * kTcRows + lane], v1 = lb[c * kTcRows + 32 + lane];
+        int ge0 = 0, ge1 = 0;  // how many of the 64 are >= v0, >= v1
+        for (int j = 0; j < 32; ++j) {
+          const float w0 = __shfl_sync(0xFFFFFFFFu, v0, j), w1 = __shfl_sync(0xFFFFFFFFu, v1, j);
+          ge0 += (w0 >= v0) + (w1 >= v0);
+          ge1 += (w0 >= v1) + (w1 >= v1);
+        }
+        float b = fmaxf(ge0 >= k ? v0 : -inf_f(), ge1 >= k ? v1 : -inf_f());
+        for (int o = 16; o > 0; o >>= 1) b = fmaxf(b, __shfl_xor_sync(0xFFFFFFFFu, b, o));
+        if (lane == 0 && b > -inf_f()) thr[c] = score == 1 ? -b : b;
+      }
+      __syncthreads();
+    }
     // Admitted pairs go to the list after the pending ones: one vote of
     // the warp, then (rarely) one warp-aggregated slot claim per register.
     unsigned admitted = 0;
@@ -755,49 +718,70 @@ __global__ void __launch_bounds__(kTcThreads, Tc<T>::kMinBlocks) knn_scan_tc(TcA
       if (!pass[h]) {
         admit = thr[c] == open;  // an INT_MIN key can still enter
       } else {
-        float sv = acc[i];
-        if (score == 1) sv = fmaf(-2.0f, sv, a[h]);
-        else if (score == 2) sv = sv * a[h];
-        const float tb = fmaf(kq[c], kx[h], cx[h]);
+        float sv, tb;
+        gate_terms(i, sv, tb);
         admit = score == 1 ? !(sv - tb > thr[c]) : !(sv + tb < thr[c]);
       }
       admitted |= static_cast<unsigned>(admit) << i;
     }
-    if (__any_sync(0xFFFFFFFFu, admitted != 0u)) {
-#pragma unroll
-      for (int i = 0; i < kAcc; ++i) {
-        const bool admit = (admitted >> i) & 1u;
-        const unsigned am = __ballot_sync(0xFFFFFFFFu, admit);
-        if (am == 0u) continue;
-        const int leader = __ffs(am) - 1;
-        unsigned slot = 0;
-        if (lane == leader) slot = atomicAdd(n_tile, __popc(am));
-        slot = pending + __shfl_sync(0xFFFFFFFFu, slot, leader) + __popc(am & ((1u << lane) - 1u));
-        if (admit) {
-          list_row[slot] = static_cast<int>(it.t0 + g + 8 * ((i >> 1) & 1));
-          list_c[slot] = static_cast<unsigned char>(acc_col(i, tid));
-        }
+    // The registers any lane admits from, in turn (warp-uniform).
+    for (unsigned regs = __reduce_or_sync(0xFFFFFFFFu, admitted); regs != 0u; regs &= regs - 1u) {
+      const int i = __ffs(regs) - 1;
+      const bool admit = (admitted >> i) & 1u;
+      const unsigned am = __ballot_sync(0xFFFFFFFFu, admit);
+      const int leader = __ffs(am) - 1;
+      unsigned slot = 0;
+      if (lane == leader) slot = atomicAdd(n_tile, __popc(am));
+      slot = pending + __shfl_sync(0xFFFFFFFFu, slot, leader) + __popc(am & ((1u << lane) - 1u));
+      if (admit) {
+        list_row[slot] = static_cast<int>(it.t0 + g + 8 * ((i >> 1) & 1));
+        list_c[slot] = static_cast<unsigned char>(acc_col(i, tid));
       }
     }
     __syncthreads();
     ++tile;
     const int total = pending + static_cast<int>(*n_tile);
-    // Re-score once 128 pairs are pending, and at the end of the work: the
+    // Re-score once a batch of 32 is pending per warp that owns a live
+    // query (128 from 4 queries on), and at the end of the work: the
     // gate's thresholds lag meanwhile, which only admits more pairs.
-    if (total < kTcThreads && next.t0 < next.end) {
+    if (total < 32 * min(kTcWarps, p.n_q - q0) && next.t0 < next.end) {
       pending = total;
+      // Meanwhile the best k-th key any CTA has published (read at this
+      // tile's start) tightens the threshold; a gate may read it before
+      // or after the store, and either value is safe.
+      if (tid < NQ && published != INT_MIN) {
+        const float t = threshold(published, score);
+        thr[tid] = score == 1 ? fminf(thr[tid], t) : fmaxf(thr[tid], t);
+      }
       continue;
     }
     pending = 0;
-    // Re-score in rounds of 128 pairs, one per thread; then each warp
-    // offers the round's composites of its queries (c % 4 == warp) to
-    // their buffers, one warp_offer per query present in 32 entries.
-    for (int base = 0; base < total; base += kTcThreads) {
-      const int e = base + tid;
+    // Each warp re-scores the pending pairs of its queries (c % 4 == warp)
+    // and offers them to their buffers, 32 at a time: its share of the
+    // list is gathered into its queue, so a batch's query loads touch at
+    // most NQ / 4 queries and no lane idles until the list runs out.
+    for (int j0 = 0, have = 0; j0 < total || have > 0;) {
+      if (j0 < total) {
+        const int j = j0 + lane;
+        const int c = j < total ? list_c[j] : -1;
+        const bool mine = c >= 0 && c % kTcWarps == warp;
+        const unsigned mm = __ballot_sync(0xFFFFFFFFu, mine);
+        if (mine) {
+          const int at = have + __popc(mm & ((1u << lane) - 1u));
+          queue_row[at] = list_row[j];
+          queue_c[at] = static_cast<unsigned char>(c);
+        }
+        have += __popc(mm);
+        j0 += 32;
+        __syncwarp();
+        if (have < 32 && j0 < total) continue;
+      }
+      const int n_b = min(have, 32);
+      int c = -1;
       long long cand = LLONG_MIN;
-      if (e < total) {
-        const int c = list_c[e];
-        const long long row = list_row[e];
+      if (lane < n_b) {
+        c = queue_c[lane];
+        const long long row = queue_row[lane];
         int key = INT_MIN;
         if (p.mask == nullptr || p.mask[row] > 0.0f) {
           float sc = exact_dot<T>(p, row, q0 + c);
@@ -811,30 +795,62 @@ __global__ void __launch_bounds__(kTcThreads, Tc<T>::kMinBlocks) knn_scan_tc(TcA
         cand = composite(key, row);
         if (cand >= bound[c]) cand = LLONG_MIN;
       }
-      rcomp[tid] = cand;
-      __syncthreads();
-      const int m = min(kTcThreads, total - base);
-      for (int j0 = 0; j0 < m; j0 += 32) {
-        const int j = j0 + lane;
-        const int c = j < m ? list_c[base + j] : -1;
-        const bool mine = c >= 0 && c % kTcWarps == warp;
-        const long long cd = mine ? rcomp[j] : LLONG_MIN;
-        unsigned todo = __ballot_sync(0xFFFFFFFFu, mine);
-        while (todo) {
-          const int c0 = __shfl_sync(0xFFFFFFFFu, c, __ffs(todo) - 1);
-          const bool in = mine && c == c0;
-          todo &= ~__ballot_sync(0xFFFFFFFFu, in);
-          warp_offer(best + c0 * k, k, in ? cd : LLONG_MIN, lane);
-        }
+      // The rest of the queue moves to its front.
+      const int rest = have - n_b;
+      const int r_row = lane < rest ? queue_row[32 + lane] : 0;
+      const unsigned char r_c = lane < rest ? queue_c[32 + lane] : 0;
+      __syncwarp();
+      if (lane < rest) {
+        queue_row[lane] = r_row;
+        queue_c[lane] = r_c;
       }
-      __syncthreads();
+      have = rest;
+      __syncwarp();
+      // One merge per query present in the batch.
+      for (unsigned todo = __ballot_sync(0xFFFFFFFFu, c >= 0); todo != 0u;) {
+        const int c0 = __shfl_sync(0xFFFFFFFFu, c, __ffs(todo) - 1);
+        const bool in = c == c0;
+        todo &= ~__ballot_sync(0xFFFFFFFFu, in);
+        warp_merge(best + c0 * k, k, in ? cand : LLONG_MIN, lane);
+      }
     }
-    // The gate's thresholds: the better of this buffer's k-th key and any
-    // other CTA's (k rows anywhere that beat a row keep it out of the
-    // final top k, so the merged result is unchanged), published to all.
-    if (total > 0 && tid < NQ && q0 + tid < p.n_q) {
-      const int key = static_cast<int>(best[tid * k + k - 1] >> 32);
-      thr[tid] = threshold(max(key, atomicMax(p.kth + q0 + tid, key)), score);
+    __syncthreads();
+    // The gate's thresholds, by the warp that owns each query: a key that k
+    // rows anywhere reach keeps every row below it out of the final top k,
+    // so the merged result is unchanged. This buffer's key at rank r goes
+    // to the query's row of the published table (r rows of this CTA reach
+    // it); the row's m-th best key (m = ceil(k / r): m CTAs with r rows
+    // each, k rows in all) or this buffer's k-th key, whichever is better,
+    // goes to the query's shared key (atomicMax), and the best of those
+    // sets the threshold.
+    if (total > 0) {
+      const int n_ctas = gridDim.x;
+      const int r = min(k, max(1, (2 * k + n_ctas - 1) / n_ctas)), m = (k + r - 1) / r;
+      for (int c = warp; c < NQ && q0 + c < p.n_q; c += kTcWarps) {
+        int* pub = p.kth + p.n_q + static_cast<size_t>(q0 + c) * n_ctas;
+        if (lane == 0) pub[blockIdx.x] = static_cast<int>(best[c * k + r - 1] >> 32);
+        __syncwarp();
+        int key = static_cast<int>(best[c * k + k - 1] >> 32);
+        if (n_ctas <= 32 * kPubPerLane) {
+          unsigned v[kPubPerLane];  // the row, biased so that unsigned order is key order
+#pragma unroll
+          for (int i = 0; i < kPubPerLane; ++i) {
+            const int j = lane + 32 * i;
+            const unsigned key_j = j < n_ctas ? static_cast<unsigned>(__ldcg(pub + j)) : 0x80000000u;
+            v[i] = key_j ^ 0x80000000u;
+          }
+          unsigned t = 0u;  // the largest t with m keys >= t, bit by bit
+          for (int bit = 31; bit >= 0; --bit) {
+            const unsigned cand = t | (1u << bit);
+            int cnt = 0;
+#pragma unroll
+            for (int i = 0; i < kPubPerLane; ++i) cnt += v[i] >= cand;
+            if (static_cast<int>(__reduce_add_sync(0xFFFFFFFFu, cnt)) >= m) t = cand;
+          }
+          key = max(key, static_cast<int>(t ^ 0x80000000u));
+        }
+        if (lane == 0) thr[c] = threshold(max(key, atomicMax(p.kth + q0 + c, key)), score);
+      }
     }
     __syncthreads();
   }
@@ -880,6 +896,12 @@ __global__ void __launch_bounds__(kThreads) knn_merge(
   for (int i = lane; i < k; i += 32) out[static_cast<size_t>(q) * k + i] = mine[i];
 }
 
+// The launch's shared keys to INT_MIN.
+__global__ void fill_int(int* __restrict__ out, long long n, int v) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = v;
+}
+
 // ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
@@ -894,34 +916,6 @@ struct Slabs {
   long long chunk_rows;
   long long n_ctas;
 };
-
-template <typename T, bool kVector, bool kTiles>
-cudaError_t launch_fma_as(const float* qs, const T* rows, const float* aux, const float* mask,
-                          const long long* excl, long long* partial, int n_q, long long n, int d,
-                          int k, int score, Slabs slabs, cudaStream_t stream) {
-  const size_t smem = sizeof(long long) * kQueryTile * k +
-                      sizeof(float) * kDimChunk * (kRowStride + kQueryTile);
-  cudaError_t err = cudaFuncSetAttribute(knn_scan_fma<T, kVector, kTiles>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>(slabs.n_ctas), (n_q + kQueryTile - 1) / kQueryTile);
-  knn_scan_fma<T, kVector, kTiles><<<grid, kThreads, smem, stream>>>(
-      qs, rows, aux, mask, excl, slabs.order, slabs.n_live, partial, n_q, n, d, k, score,
-      slabs.slab_rows, slabs.chunk_rows);
-  return cudaGetLastError();
-}
-
-template <bool kTiles>
-cudaError_t launch_fma(const float* qs, const uint8_t* rows, const float* aux, const float* mask,
-                       const long long* excl, long long* partial, int n_q, long long n, int d,
-                       int k, int score, Slabs slabs, cudaStream_t stream) {
-  return vector_loads(rows, d)
-             ? launch_fma_as<uint8_t, true, kTiles>(qs, rows, aux, mask, excl, partial, n_q, n,
-                                                    d, k, score, slabs, stream)
-             : launch_fma_as<uint8_t, false, kTiles>(qs, rows, aux, mask, excl, partial, n_q, n,
-                                                     d, k, score, slabs, stream);
-}
 
 template <typename T, int NQ, bool kTiles>
 cudaError_t launch_tc_as(const TcArgs& p, const TcLayout& L, long long n_ctas,
@@ -971,11 +965,27 @@ cudaError_t grid_tc(int n_q, int d, int k, int* info) {
   }
 }
 
+// The scan of a corpus of T: 16-byte loads where D and both bases allow.
+template <typename T>
+cudaError_t launch_dtype(TcArgs p, const Slabs& slabs, cudaStream_t stream) {
+  p.vec = vector_loads(static_cast<const T*>(p.rows), p.d) && vector_loads(p.qs, p.d);
+  return slabs.order != nullptr ? launch_tc<T, true>(p, slabs.n_ctas, stream)
+                                : launch_tc<T, false>(p, slabs.n_ctas, stream);
+}
+
 int scan(const void* qs, const void* rows, int dtype, const void* aux, const void* mask,
          const void* excl, const void* qmeta, float m_abs, float m_aux, void* rescored,
          void* kth, void* partial, int n_q, long long n, int d, int k, int score, Slabs slabs,
          void* stream) {
+  if (qmeta == nullptr || kth == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
+  const long long n_keys = static_cast<long long>(n_q) * (1 + slabs.n_ctas);
+  fill_int<<<static_cast<unsigned>((n_keys + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+      static_cast<int*>(kth), n_keys, INT_MIN);
+  if (rescored != nullptr) {
+    const cudaError_t err = cudaMemsetAsync(rescored, 0, sizeof(unsigned long long), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const TcArgs p{static_cast<const float*>(qs), rows, static_cast<const float*>(aux),
                  static_cast<const float*>(mask), static_cast<const long long*>(excl),
                  static_cast<const float*>(qmeta), m_abs, m_aux,
@@ -983,36 +993,12 @@ int scan(const void* qs, const void* rows, int dtype, const void* aux, const voi
                  slabs.n_live,
                  static_cast<long long*>(partial), n_q, n, d, k, score, slabs.slab_rows,
                  slabs.chunk_rows, false};
-  const bool tiles = slabs.order != nullptr;
   cudaError_t err;
   switch (dtype) {
-    case 0:
-    case 1: {
-      if (qmeta == nullptr || kth == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-      TcArgs q = p;
-      if (dtype == 0) {
-        q.vec = vector_loads(static_cast<const float*>(rows), d) &&
-                vector_loads(static_cast<const float*>(qs), d);
-        err = tiles ? launch_tc<float, true>(q, slabs.n_ctas, s)
-                    : launch_tc<float, false>(q, slabs.n_ctas, s);
-      } else {
-        q.vec = vector_loads(static_cast<const __nv_bfloat16*>(rows), d) &&
-                vector_loads(static_cast<const float*>(qs), d);
-        err = tiles ? launch_tc<__nv_bfloat16, true>(q, slabs.n_ctas, s)
-                    : launch_tc<__nv_bfloat16, false>(q, slabs.n_ctas, s);
-      }
-      break;
-    }
-    case 2: {
-      auto r = static_cast<const uint8_t*>(rows);
-      err = tiles ? launch_fma<true>(p.qs, r, p.aux, p.mask, p.excl, p.partial, n_q, n, d, k,
-                                     score, slabs, s)
-                  : launch_fma<false>(p.qs, r, p.aux, p.mask, p.excl, p.partial, n_q, n, d, k,
-                                      score, slabs, s);
-      break;
-    }
-    default:
-      err = cudaErrorInvalidValue;
+    case 0: err = launch_dtype<float>(p, slabs, s); break;
+    case 1: err = launch_dtype<__nv_bfloat16>(p, slabs, s); break;
+    case 2: err = launch_dtype<uint8_t>(p, slabs, s); break;
+    default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }
@@ -1024,16 +1010,19 @@ extern "C" {
 // dtype: 0 f32, 1 bf16, 2 u8. score: 0 dot, 1 l2, 2 cosine. aux, mask and
 // excl may be null. qmeta: (n_q,) f32, per query kappa ||q|| of
 // kernels/knn.py:knn_margin (+inf: every pair re-scored), and m_abs, m_aux
-// its absolute and |aux| terms; kth: (n_q,) int32 set to INT_MIN, the
-// launch's shared k-th keys (f32 and bf16; null and ignored for u8).
-// rescored: one uint64 the launch adds its re-scored pairs to, or null.
-// partial: (ceil(n / slab_rows), n_q, k) int64.
+// its absolute and |aux| terms; kth: space for (n_q * (1 + n_ctas),) int32
+// (n_ctas: the grid's CTAs per query tile, ceil(n / slab_rows) here), which
+// the launch sets to INT_MIN: its shared keys and then each query's row of
+// the keys its CTAs publish; both required for every dtype. rescored: one
+// uint64 the launch zeroes and adds its re-scored pairs to, or null.
+// slab_rows: a multiple of 64 (the row tile). partial: (ceil(n /
+// slab_rows), n_q, k) int64.
 // Returns the cudaError_t of the launch (0 on success).
 int innr_knn_scan(const void* qs, const void* rows, int dtype, const void* aux,
                   const void* mask, const void* excl, const void* qmeta, float m_abs,
                   float m_aux, void* rescored, void* kth, void* partial, int n_q, long long n,
                   int d, int k, int score, int slab_rows, void* stream) {
-  if (n_q <= 0 || n <= 0 || d <= 0 || k <= 0 || slab_rows <= 0 || slab_rows % kRowTile != 0)
+  if (n_q <= 0 || n <= 0 || d <= 0 || k <= 0 || slab_rows <= 0 || slab_rows % kTcRows != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Slabs slabs{nullptr, nullptr, slab_rows, slab_rows, (n + slab_rows - 1) / slab_rows};
   return scan(qs, rows, dtype, aux, mask, excl, qmeta, m_abs, m_aux, rescored, kth, partial,
@@ -1070,11 +1059,7 @@ int innr_knn_grid(int dtype, int n_q, int d, int k, void* info) {
   switch (dtype) {
     case 0: err = grid_tc<float>(n_q, d, k, out); break;
     case 1: err = grid_tc<__nv_bfloat16>(n_q, d, k, out); break;
-    case 2:
-      out[0] = kQueryTile;
-      out[1] = 2;  // __launch_bounds__(kThreads, 2)
-      err = cudaSuccess;
-      break;
+    case 2: err = grid_tc<uint8_t>(n_q, d, k, out); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

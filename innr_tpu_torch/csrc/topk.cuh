@@ -63,4 +63,53 @@ __device__ void warp_offer(long long* buf, int k, long long c, int lane) {
   }
 }
 
+// Offer one candidate per lane to a warp-owned top-k buffer in one merge:
+// the candidates that beat the k-th best are sorted across the warp
+// (bitonic, descending); each goes to its rank in the merged order (its
+// lane plus the buffer entries above it, a binary search) and each buffer
+// entry to its index plus the candidates above it (a search over the
+// lanes), highest chunk first so that every entry is read before its slot
+// is written; whatever lands at k or later drops out. Composites are
+// unique, so the ranks are distinct. A lone candidate takes warp_insert.
+// All 32 lanes call, each buffer with its own candidates.
+__device__ void warp_merge(long long* buf, int k, long long c, int lane) {
+  c = c > buf[k - 1] ? c : LLONG_MIN;
+  const unsigned live = __ballot_sync(0xFFFFFFFFu, c != LLONG_MIN);
+  if (live == 0u) return;
+  if ((live & (live - 1u)) == 0u) {
+    warp_insert(buf, k, __shfl_sync(0xFFFFFFFFu, c, __ffs(live) - 1), lane);
+    return;
+  }
+  for (int size = 2; size <= 32; size <<= 1)
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const long long o = __shfl_xor_sync(0xFFFFFFFFu, c, stride);
+      const bool keep_max = ((lane & stride) == 0) == ((lane & size) == 0);
+      c = keep_max ? max(c, o) : min(c, o);
+    }
+  // Lane i now holds the i-th best candidate (LLONG_MIN past the live ones).
+  int rank = k;
+  if (c != LLONG_MIN) {
+    int lo = 0, hi = k;  // buffer entries above c: the first index not above it
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (buf[mid] > c) lo = mid + 1;
+      else hi = mid;
+    }
+    rank = lane + lo;
+  }
+  for (int base = ((k - 1) / 32) * 32; base >= 0; base -= 32) {
+    const int j = base + lane;
+    const long long v = j < k ? buf[j] : LLONG_MIN;
+    int above = 0;  // candidates above v (lanes sorted descending)
+    for (int step = 16; step > 0; step >>= 1)
+      if (__shfl_sync(0xFFFFFFFFu, c, above + step - 1) > v) above += step;
+    if (__shfl_sync(0xFFFFFFFFu, c, above) > v) ++above;
+    __syncwarp();
+    if (j < k && j + above < k) buf[j + above] = v;
+    __syncwarp();
+  }
+  if (rank < k) buf[rank] = c;
+  __syncwarp();
+}
+
 }  // namespace

@@ -10,9 +10,16 @@
 
 namespace {
 
+// Code b (0..3) of a word of four u8 codes, as f32: a byte permute makes
+// the f32 2^23 + c, and 2^23 comes off exactly (FP32 and integer pipes, not
+// the slower integer-to-float conversion).
+__device__ __forceinline__ float code_f32(unsigned w, int b) {
+  return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440u + b)) - 0x1p23f;
+}
+
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float widen(uint8_t x) { return static_cast<float>(x); }
+__device__ __forceinline__ float widen(uint8_t x) { return code_f32(x, 0); }
 
 __device__ __forceinline__ unsigned word(const uint4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
@@ -32,9 +39,7 @@ template <> struct Vec16<__nv_bfloat16> {
 };
 template <> struct Vec16<uint8_t> {
   static constexpr int kElems = 16;
-  __device__ static float get(const uint4& v, int j) {
-    return static_cast<float>((word(v, j >> 2) >> (8 * (j & 3))) & 0xFFu);
-  }
+  __device__ static float get(const uint4& v, int j) { return code_f32(word(v, j >> 2), j & 3); }
 };
 
 // 16-byte loads need D % kElems == 0 and a 16-byte aligned corpus.

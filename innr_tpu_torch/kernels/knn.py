@@ -2,11 +2,12 @@
 
 Replaces the TPU kernel ``innr_tpu/kernels/knn.py:_knn_kernel`` (launched by
 ``_fused_knn_raw``; ``_fused_knn_multi`` drives it for large k). The kernel
-is ``csrc/knn.cu`` (``knn_scan_tc`` for f32 and bf16 corpora: tensor-core
-scores, a gate within :func:`knn_margin`, an exact FP32 FMA re-score of the
-admitted pairs; the FMA scan ``knn_scan_fma`` for u8; then ``knn_merge``);
-its source note says what it computes, what bounds it on the H100 and what
-the design leaves on the table.
+is ``csrc/knn.cu`` (``knn_scan_tc`` for f32, bf16 and u8 corpora:
+tensor-core scores, 3xTF32 for f32, bf16 for bf16 and for u8 codes against
+the query's hi/lo bf16 split; a gate within :func:`knn_margin`; an exact
+FP32 FMA re-score of the admitted pairs; then ``knn_merge``); its source
+note says what it computes, what bounds it on the H100 and what the design
+leaves on the table.
 
 Selection runs on int64 composites of (int32 total-order key, row index)
 (:mod:`innr_tpu_torch.utils.order`): larger is better, ties go to the lower
@@ -44,8 +45,8 @@ from innr_tpu_torch.utils.padding import round_up
 # query tile where the buffers would not fit). Larger k runs as
 # exclusion-bounded passes.
 _K_MAX_PASS = 256
-# Slabs are whole tiles of kRowTile rows (csrc/knn.cu; the tensor-core
-# scan's 64-row tiles divide them).
+# Slabs are whole multiples of 128 rows (csrc/knn.cu takes any multiple of
+# its 64-row tile).
 _ROW_TILE = 128
 # The scan grid is whole waves of CTAs, and a partial last wave nearly
 # doubles the time when each CTA's work is large. K1 asks the library for
@@ -54,9 +55,9 @@ _ROW_TILE = 128
 # resident CTAs. Small k takes 4 waves; every slab fills a k-long sorted
 # buffer per query from empty, which dominates on short slabs at large k,
 # so a slab keeps at least _SLAB_ROWS_PER_K * k rows, down to a single
-# wave. The tensor-core scan (f32, bf16) takes one wave: each slab's
-# buffers admit about k (1 + ln(rows / k)) rows per query to the exact
-# re-score, so fewer, longer slabs re-score fewer pairs.
+# wave. K1 takes one wave: each slab's buffers admit about k (1 + ln(rows /
+# k)) rows per query to the exact re-score, so fewer, longer slabs re-score
+# fewer pairs.
 _RESIDENT_CTAS = 2
 _MAX_WAVES = 4
 _SLAB_ROWS_PER_K = 256
@@ -94,8 +95,8 @@ class KnnMargin(NamedTuple):
 
         T = kappa ||x|| ||q|| f + abs f + aux |a|
 
-    of the exact score s the FMA scan computes (f = |a| for cosine, else 1;
-    a the row's aux), for rows and queries with norms below 2^50."""
+    of the exact score s, the FMA chain's (f = |a| for cosine, else 1; a
+    the row's aux), for rows and queries with norms below 2^50."""
 
     kappa: float
     abs: float
@@ -105,7 +106,8 @@ class KnnMargin(NamedTuple):
 def knn_margin(d: int, dtype) -> tuple[KnnMargin, KnnMargin, KnnMargin]:
     """The margins the scan's gate uses for dimension D and a corpus of
     ``dtype`` (float32: 3xTF32 products; bfloat16: bf16 products of the
-    bf16-rounded query), indexed by score (0 dot, 1 l2, 2 cosine). With
+    bf16-rounded query; uint8: bf16 products of the codes and the query's
+    hi/lo bf16 split), indexed by score (0 dot, 1 l2, 2 cosine). With
     P = sum |x_i q_i| <= ||x|| ||q|| and u = 2^-24:
 
     - Operands. float32: the tensor core sums x_hi q_hi + x_hi q_lo +
@@ -114,17 +116,24 @@ def knn_margin(d: int, dtype) -> tuple[KnnMargin, KnnMargin, KnnMargin]:
       |q|) are truncated again; the dropped x_lo q_lo and the two
       truncations leave at most 3 2^-20 |x_i q_i| per product, and every
       product of two TF32 values is exact in f32. bfloat16: the products are
-      exact. The f32 accumulation in the tensor core, in an order and with
-      a rounding (truncation, possibly) the hardware does not state, adds
-      at most 2 (K + 16) 2^-23 (1 + 2^-8) P' over its K products (3 D,
-      with P' <= (1 + 2^-9) P, for float32; D and P for bf16), the term of
-      ``assign.shortlist_margin`` with the depth of a bf16 step (16).
-      Together eta P.
+      exact. uint8: codes 0..255 are exact in bf16 (8 significant bits);
+      q_hi = bf16(q) is within 2^-8 |q| of q (bf16's unit roundoff), q - q_hi
+      is exact in f32, and q_lo = bf16(q - q_hi) is within 2^-8 of that, so
+      x q_hi + x q_lo, two products exact in f32 (8 by 8 bits), is within
+      2^-16 |x_i q_i| of x_i q_i; |q_hi| + |q_lo| <= (1 + 2^-8)^2 |q|. The f32
+      accumulation in the tensor core, in an order and with a rounding
+      (truncation, possibly) the hardware does not state, adds at most
+      2 (K + 16) 2^-23 (1 + 2^-8) P' over its K products (3 D, with P' <=
+      (1 + 2^-9) P, for float32; D and P for bf16; 2 D and P' <= (1 + 2^-6)
+      P for uint8), the term of ``assign.shortlist_margin`` with the depth
+      of a bf16 step (16). Together eta P.
     - The FMA chain: gamma_D P with gamma_D = D u / (1 - D u). So the two
       dots differ by at most eps P + abs, eps = eta + gamma_D.
     - Subnormals: a flushed operand or low part, or an underflowing
-      product, costs at most 2^-126 (||x|| + ||q|| + 1) per term; with norms
-      below 2^50, abs = D 2^-74 covers 2 D of them.
+      product, costs at most 2^-126 (||x|| + ||q|| + 1) per term (uint8: a
+      flushed q_hi or q_lo, or an underflowing x q_lo, costs at most
+      255 2^-126 <= 2^-126 ||x||, two terms per dimension); with norms below
+      2^50, abs = D 2^-74 covers 2 D of them.
     - The mode's transform and the compare: dot s = dot, plus 2 u (1 + eps)
       P for the roundings of s~ +- T; l2 s = fl(a - 2 dot): 2 (eps P + abs)
       + 2 u |a| + 4 u (1 + eps) P, plus the compare; cosine s = fl(dot a):
@@ -142,6 +151,8 @@ def knn_margin(d: int, dtype) -> tuple[KnnMargin, KnnMargin, KnnMargin]:
     gamma = d * _U / (1.0 - d * _U)
     if dtype == torch.bfloat16:
         eta = 2 * (d + 16) * 2.0**-23 * (1 + 2.0**-8)
+    elif dtype == torch.uint8:
+        eta = 2.0**-16 + 2 * (2 * d + 16) * 2.0**-23 * (1 + 2.0**-8) * (1 + 2.0**-6)
     else:
         eta = 3 * 2.0**-20 + 2 * (3 * d + 16) * 2.0**-23 * (1 + 2.0**-8) * (1 + 2.0**-9)
     eps = eta + gamma
@@ -157,18 +168,19 @@ def query_terms(qs, dtype, score: int):
     """Per query ``kappa (||q|| + slack)`` as float32, +inf for a query
     that is not finite or whose norm is not below 2^50 (every pair of it is
     then re-scored); ``qs`` as the scan gets them (bf16 corpora: rounded to
-    bf16 first, as the kernel rounds them)."""
+    bf16 first, as the kernel rounds them; f32 and u8: as they are, the
+    norm of the exact re-score's operand)."""
     m = knn_margin(qs.shape[1], dtype)[score]
     q = qs.to(torch.bfloat16).float() if dtype == torch.bfloat16 else qs.float()
-    qn = torch.sqrt((q * q).sum(dim=1))
-    regular = torch.isfinite(qn) & (qn < _REGULAR_NORM)
-    return torch.where(regular, m.kappa * (qn + _NORM_SLACK), torch.inf).to(torch.float32)
+    qn = torch.linalg.vector_norm(q, dim=1)
+    # NaN and +inf norms fail the compare too.
+    return torch.where(qn < _REGULAR_NORM, qn, torch.inf).add_(_NORM_SLACK).mul_(m.kappa)
 
 
 def rescore_stats():
-    """``(rows, queries, pairs)`` of the last tensor-core scan launch (f32
-    or bf16 corpus, full or tile scan): its corpus rows, its queries and the
-    (row, query) pairs it re-scored exactly. Reads a device counter
+    """``(rows, queries, pairs)`` of the last scan launch (any corpus
+    dtype, full or tile scan): its corpus rows, its queries and the (row,
+    query) pairs it re-scored exactly. Reads a device counter
     (synchronises); None before any launch."""
     if _LAST_RESCORED is None:
         return None
@@ -300,23 +312,24 @@ def _grid(rows, n_q: int, k: int) -> tuple[int, int]:
 
 
 def _gate_terms(qs, rows, mode: str):
-    """The tensor-core scan's per-launch gate inputs: ``(qmeta, m_abs,
-    m_aux, kth, counter)`` (u8: no gate, ``(None, 0.0, 0.0, None,
-    None)``); kth, (Q,) int32 from INT32_MIN, carries the CTAs' shared
-    k-th keys; the counter, one int64, collects the re-scored pairs."""
-    if rows.dtype == torch.uint8:
-        return None, 0.0, 0.0, None, None
+    """The scan's per-launch gate inputs: ``(qmeta, m_abs, m_aux, counter)``;
+    the counter, one int64 the launch zeroes, collects the re-scored pairs."""
     score = _MODES[mode][0]
     m = knn_margin(qs.shape[1], rows.dtype)[score]
     qmeta = query_terms(qs, rows.dtype, score).contiguous()
-    kth = torch.full((qs.shape[0],), _INT32_MIN, dtype=torch.int32, device=rows.device)
-    return qmeta, m.abs, m.aux, kth, torch.zeros(1, dtype=torch.int64, device=rows.device)
+    return qmeta, m.abs, m.aux, torch.empty(1, dtype=torch.int64, device=rows.device)
+
+
+def shared_keys(n_q: int, n_ctas: int, dev) -> torch.Tensor:
+    """Space for the scan's shared keys, which the launch sets to INT32_MIN:
+    (Q * (1 + n_ctas),) int32, per query a key k rows reach, then each
+    query's row of the keys its n_ctas CTAs publish (csrc/knn.cu)."""
+    return torch.empty((n_q * (1 + n_ctas),), dtype=torch.int32, device=dev)
 
 
 def _note_rescored(rows, n_q: int, counter) -> None:
     global _LAST_RESCORED
-    if counter is not None:
-        _LAST_RESCORED = (rows.shape[0], n_q, counter)
+    _LAST_RESCORED = (rows.shape[0], n_q, counter)
 
 
 def _scan_pass(qs, rows, vals, mask, k: int, mode: str, bound) -> torch.Tensor:
@@ -329,15 +342,18 @@ def _scan_pass(qs, rows, vals, mask, k: int, mode: str, bound) -> torch.Tensor:
     n = rows.shape[0]
     q_tile, resident = _grid(rows, n_q, k)
     with torch.cuda.device(rows.device):
-        qmeta, m_abs, m_aux, kth, counter = _gate_terms(qs, rows, mode)
-    out = _scan_and_merge(
-        "knn_scan",
-        lambda partial, slab_rows, stream: lib.innr_knn_scan(
+        qmeta, m_abs, m_aux, counter = _gate_terms(qs, rows, mode)
+
+    def scan(partial, slab_rows, stream):
+        kth = shared_keys(n_q, -(-n // slab_rows), rows.device)
+        return lib.innr_knn_scan(
             qs.data_ptr(), rows.data_ptr(), _DTYPES[rows.dtype], _ptr(vals), _ptr(mask),
-            _ptr(bound), _ptr(qmeta), m_abs, m_aux, _ptr(counter), _ptr(kth), partial, n_q, n,
-            d, k, _MODES[mode][0], slab_rows, stream),
-        n_q, n, k, q_tile, _ROW_TILE, rows.device, resident,
-        _MAX_WAVES if rows.dtype == torch.uint8 else 1)
+            _ptr(bound), _ptr(qmeta), m_abs, m_aux, _ptr(counter), kth.data_ptr(), partial, n_q,
+            n, d, k, _MODES[mode][0], slab_rows, stream)
+
+    out = _scan_and_merge(
+        "knn_scan", scan,
+        n_q, n, k, q_tile, _ROW_TILE, rows.device, resident, 1)
     _note_rescored(rows, n_q, counter)
     LAUNCHES += 1
     LAUNCHES_BY_DTYPE[str(rows.dtype).removeprefix("torch.")] += 1

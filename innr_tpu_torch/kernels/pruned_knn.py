@@ -6,8 +6,8 @@ Replaces the TPU kernels of ``innr_tpu/kernels/pruned_knn.py``:
 - K14, ``_pruned_kernel`` (static grid, ``_pruned_raw``) and
   ``_pruned_outer_kernel`` (dynamic pipeline, ``_pruned_raw_dynamic``):
   one kernel here, K1's scan over a survivor tile list (``csrc/knn.cu``,
-  ``innr_knn_scan_tiles``: the tensor-core scan with its exact re-score for
-  f32 and bf16, the FMA scan for u8; then K1's ``knn_merge``);
+  ``innr_knn_scan_tiles``: the tensor-core scan with its exact re-score,
+  for f32, bf16 and u8 corpora; then K1's ``knn_merge``);
 - K15, ``_threshold_kernel_1q`` and ``_threshold_outer_kernel``: one
   kernel, ``threshold_scan`` (``csrc/pruned.cu``).
 
@@ -138,14 +138,15 @@ def _scan_tiles(qs, rows, vals, mask, order, n_surv, tile_n, k, mode, bound):
     wave = max(1, sms * resident // -(-n_q // q_tile))
     n_ctas = min(wave, chunks)
     with torch.cuda.device(dev):
-        qmeta, m_abs, m_aux, kth, counter = _knn._gate_terms(qs, rows, mode)
+        qmeta, m_abs, m_aux, counter = _knn._gate_terms(qs, rows, mode)
+        kth = _knn.shared_keys(n_q, n_ctas, dev)
         partial = torch.empty((n_ctas, n_q, k), dtype=torch.int64, device=dev)
         out = torch.empty((n_q, k), dtype=torch.int64, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.innr_knn_scan_tiles(
             qs.data_ptr(), rows.data_ptr(), _knn._DTYPES[rows.dtype], _knn._ptr(vals),
             _knn._ptr(mask), _knn._ptr(bound), _knn._ptr(qmeta), m_abs, m_aux,
-            _knn._ptr(counter), _knn._ptr(kth), order.data_ptr(), n_surv.data_ptr(),
+            _knn._ptr(counter), kth.data_ptr(), order.data_ptr(), n_surv.data_ptr(),
             partial.data_ptr(), n_q,
             n, d, k, _knn._MODES[mode][0], int(tile_n), _SCAN_CHUNK_ROWS, n_ctas, stream,
         )

@@ -13,7 +13,9 @@ results and times (CUDA events, median of 5) of the parts named in PARTS
 - ``knn``: K1's raw top-k ``(keys, idx)`` (``kernels.knn.
   fused_knn_keys_batch``) over Gaussian f32 10M x 128 and bf16 20M x 128
   corpora in the dot, l2 and cosine modes at Q in {1, 32} and k in {10,
-  1000}, and ``batch_knn_dot(..., prune=True)`` on the clustered,
+  1000}; over uniform u8 codes, 1M and 4M x 768, in the same modes at Q in
+  {1, 32} and k in {10, 80, 1000} (80: ``TwoStageIndex``'s u8 coarse pass);
+  and ``batch_knn_dot(..., prune=True)`` on the clustered,
   cluster-ordered 10M x 128 corpus of ``chip_smoke.py``'s pruning cells
   (Q = 32, k = 10);
 - ``maxsim``: the f32 MaxSim scores (``kernels.maxsim_kernel.
@@ -204,6 +206,22 @@ def knn_part(itt, tk, out: dict, times: dict, dev) -> None:
                 q = tk._unit_queries(q) if mode == "cosine" else q
                 for k in (10, 1000):
                     key = f"{name}_{mode}_q{n_q}_k{k}"
+                    out[key] = tuple(t.cpu() for t in tk.fused_knn_keys_batch(
+                        q, rows, aux[mode], k, mode))
+                    times[f"{key}_ms"] = median_ms(
+                        lambda: tk.fused_knn_keys_batch(q, rows, aux[mode], k, mode))
+        del rows, aux
+        torch.cuda.empty_cache()
+    q768 = torch.randn((32, 768), generator=gen, device=dev)
+    for n in (1_000_000, 4_000_000):
+        rows = torch.randint(0, 256, (n, 768), generator=gen, device=dev, dtype=torch.uint8)
+        aux = {"dot": None, "l2": tk._norms2(rows), "cosine": tk.inv_norms(rows)}
+        for mode in MODES:
+            for n_q in (1, 32):
+                q = q768[:n_q].contiguous()
+                q = tk._unit_queries(q) if mode == "cosine" else q
+                for k in (10, 80, 1000):
+                    key = f"u8_{n // 1_000_000}M_{mode}_q{n_q}_k{k}"
                     out[key] = tuple(t.cpu() for t in tk.fused_knn_keys_batch(
                         q, rows, aux[mode], k, mode))
                     times[f"{key}_ms"] = median_ms(

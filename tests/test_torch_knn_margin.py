@@ -2,11 +2,12 @@
 its margin (``innr_tpu_torch.kernels.knn.knn_margin``), emulated on the CPU.
 
 The kernel scores every (row, query) pair on the tensor cores (3xTF32 for
-an f32 corpus, bf16 for bf16), admits a pair when its approximate score plus
-the margin T could still reach the query's current k-th best exact score,
-and re-scores the admitted pairs exactly. These tests emulate the
-approximate scores in float64 from the operands' 3xTF32 parts (bf16: the
-operands), each
+an f32 corpus, bf16 for bf16, bf16 for u8 codes against the query's hi/lo
+bf16 split), admits a pair when its approximate score plus the margin T
+could still reach the query's current k-th best exact score, and re-scores
+the admitted pairs exactly. These tests emulate the approximate scores in
+float64 from the operands' 3xTF32 parts (bf16: the operands; u8: the codes
+and the split query's two parts), each
 pushed by the tensor core's worst accumulation error in the direction that
 hurts (the exact top-k members down, every other row up), build T from the
 same pieces the kernel uses (``knn.query_terms``, ``knn_margin``, row norms
@@ -15,9 +16,12 @@ summed in float32), and check that
 - the gate admits every member of ``knn_plain``'s exact top-k against the
   final k-th best score;
 - a streaming emulation of the kernel (slabs of 64-row tiles, each query's
-  threshold from its buffer or the k-th key another slab published,
-  admitted rows offered with their exact composites, slabs merged) equals
-  ``knn_plain`` bit for bit;
+  threshold from its buffer's k-th key, the best k-th key another slab
+  published, or the m-th best of the keys the slabs publish at rank r
+  (m r >= k), on a
+  slab's first tile also the k-th best of its rows' bounds s~ - T (l2:
+  s~ + T) when k <= 64, admitted rows offered with their exact composites,
+  slabs merged) equals ``knn_plain`` bit for bit;
 - a margin cut 8 times misses members on the same data, so the checks are
   not vacuous.
 
@@ -26,8 +30,18 @@ row), f32 rows of odd integers in [2049, 4095] whose low bit TF32 drops,
 f32 operands with every low mantissa bit set (the largest low parts),
 bf16 integer rows whose products and sums are exact (only the pushed
 accumulation error separates the scores), Gaussian rows with NaN / +-inf /
--0.0 planted; every mode (masked forms too), D in {1, 7, 128, 130, 768}, k
-in {1, 10, 257}. No tolerance: the comparisons are exact.
+-0.0 planted; u8 codes with 0 and 255 planted against Gaussian queries
+(24 significant bits, which the split cuts to about 16) and tiny queries
+(low parts subnormal), or queries holding NaN, +-inf and -0.0; every mode
+(masked forms too), D in {1, 7, 128, 130, 768}, k in {1, 10, 257}. No
+tolerance: the comparisons are exact.
+
+``TestWarpMerge`` mirrors ``topk.cuh:warp_merge`` lane by lane (the
+bitonic sort across the warp, the ranks, the in-place writes highest chunk
+first) against a sort of the union. ``TestU8Layout`` mirrors the u8 scan's
+register layout: the A fragment each
+thread builds from its 16-byte loads (codes widened to bf16 through f32),
+``Tc<uint8_t>::perm_dim`` and the query staging, on a 256-dimension chunk.
 """
 
 import numpy as np
@@ -60,6 +74,24 @@ def _tf32(a):
     return (np.ascontiguousarray(a, np.float32).view(np.int32) & ~0x1FFF).view(np.float32)
 
 
+def _bf16(a):
+    """float32 values rounded to bf16 (to nearest, ties to even, on the
+    float32 bits), as float32; NaN stays NaN."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32).astype(np.uint64)
+    rounded = ((bits + 0x7FFF + ((bits >> 16) & 1)) >> 16 << 16).astype(np.uint32)
+    return np.where(np.isnan(a), a, rounded.view(np.float32)).astype(np.float32)
+
+
+def _split(q):
+    """The u8 scan's query parts: q_hi = bf16(q), q_lo = bf16(q - q_hi), 0
+    where q is not finite (innr_tpu/kernels/knn.py's split)."""
+    q = np.asarray(q, np.float32)
+    hi = _bf16(q)
+    with np.errstate(invalid="ignore"):
+        lo = np.where(np.isfinite(q), _bf16(q - hi), np.float32(0.0))
+    return hi, lo.astype(np.float32)
+
+
 def _threshold(key: int, score: int) -> np.float32:
     """csrc/knn.cu:threshold: the exact score a k-th key stands for, or
     +-inf (open) while it is INT_MIN."""
@@ -84,6 +116,15 @@ def _data(rng, kind: str, n: int, d: int, n_q: int):
     elif kind == "int16":  # bf16: exact products and sums
         rows = rng.integers(-255, 256, (n, d)).astype(np.float32)
         qs = rng.integers(-8, 9, (n_q, d)).astype(np.float32)
+    elif kind in ("codes", "codes_nonfinite"):  # u8
+        rows = rng.integers(0, 256, (n, d)).astype(np.float32)
+        rows[5], rows[6], rows[7, ::2] = 0, 255, 255
+        qs = rng.standard_normal((n_q, d)).astype(np.float32)
+        qs[1] *= np.float32(1e-37)  # low parts subnormal or flushed
+        if kind == "codes_nonfinite":
+            qs[1, 0] = np.nan
+            qs[2, ::3] = -0.0
+            qs[2, min(1, d - 1)] = -np.inf
     else:  # Gaussian, f32 or bf16, with non-finite rows
         rows = (rng.standard_normal((n, d)) * rng.choice([0.01, 1.0, 300.0])).astype(np.float32)
         qs = rng.standard_normal((n_q, d)).astype(np.float32)
@@ -93,10 +134,14 @@ def _data(rng, kind: str, n: int, d: int, n_q: int):
     src = rng.integers(0, n // 2, 24)
     rows[n // 2:n // 2 + 12] = rows[src[:12]]  # exact duplicates
     ulp = rows[src[12:]].copy()
-    ulp[:, 0] = np.nextafter(ulp[:, 0], np.float32(np.inf))  # 1 ulp apart
+    if kind.startswith("codes"):  # one code apart
+        ulp[:, 0] = np.where(ulp[:, 0] < 255, ulp[:, 0] + 1, 254)
+    else:
+        ulp[:, 0] = np.nextafter(ulp[:, 0], np.float32(np.inf))  # 1 ulp apart
     rows[n // 2 + 12:n // 2 + 24] = ulp
     qs[0] = rows[src[0]]
-    dtype = torch.bfloat16 if kind in ("int16", "gauss16") else torch.float32
+    dtype = {"int16": torch.bfloat16, "gauss16": torch.bfloat16, "codes": torch.uint8,
+             "codes_nonfinite": torch.uint8}.get(kind, torch.float32)
     return torch.from_numpy(rows).to(dtype), torch.from_numpy(qs)
 
 
@@ -130,6 +175,8 @@ class Gate:
         with np.errstate(all="ignore"):
             if bf16:  # exact products
                 parts = [(q, x)]
+            elif rows.dtype == torch.uint8:  # exact products of codes and both parts
+                parts = [(part, x) for part in _split(q)]
             else:  # 3xTF32: x_hi q_hi + x_hi q_lo + x_lo q_hi, low parts truncated
                 x_hi, q_hi = _tf32(x), _tf32(q)
                 parts = [(q_hi, x_hi), (_tf32(q - q_hi), x_hi), (q_hi, _tf32(x - x_hi))]
@@ -177,22 +224,47 @@ class Gate:
                 return False
         return True
 
+    def tile_bound(self, q: int, lo: int, hi: int) -> np.float32:
+        """csrc/knn.cu's first-tile threshold: the k-th best of the passing
+        rows' s~ - T (l2: the k-th smallest s~ + T), or the open threshold
+        when k > 64 or fewer than k rows have one."""
+        st, t = self.st[q, lo:hi], self.t[q, lo:hi]
+        with np.errstate(all="ignore"):
+            b = -(st + t) if self.score == 1 else st - t
+        b = np.where(self.passing[lo:hi] & ~np.isnan(b), b, np.float32(-np.inf))
+        kth = np.sort(b)[::-1][self.k - 1] if self.k <= min(_TILE, b.size) else -np.inf
+        if kth == -np.inf:
+            return np.float32(np.inf if self.score == 1 else -np.inf)
+        return np.float32(-kth if self.score == 1 else kth)
+
+    def better(self, a: np.float32, b: np.float32) -> np.float32:
+        return min(a, b) if self.score == 1 else max(a, b)
+
     def stream(self) -> np.ndarray:
         """The kernel's selection: per slab, tiles of 64 rows gated at the
         better of the buffer's k-th key and the best one any slab has
-        published (the slabs here run in turn), admitted rows offered
-        exactly; slabs merged."""
+        published (the slabs here run in turn), and on the slab's first
+        tile the tile's bound; admitted rows offered exactly; slabs
+        merged."""
         n_q, n = self.comp.shape
-        k = self.k
+        k, n_slabs = self.k, -(-n // _SLAB)
+        r = min(k, max(1, -(-2 * k // n_slabs)))  # each slab publishes its key at rank r
+        m = -(-k // r)
         out = np.empty((n_q, k), np.int64)
         for q in range(n_q):
-            parts, shared = [], _INT_MIN
+            parts, shared, pub = [], _INT_MIN, [_INT_MIN] * n_slabs
             for s0 in range(0, n, _SLAB):
                 buf = np.full(k, _EMPTY, np.int64)
                 for t0 in range(s0, min(n, s0 + _SLAB), _TILE):
                     t1 = min(n, s0 + _SLAB, t0 + _TILE)
-                    shared = max(shared, int(buf[-1]) >> 32)
-                    adm = self.admit(q, t0, t1, _threshold(shared, self.score))
+                    # A key k rows reach: this buffer's k-th, or the m-th best
+                    # key the slabs published (m slabs with r rows each).
+                    pub[s0 // _SLAB] = int(buf[r - 1]) >> 32
+                    shared = max(shared, int(buf[-1]) >> 32, sorted(pub)[::-1][m - 1])
+                    thr = _threshold(shared, self.score)
+                    if t0 == s0:
+                        thr = self.better(thr, self.tile_bound(q, t0, t1))
+                    adm = self.admit(q, t0, t1, thr)
                     cand = self.comp[q, t0:t1][adm]
                     buf = np.sort(np.concatenate([buf, cand]))[::-1][:k]
                 parts.append(buf)
@@ -201,7 +273,8 @@ class Gate:
 
 
 CASES = [("odd", torch.float32), ("lowbits", torch.float32), ("gauss", torch.float32),
-         ("int16", torch.bfloat16), ("gauss16", torch.bfloat16)]
+         ("int16", torch.bfloat16), ("gauss16", torch.bfloat16), ("codes", torch.uint8),
+         ("codes_nonfinite", torch.uint8)]
 
 
 class TestGate:
@@ -217,11 +290,12 @@ class TestGate:
         assert gate.members_admitted()
         np.testing.assert_array_equal(gate.stream(), gate.top)
 
-    @pytest.mark.parametrize("kind", ["lowbits", "int16"])
+    @pytest.mark.parametrize("kind", ["lowbits", "int16", "codes"])
     def test_a_cut_margin_misses_members(self, rng, kind):
         """f32 operands whose every low mantissa bit is set, positive
-        queries (the low parts at their largest), and bf16 scores that
-        differ only by the pushed accumulation error: a margin 8 times
+        queries (the low parts at their largest), and bf16 scores, or u8
+        codes against positive queries, that differ only by the pushed
+        accumulation error (and the split's residue): a margin 8 times
         smaller than knn_margin's then drops exact members."""
         missed = 0
         for d in (1, 7, 128):
@@ -273,6 +347,42 @@ class TestMargin:
         k16 = tk.query_terms(qs, torch.bfloat16, 0)
         assert float(k16[0]) == pytest.approx(tk.knn_margin(2, torch.bfloat16)[0].kappa, rel=1e-6)
 
+    def test_u8_margin_covers_the_split(self):
+        """Two bf16 products per pair and dimension, and the split's residue
+        of up to 2^-16 per product: above bf16's margin, and at least twice
+        the residue (the safety factor)."""
+        for d in (1, 128, 768):
+            u8, bf16 = tk.knn_margin(d, torch.uint8), tk.knn_margin(d, torch.bfloat16)
+            for s in range(3):
+                assert bf16[s].kappa < u8[s].kappa < 0.03
+                assert u8[s].abs == bf16[s].abs and u8[s].aux == bf16[s].aux
+            assert u8[0].kappa > 2 * 2.0**-16
+
+    def test_split_residue_within_2_to_the_minus_16(self, rng):
+        """q_hi + q_lo is within 2^-16 |q| of q, and both parts are bf16."""
+        q = (rng.standard_normal(100_000) * 2.0 ** rng.integers(-60, 60, 100_000)).astype(
+            np.float32)
+        hi, lo = _split(q)
+        for part in (hi, lo):
+            assert (part.view(np.uint32) & 0xFFFF == 0).all()
+        res = np.abs(q.astype(np.float64) - hi.astype(np.float64) - lo.astype(np.float64))
+        assert (res <= 2.0**-16 * np.abs(q.astype(np.float64))).all()
+        assert res.max() > 0  # the split drops bits of 24-bit queries
+
+    def test_bf16_rounding_matches_torch(self, rng):
+        q = np.concatenate([rng.standard_normal(10_000).astype(np.float32),
+                            np.array([np.inf, -np.inf, -0.0, 3.4e38, 1e-40, 1 + 2.0**-8,
+                                      1 + 3 * 2.0**-8], np.float32)])
+        want = torch.from_numpy(q).to(torch.bfloat16).float().numpy()
+        np.testing.assert_array_equal(_bf16(q).view(np.uint32), want.view(np.uint32))
+
+    def test_query_terms_u8_takes_the_query_as_is(self):
+        qs = torch.tensor([[1.0 + 2.0**-12, 0.0], [np.inf, 0.0]], dtype=torch.float32)
+        k8 = tk.query_terms(qs, torch.uint8, 0)
+        kappa = tk.knn_margin(2, torch.uint8)[0].kappa
+        assert float(k8[0]) == pytest.approx(kappa * (1.0 + 2.0**-12), rel=1e-7)
+        assert torch.isinf(k8[1])
+
     def test_huge_d_admits_everything(self):
         for m in tk.knn_margin(2**24, torch.float32):
             assert m.kappa == float("inf")
@@ -280,3 +390,157 @@ class TestMargin:
     def test_rescore_stats_before_any_launch(self, monkeypatch):
         monkeypatch.setattr(tk, "_LAST_RESCORED", None)
         assert tk.rescore_stats() is None
+
+
+def _u8_perm_dim(kk: int) -> int:
+    """csrc/knn.cu: Tc<uint8_t>::perm_dim."""
+    s, q = kk >> 4, kk & 15
+    return 64 * (s >> 2) + 16 * ((q & 7) >> 1) + 4 * (s & 3) + (q & 1) + 2 * (q >> 3)
+
+
+def _codes_bf16x2(w: int, h: int) -> int:
+    """csrc/knn.cu: codes_bf16x2, on the bits: byte permutes into the f32
+    2^23 + c, minus 2^23 in float32, the top halves packed."""
+    def perm(x, y, sel):
+        pool = [(x >> (8 * i)) & 0xFF for i in range(4)] + [(y >> (8 * i)) & 0xFF for i in range(4)]
+        return sum(pool[(sel >> (4 * i)) & 7] << (8 * i) for i in range(4))
+
+    def code_f32(sel):
+        bits = np.array([perm(w, 0x4B000000, sel)], np.uint32)
+        return int((bits.view(np.float32) - np.float32(2.0**23)).view(np.uint32)[0])
+
+    return perm(code_f32(0x7440 + 2 * h), code_f32(0x7441 + 2 * h), 0x7632)
+
+
+class TestU8Layout:
+    """The u8 scan's registers and staging, on one 256-dimension chunk of a
+    64-row tile: mma.cuh's A fragment (thread t holds rows 16 (t / 32) +
+    (t % 32) / 4 and + 8; a0 / a1 the k positions 2 (t % 4) and + 1, a2 /
+    a3 those + 8, a bf16x2 word each), load_rows' vectors (quad thread t %
+    4 takes 16 codes at 16 (t % 4) + 64 j), the query staging (K-major
+    bf16, 8 per 16-byte column chunk, k positions permuted as perm_dim) and
+    the B descriptor of k-step s (base + 2 NQ 16 s bytes, leading offset NQ
+    16 bytes)."""
+
+    CHUNK, NQ = 256, 8
+
+    def test_perm_dim_is_a_bijection_of_the_chunk(self):
+        dims = [_u8_perm_dim(kk) for kk in range(self.CHUNK)]
+        assert sorted(dims) == list(range(self.CHUNK))
+
+    def test_widening_is_exact_for_every_code(self):
+        codes = np.arange(256)
+        want = torch.from_numpy(codes.astype(np.float32)).to(torch.bfloat16).view(
+            torch.int16).numpy().astype(np.uint16)
+        for c0 in range(0, 256, 4):
+            w = int(c0 | (c0 + 1) << 8 | (c0 + 2) << 16 | (c0 + 3) << 24)
+            for h in (0, 1):
+                got = _codes_bf16x2(w, h)
+                assert got & 0xFFFF == want[c0 + 2 * h]
+                assert got >> 16 == want[c0 + 2 * h + 1]
+
+    def test_a_fragment_and_query_staging_meet_dimension_for_dimension(self, rng):
+        """The tensor core's product over the chunk pairs row dimension i
+        with query dimension i, for every k-step, thread and register."""
+        x = rng.integers(0, 256, (64, self.CHUNK)).astype(np.uint8)
+        q = rng.standard_normal((self.NQ, self.CHUNK)).astype(np.float32)
+        # A (64 x 256 k positions) as the threads' registers supply it.
+        a = np.full((64, self.CHUNK), -1.0)
+        for t in range(128):
+            g, quad = 16 * (t // 32) + (t % 32) // 4, t % 4
+            vec = [[x[g + 8 * h, 16 * quad + 64 * j:16 * quad + 64 * j + 16] for j in range(4)]
+                   for h in (0, 1)]
+            for st in range(16):
+                words = [int.from_bytes(vec[h][st >> 2][4 * (st & 3):4 * (st & 3) + 4].tobytes(),
+                                        "little") for h in (0, 1)]
+                regs = [_codes_bf16x2(words[0], 0), _codes_bf16x2(words[1], 0),
+                        _codes_bf16x2(words[0], 1), _codes_bf16x2(words[1], 1)]
+                for r, reg in enumerate(regs):
+                    row, k0 = g + 8 * (r & 1), 16 * st + 2 * quad + 8 * (r >> 1)
+                    for e in (0, 1):
+                        half = np.array([(reg >> (16 * e)) & 0xFFFF], np.uint16)
+                        a[row, k0 + e] = torch.from_numpy(half.view(np.int16)).view(
+                            torch.bfloat16).float().item()
+        perm = np.array([_u8_perm_dim(kk) for kk in range(self.CHUNK)])
+        np.testing.assert_array_equal(a, x[:, perm].astype(np.float64))
+        # B: stage_queries' K-major buffer, read through each step's descriptor.
+        for part in _split(q):
+            buf = np.full(self.NQ * self.CHUNK, np.nan, np.float32)
+            for r in range(self.NQ):
+                for kk in range(self.CHUNK):
+                    buf[(kk // 8) * self.NQ * 8 + r * 8 + kk % 8] = part[r, perm[kk]]
+            b = np.empty((self.NQ, self.CHUNK), np.float32)
+            for st in range(16):
+                for kp in range(16):
+                    at = st * 2 * self.NQ * 8 + (kp // 8) * self.NQ * 8 + np.arange(self.NQ) * 8
+                    b[:, 16 * st + kp] = buf[at + kp % 8]
+            np.testing.assert_array_equal(b, part[:, perm])
+
+    def test_word_loads_equal_vector_loads(self, rng):
+        """Rows whose D is not a multiple of 16: Tc<uint8_t>::word_of packs
+        four codes from col, zeros past d, the bytes a 16-byte load of the
+        zero-padded row would give."""
+        for d in (1, 7, 127, 130):
+            row = rng.integers(0, 256, d).astype(np.uint8)
+            padded = np.zeros(-(-d // 256) * 256, np.uint8)
+            padded[:d] = row
+            for col in range(0, padded.size, 4):
+                word = sum(int(row[col + b]) << (8 * b) for b in range(4) if col + b < d)
+                assert word == int.from_bytes(padded[col:col + 4].tobytes(), "little")
+
+
+def _warp_merge(buf, cand):
+    """csrc/topk.cuh: warp_merge of one candidate per lane (32) into the
+    sorted buffer ``buf`` (k,), step by step as the warp runs it."""
+    buf, k, lanes = buf.copy(), buf.size, np.arange(32)
+    c = np.where(cand > buf[-1], cand, _EMPTY)
+    live = c != _EMPTY
+    if not live.any():
+        return buf
+    if live.sum() == 1:  # warp_insert
+        return np.sort(np.append(buf, c[live]))[::-1][:k]
+    size = 2
+    while size <= 32:
+        stride = size // 2
+        while stride:
+            o = c[lanes ^ stride]
+            keep_max = ((lanes & stride) == 0) == ((lanes & size) == 0)
+            c = np.where(keep_max, np.maximum(c, o), np.minimum(c, o))
+            stride //= 2
+        size *= 2
+    rank = np.full(32, k)
+    for lane in lanes[c != _EMPTY]:
+        lo, hi = 0, k
+        while lo < hi:
+            mid = (lo + hi) // 2
+            lo, hi = (mid + 1, hi) if buf[mid] > c[lane] else (lo, mid)
+        rank[lane] = lane + lo
+    for base in range((k - 1) // 32 * 32, -1, -32):
+        j = base + lanes
+        v = np.where(j < k, buf[np.minimum(j, k - 1)], _EMPTY)
+        above = np.zeros(32, int)
+        for step in (16, 8, 4, 2, 1):
+            above = np.where(c[above + step - 1] > v, above + step, above)
+        above = np.where(c[above] > v, above + 1, above)
+        for lane in lanes[(j < k) & (j + above < k)]:
+            buf[j[lane] + above[lane]] = v[lane]
+    for lane in lanes[rank < k]:
+        buf[rank[lane]] = c[lane]
+    return buf
+
+
+class TestWarpMerge:
+    @pytest.mark.parametrize("k", [1, 2, 10, 32, 33, 80, 256])
+    @pytest.mark.parametrize("n_live", [0, 1, 2, 7, 32])
+    def test_merge_equals_the_top_k_of_the_union(self, rng, k, n_live):
+        for fill in (k, k // 2):  # a full buffer, and one with empty slots
+            pool = rng.choice(2**62, 4 * k + 64, replace=False).astype(np.int64)
+            buf = np.full(k, _EMPTY, np.int64)
+            buf[:fill] = np.sort(pool[:fill])[::-1]
+            cand = np.full(32, _EMPTY, np.int64)
+            lanes = rng.choice(32, n_live, replace=False)
+            cand[lanes] = pool[k:k + n_live]
+            if n_live > 2:
+                cand[lanes[0]] = -(2**62)  # below the buffer's k-th when it is full
+            want = np.sort(np.concatenate([buf, cand]))[::-1][:k]
+            np.testing.assert_array_equal(_warp_merge(buf, cand), want)
