@@ -174,6 +174,31 @@ and imports nothing of JAX. Phases:
               the rate scripts/packed_probe.py measured) is printed beside
               its time.
 
+5. slice    — the repairs and the mutable serving path, each path with the
+              launch counters reset just before it and read just after:
+              a. ties: IVFIndex on integer-valued clustered 1M x 128 corpora
+                 (1024 clusters; the layout permutes the rows, scores tie
+                 exactly) equal to batch_knn* bit for bit in dot, l2 and
+                 cosine at k = 1, 10, 256 and 259;
+              b. long sparse queries: Lq = 8193 and 20,000 at Q = 1 and 16
+                 (and 8193 at k = 256) over 3f's WordPiece corpus with
+                 integer values, the kernel (its table in global memory
+                 where one query's does not fit in shared memory) equal to
+                 the plain version bit for bit, with ms, bound and launches;
+              c. SegmentedCorpus: 10M x 128 f32 in 8 segments, 4% deleted,
+                 knn_dot / knn / knn_cosine at Q = 32, k = 10 and 300 equal
+                 to one batch_knn* scan of the alive rows bit for bit,
+                 before and after compact(); search and compact ms, K1
+                 launches per search, an npz round trip at 100K rows;
+              d. MicroBatcher over the compacted corpus: direct QPS at b = 1,
+                 8, 32, coalesced QPS of 96 single-query client threads,
+                 every answer equal to a direct batched call bit for bit,
+                 the batch histogram, the cost of padding 17 queries to 24;
+                 one window through an IVFIndex;
+              e. the host encoders (binary, ternary, u8 at 1M x 768; MinHash
+                 of 100K documents) equal to the device encoders bit for
+                 bit, host ms beside device ms.
+
 Every failed check raises, so the exit code is non-zero. The last two lines
 are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
 """
@@ -202,6 +227,12 @@ N_SPARSE, ENTRIES, VOCAB, QUERY_NNZ = 10_000_000, 32, 30_522, 64
 # ColBERT, colbert/infra/config/settings.py: dim 128, query_maxlen 32,
 # doc_maxlen 180) over 200K documents, a TREC-COVID-sized BEIR corpus.
 N_MAXSIM, MAXSIM_TD, MAXSIM_D, MAXSIM_TQ = 200_000, 180, 128, 32
+# The slice's cells (5): the ties corpus and its IVF clusters; the
+# SegmentedCorpus (8 segments of 1.25M rows: 10M x 128); the host encoders'
+# rows (x 768) and MinHash documents (x 64 shingles, 128 slots).
+N_TIES, TIES_CLUSTERS = 1 << 20, 1024
+N_SEGMENTS, SEGMENT_ROWS = 8, 1_250_000
+N_LOADER, N_MINHASH_DOCS = 1_000_000, 100_000
 
 # Published peaks of one H100 SXM (NVIDIA's H100 datasheet): HBM at
 # 3.35 TB/s, FP32 SIMT at 67 TFLOP/s, dense tensor cores at 989 TFLOP/s in
@@ -1351,16 +1382,7 @@ def phase_prune(dev, full_ms: float, errs: dict, bounds: dict,
     total = {}
 
     def path(name: str, must: list, run):
-        """Counters from zero, ``run()``, counters read; every kernel in
-        ``must`` launched, K1 only where allowed."""
-        reset_counts()
-        out = run()
-        torch.cuda.synchronize()
-        counts = read_counts()
-        _check_path(name, counts, must)
-        for key, v in counts.items():
-            total[key] = total.get(key, 0) + v
-        return out, counts
+        return _run_path(name, must, run, total)
 
     for b, batch in (("f32", vb), ("bf16", vb16)):
         kernel = f"knn_scan_tiles+knn_merge<{'float32' if b == 'f32' else 'bfloat16'}>"
@@ -2326,6 +2348,441 @@ def phase_maxsim(dev, errs: dict, bounds: dict) -> tuple[dict, dict]:
     return counts, times
 
 
+# -- phase 5: the slice's repairs and the mutable serving path --------------
+
+def _run_path(name: str, must: list, run, total: dict):
+    """Counters from zero, ``run()``, a sync, counters read: every kernel in
+    ``must`` launched; the counts add to ``total``. Returns ``(result,
+    counts)``."""
+    import torch
+
+    reset_counts()
+    out = run()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    _check_path(name, counts, must)
+    for key, v in counts.items():
+        total[key] = total.get(key, 0) + v
+    return out, counts
+
+
+def _int_clustered(gen, n: int, n_centers: int, dev):
+    """Integer-valued clustered rows: centres in [-8, 8], each row its centre
+    plus integer noise in [-2, 2], in random order. Every dot and squared
+    distance is an exact integer, and many rows tie exactly."""
+    import torch
+
+    centers = torch.randint(-8, 9, (n_centers, 128), generator=gen, device=dev).float()
+    assign = torch.randint(0, n_centers, (n,), generator=gen, device=dev)
+    rows = torch.empty((n, 128), device=dev)
+    for s in range(0, n, 1 << 20):
+        e = min(n, s + (1 << 20))
+        rows[s:e] = centers[assign[s:e]] + torch.randint(-2, 3, (e - s, 128), generator=gen,
+                                                         device=dev)
+    return rows, centers
+
+
+def phase_ties(dev, total: dict):
+    """5a (ROADMAP F2): IVFIndex against the full scan on integer-valued
+    clustered corpora (1M x 128, 1024 clusters), where the layout permutes
+    the rows and scores tie exactly: dot, l2 and cosine, k in {1, 10, 256,
+    259} (259: K1's two passes over the layout with the row-id map), bit for
+    bit. Returns the dot index and its queries for phase 5d."""
+    import numpy as np
+    import torch
+
+    import innr_tpu_torch as itt
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    n, n_clusters, n_q = N_TIES, TIES_CLUSTERS, 8
+    rows, centers = _int_clustered(gen, n, n_clusters, dev)
+    qs = centers[:n_q] + torch.randint(-1, 2, (n_q, 128), generator=gen, device=dev)
+    vb = itt.VerticalBatch(rows)
+    full = {"dot": itt.batch_knn_dot, "l2": itt.batch_knn, "cosine": itt.batch_knn_cosine}
+    kept = None
+    for metric, fn in full.items():
+        index, _ = _run_path(f"IVFIndex build ({metric})", ["nearest_centroid<float32>"],
+                             lambda: itt.IVFIndex(rows, n_clusters=n_clusters, metric=metric,
+                                                  n_iters=2), total)
+        orig = index.orig_idx
+        moved = int((orig[orig >= 0] != torch.arange(n, device=dev)).sum())
+        ties = 0
+        for k in (1, 10, 256, 259):
+            must = ["knn_scan+knn_merge<float32>" if k > 256 else "knn_scan_tiles+knn_merge<float32>"]
+            res, _ = _run_path(f"IVFIndex.search_batch ({metric}, k={k})", must,
+                               lambda: index.search_batch(qs, k), total)
+            want = fn(qs, vb, k)
+            _same_result(f"IVFIndex ties ({metric}, k={k})", res, want)
+            ties += int((np.diff(want.scores, axis=1) == 0).sum())
+        log(f"[main] IVFIndex ties ({n} x 128 integer rows, {n_clusters} clusters, {metric}, "
+            f"{moved} rows moved by the layout): search_batch equals {fn.__name__} bit for bit "
+            f"at k = 1, 10, 256, 259 ({ties} tied neighbouring ranks in the results)")
+        if metric == "dot":
+            kept = index
+        else:
+            del index
+    del vb, rows
+    torch.cuda.empty_cache()
+    return kept, qs
+
+
+def phase_sparse_long(dev, total: dict) -> None:
+    """5b (ROADMAP F3): sparse queries of Lq = 8193 and 20,000 distinct
+    WordPiece ids (Q = 1 and 16, k = 10; and Lq = 8193 at k = 256, whose
+    table needs global memory even alone) over phase 3f's 10M x 32 Zipf
+    corpus with its values rounded to integers (x 8), so every sum is exact
+    and the kernel must equal the plain version bit for bit. Each through
+    sparse_knn_batch with the counters reset around it; kernel ms (median of
+    5), the table's place, the bound and the launches."""
+    import torch
+
+    import innr_tpu_torch as itt
+    from innr_tpu_torch.kernels import sparse_knn as tsp
+    from innr_tpu_torch.utils.order import total_order_key_f32
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    p = 1.0 / torch.arange(1, VOCAB + 1, dtype=torch.float64, device=dev)
+    cdf = (torch.cumsum(p, 0) / p.sum()).float()
+    perm = torch.randperm(VOCAB, generator=gen, device=dev).to(torch.int32)
+    ids, vals = _zipf_sparse_corpus(gen, dev, perm, cdf)
+    vals.mul_(8.0).round_()
+    corpus = itt.SparseCorpus((ids, vals))
+    idx_t, val_t = corpus._transposed()
+    n, l = ids.shape
+    for lq, n_q, k in ((8193, 1, 10), (8193, 16, 10), (20_000, 1, 10), (20_000, 16, 10),
+                       (8193, 1, 256)):
+        q_ids = torch.stack([perm[torch.randperm(VOCAB, generator=gen, device=dev)[:lq]]
+                             for _ in range(n_q)])
+        q_idx, _ = unsigned_sort(q_ids, 1)
+        q_val = torch.randint(1, 9, (n_q, lq), generator=gen, device=dev).float()
+        (got_s, got_i), counts = _run_path(
+            f"sparse_knn_batch (Lq={lq}, Q={n_q}, k={k})", ["sparse_scan"],
+            lambda: itt.sparse_knn_batch((q_idx, q_val), corpus, k), total)
+        expect_equal(f"sparse_knn_batch Lq={lq} Q={n_q} k={k}",
+                     (total_order_key_f32(got_s), got_i),
+                     tsp.sparse_knn_plain(q_idx, q_val, idx_t, val_t, k))
+        kernel = _median_ms(lambda: tsp.fused_sparse_keys_batch(q_idx, q_val, idx_t, val_t, k),
+                            reps=5)
+        tile, _, in_global = tsp._table_plan(n_q, lq, k)
+        where = f"global memory, {in_global} bytes a tile" if in_global else "shared memory"
+        b = bound(8 * (n * l + n_q * lq) + 8 * n_q * k, shared=n * l)
+        log(f"[main] sparse_knn_batch {n} x {l} (integer values), Lq={lq}, Q={n_q}, k={k}: "
+            f"equal to the plain version bit for bit; query tile {tile}, table in {where}; "
+            f"launches {counts['sparse_scan']}; kernel {kernel!r} ms, {bound_text(b)}, "
+            f"bound/kernel {b[0] / kernel!r}")
+    del corpus, ids, vals, idx_t, val_t
+    torch.cuda.empty_cache()
+
+
+def phase_segmented(dev, total: dict):
+    """5c: SegmentedCorpus at 10M x 128 f32 (5.1 GB; integer values), added
+    as 8 segments of 1.25M rows; 2% of the ids deleted at random over every
+    segment and a contiguous block of 200K in one (4% dead: nothing
+    compacts). knn_dot / knn / knn_cosine, Q = 32, k = 10 and 300, each equal
+    bit for bit to one batch_knn* scan of the alive rows stacked in
+    permanent-id order (ids mapped); then compact() on the device and the
+    same checks. Search ms (CUDA events around the call, host copy
+    included, median of 7) before and after compaction, K1 launches per
+    search, the compact ms and an npz round trip at 100K rows. Returns the
+    compacted corpus for phase 5d."""
+    import numpy as np
+    import torch
+
+    import innr_tpu_torch as itt
+    from innr_tpu_torch.io import load_npz, save_npz
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    n_seg, seg_rows, n_q = N_SEGMENTS, SEGMENT_ROWS, 32
+    n = n_seg * seg_rows
+    sc = itt.SegmentedCorpus(128, device=dev)
+    kept = []
+    t0 = time.perf_counter()
+    for _ in range(n_seg):
+        rows = torch.randn((seg_rows, 128), generator=gen, device=dev).mul_(4.0).round_()
+        sc.add(rows)
+        kept.append(rows)
+    torch.cuda.synchronize()
+    add_ms = (time.perf_counter() - t0) * 1e3
+    dead = torch.randperm(n, generator=gen, device=dev)[: n // 50].cpu().numpy()
+    start = 3 * seg_rows + seg_rows // 12  # a contiguous block in segment 3
+    block = np.arange(start, start + n // 50)
+    t0 = time.perf_counter()
+    n_dead = sc.delete(np.concatenate([dead, block]))
+    delete_ms = (time.perf_counter() - t0) * 1e3
+    if sc.num_segments != n_seg or sc.num_deleted != n_dead:
+        raise AssertionError("SegmentedCorpus compacted below its thresholds")
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    alive[torch.as_tensor(np.concatenate([dead, block]), device=dev)] = False
+    alive_ids = torch.nonzero(alive).squeeze(1).cpu().numpy()
+    ref = itt.VerticalBatch(torch.cat(kept)[alive])
+    del kept
+    torch.cuda.empty_cache()
+    qs = torch.randint(-4, 5, (n_q, 128), generator=gen, device=dev).float()
+    qs_host = qs.cpu().numpy()
+    modes = (("knn_dot", itt.batch_knn_dot), ("knn", itt.batch_knn),
+             ("knn_cosine", itt.batch_knn_cosine))
+    want = {(m, k): fn(qs, ref, k) for m, fn in modes for k in (10, 300)}
+    del ref
+    torch.cuda.empty_cache()
+    log(f"[main] SegmentedCorpus {n} x 128 in {n_seg} segments: add {add_ms!r} ms, delete of "
+        f"{n_dead} ids {delete_ms!r} ms, {sc.num_vectors} alive, {sc.memory_bytes()} bytes")
+
+    def check(stage: str) -> dict:
+        per_search = {}
+        for m, _ in modes:
+            for k in (10, 300):
+                (s, i), counts = _run_path(f"SegmentedCorpus.{m} ({stage}, k={k})",
+                                           ["knn_scan+knn_merge<float32>"],
+                                           lambda: getattr(sc, m)(qs_host, k), total)
+                w = want[(m, k)]
+                if not (np.array_equal(i, alive_ids[w.indices])
+                        and np.array_equal(s.view(np.int32), w.scores.view(np.int32))):
+                    raise AssertionError(f"SegmentedCorpus.{m} ({stage}, k={k}) differs from "
+                                         "the full scan of the alive rows")
+                per_search[(m, k)] = counts["knn_scan+knn_merge<float32>"]
+        ms = {(m, k): _median_ms(lambda: getattr(sc, m)(qs_host, k))
+              for m, _ in modes for k in (10, 300)}
+        log(f"[main] SegmentedCorpus ({stage}, {sc.num_segments} segments): knn_dot / knn / "
+            f"knn_cosine at Q={n_q}, k=10 and 300, equal to batch_knn* over the alive rows bit "
+            f"for bit; K1 launches per search {per_search}")
+        log(f"[timing] SegmentedCorpus search ({stage}; CUDA events around the call, host copy "
+            f"included, median of 7) ms: {ms}")
+        return ms
+
+    before = check("4% dead")
+    t0 = time.perf_counter()
+    sc.compact()
+    torch.cuda.synchronize()
+    compact_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[timing] SegmentedCorpus.compact (on the device, {sc.num_vectors} alive rows): "
+        f"{compact_ms!r} ms")
+    after = check("compacted")
+    # npz round trip of a 100K-row corpus with tombstones.
+    small = itt.SegmentedCorpus(128, device=dev)
+    small.add(torch.randn((100_000, 128), generator=gen, device=dev).round_())
+    small.add(torch.randn((1000, 128), generator=gen, device=dev).round_())
+    small.delete(np.arange(0, 101_000, 7))  # 14% dead: below max_dead_frac
+    path = ROOT / "build" / "chip_smoke_segmented.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    save_npz(str(path), small)
+    back = load_npz(str(path), device=dev)
+    npz_ms = (time.perf_counter() - t0) * 1e3
+    path.unlink()
+    for m, _ in modes:
+        a, b = getattr(small, m)(qs_host, 10), getattr(back, m)(qs_host, 10)
+        if not (np.array_equal(a[1], b[1]) and np.array_equal(a[0].view(np.int32),
+                                                              b[0].view(np.int32))):
+            raise AssertionError(f"SegmentedCorpus npz round trip changed {m}")
+    if back.add(np.zeros((1, 128), np.float32)) != (101_000, 101_001):
+        raise AssertionError("SegmentedCorpus npz round trip lost next_id")
+    log(f"[timing] SegmentedCorpus npz round trip ({small.num_vectors} alive of 101000 rows, "
+        f"save + load, host): {npz_ms!r} ms; searches equal after it")
+    return sc, {"before": before, "after": after, "compact_ms": compact_ms}
+
+
+def phase_serving(dev, sc, index, ivf_qs, total: dict) -> None:
+    """5d: MicroBatcher over the compacted 10M x 128 SegmentedCorpus
+    (knn_dot, k = 10). QPS of the batched call at b = 1, 8 and 32 (host
+    clock, sequential calls); coalesced QPS with 96 client threads of
+    single-query callers (max_batch 32, max_wait_ms 2, pipeline_depth 2),
+    every answer equal to its query's row of one direct batched call bit for
+    bit; the batch histogram; a 17-query window padded to 24 against 17
+    unpadded (CUDA events); then one window through an IVFIndex backend."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    import innr_tpu_torch as itt
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    k, n_pool = 10, 256
+    pool = torch.randint(-4, 5, (n_pool, 128), generator=gen, device=dev).float().cpu().numpy()
+    ref_s, ref_i = sc.knn_dot(pool, k)
+    direct = {}
+    for b in (1, 8, 32):
+        calls = 40
+        sc.knn_dot(pool[:b], k)
+        t0 = time.perf_counter()
+        for c in range(calls):
+            s, i = sc.knn_dot(pool[(c * b) % n_pool:(c * b) % n_pool + b], k)
+        direct[b] = b * calls / (time.perf_counter() - t0)
+        at = ((calls - 1) * b) % n_pool
+        if not (np.array_equal(i, ref_i[at:at + b])
+                and np.array_equal(s.view(np.int32), ref_s[at:at + b].view(np.int32))):
+            raise AssertionError(f"direct knn_dot at b={b} differs from the batched call")
+    n_threads, per_thread = 96, 24
+    n_req = n_threads * per_thread
+
+    def coalesced(switch_s: float):
+        """96 single-query client threads through a MicroBatcher, the
+        interpreter's thread switch interval set to ``switch_s`` meanwhile;
+        every answer held to the direct batched call. Returns (QPS, stats,
+        launches)."""
+        answers = [[] for _ in range(n_threads)]
+        failures = []
+
+        def client(t: int, mb):
+            try:
+                for j in range(per_thread):
+                    q = (t * 37 + j * 11) % n_pool
+                    answers[t].append((q, mb.search(pool[q], timeout=60.0)))
+            except Exception as e:  # noqa: BLE001 — reported below
+                failures.append(e)
+
+        old_switch = sys.getswitchinterval()
+        sys.setswitchinterval(switch_s)
+        try:
+            with itt.MicroBatcher(sc, k=k, max_batch=32, max_wait_ms=2.0,
+                                  pipeline_depth=2) as mb:
+                for q in range(4):  # warm-up
+                    mb.search(pool[q], timeout=60.0)
+                reset_counts()
+                threads = [threading.Thread(target=client, args=(t, mb))
+                           for t in range(n_threads)]
+                t0 = time.perf_counter()
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=300.0)
+                wall = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                counts = read_counts()
+                stats = mb.stats
+        finally:
+            sys.setswitchinterval(old_switch)
+        if failures or any(t.is_alive() for t in threads):
+            raise AssertionError(f"MicroBatcher clients failed: {failures[:3]}")
+        _check_path("MicroBatcher over SegmentedCorpus", counts, ["knn_scan+knn_merge<float32>"])
+        for key, v in counts.items():
+            total[key] = total.get(key, 0) + v
+        for rows in answers:
+            for q, (s, i) in rows:
+                if not (np.array_equal(i, ref_i[q])
+                        and np.array_equal(s.view(np.int32), ref_s[q].view(np.int32))):
+                    raise AssertionError(f"MicroBatcher answer for query {q} differs from the "
+                                         "direct batched call")
+        return n_req / wall, stats, counts
+
+    qps, stats, counts = coalesced(sys.getswitchinterval())
+    log(f"[main] MicroBatcher over SegmentedCorpus ({sc.num_vectors} x 128, knn_dot, k={k}): "
+        f"{n_req} answers from {n_threads} client threads equal their rows of one direct "
+        f"batched call bit for bit; {stats.launches - 4} windows of the clients' requests, "
+        f"histogram (4 warm-up windows of 1 included) "
+        f"{dict(sorted(stats.batch_histogram.items()))}, mean batch {stats.mean_batch!r}, "
+        f"K1 launches {counts['knn_scan+knn_merge<float32>']}")
+    log(f"[timing] serving QPS (host clock): direct knn_dot b=1 {direct[1]!r}, b=8 "
+        f"{direct[8]!r}, b=32 {direct[32]!r}; coalesced, {n_threads} single-query clients "
+        f"(max_batch 32, max_wait_ms 2, pipeline_depth 2): {qps!r} in "
+        f"{stats.launches - 4} windows")
+    # A diagnostic: the same load with the interpreter's thread switch
+    # interval at 0.5 ms (the default is 5 ms), to see whether the client
+    # threads' turns on the interpreter lock pace the windows.
+    qps_fast, stats_fast, _ = coalesced(5e-4)
+    log(f"[timing] serving QPS, coalesced, thread switch interval 0.5 ms: {qps_fast!r} in "
+        f"{stats_fast.launches - 4} windows, mean batch {stats_fast.mean_batch!r}")
+    q17 = pool[:17]
+    q24 = np.concatenate([q17, np.repeat(q17[:1], 7, axis=0)])
+    ms17 = _median_ms(lambda: sc.knn_dot(q17, k))
+    ms24 = _median_ms(lambda: sc.knn_dot(q24, k))
+    log(f"[timing] padding: knn_dot of a 17-query window {ms17!r} ms, padded to 24 (the bucket "
+        f"ladder) {ms24!r} ms (CUDA events, host copy included, median of 7)")
+    want = index.search_batch(ivf_qs, k)
+    with itt.MicroBatcher(index, k=k, max_batch=8, max_wait_ms=50.0) as mb:
+        futures = [mb.submit(q) for q in ivf_qs.cpu().numpy()]
+        got = [f.result(timeout=60.0) for f in futures]
+        windows = mb.stats.launches
+    for j, (s, i) in enumerate(got):
+        if not (np.array_equal(i, want.indices[j])
+                and np.array_equal(s.view(np.int32), want.scores[j].view(np.int32))):
+            raise AssertionError("MicroBatcher over IVFIndex differs from search_batch")
+    log(f"[main] MicroBatcher over IVFIndex (search_batch): {len(got)} queries in {windows} "
+        f"window(s), equal to search_batch bit for bit")
+
+
+def _minhash_device(items, n_slots: int):
+    """The host MinHash (``loader.minhash_sketch_host``) on the device in
+    int64 arithmetic that wraps like the C runtime's uint64: per document
+    and slot, the least high word of splitmix64(item + (slot + 1) *
+    0x9E3779B97F4A7C15). ``items``: (docs, m) int64. Returns (docs, slots)
+    int64 in [0, 2^32)."""
+    import torch
+
+    def signed(c: int) -> int:
+        return c - (1 << 64) if c >= 1 << 63 else c
+
+    def shr(x, s: int):
+        return (x >> s) & ((1 << (64 - s)) - 1)
+
+    seeds = torch.tensor([signed((s + 1) * 0x9E3779B97F4A7C15 % (1 << 64))
+                          for s in range(n_slots)], dtype=torch.int64, device=items.device)
+    out = torch.empty((items.shape[0], n_slots), dtype=torch.int64, device=items.device)
+    for a in range(0, items.shape[0], 8192):
+        x = items[a:a + 8192, :, None] + seeds
+        x = (x ^ shr(x, 30)) * signed(0xBF58476D1CE4E5B9)
+        x = (x ^ shr(x, 27)) * signed(0x94D049BB133111EB)
+        x = x ^ shr(x, 31)
+        out[a:a + 8192] = shr(x, 32).amin(dim=1)
+    return out
+
+
+def phase_loader(dev) -> None:
+    """5e: the host encoders at 1M x 768 f32 (binary at 0, ternary at 0.5,
+    u8 over [-4, 4]) against the port's on-device encoders bit for bit,
+    host ms (the C runtime's threads, the upload of the packed result
+    included) beside device ms (CUDA events); MinHash of 100K documents of
+    64 shingles into 128 slots against the same hashes in int64 on the
+    device."""
+    import numpy as np
+    import torch
+
+    import innr_tpu_torch as itt
+    from innr_tpu_torch import _native, loader
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    rows = torch.randn((N_LOADER, 768), generator=gen, device=dev)
+    host = rows.cpu().numpy()
+    params = itt.QuantizationParams.from_range(-4.0, 4.0)
+
+    def planes_of(batch):
+        return batch.pos, batch.neg
+
+    cases = (
+        ("encode_binary_host", lambda: loader.encode_binary_host(host, 0.0, device=dev).words,
+         lambda: itt.encode_binary_batch(rows, 0.0)),
+        ("encode_ternary_host",
+         lambda: torch.stack(planes_of(loader.encode_ternary_host(host, 0.5, device=dev))),
+         lambda: torch.stack(itt.encode_ternary_batch(rows, 0.5))),
+        ("quantize_u8_host", lambda: loader.quantize_u8_host(host, params, device=dev).codes,
+         lambda: itt.QuantizedU8Batch.quantize(rows, params).codes),
+    )
+    native = _native.available()
+    for name, on_host, on_device in cases:
+        if not torch.equal(on_host(), on_device()):
+            raise AssertionError(f"{name} {N_LOADER} x 768 differs from the device encoder")
+        host_ms = _median_host_ms(lambda: (on_host(), torch.cuda.synchronize()), reps=3)
+        dev_ms = _median_ms(on_device, reps=5)
+        log(f"[timing] {name} {N_LOADER} x 768: equal to the device encoder bit for bit; host "
+            f"{host_ms!r} ms ({'C runtime' if native else 'numpy'}, upload included, median of "
+            f"3), device {dev_ms!r} ms")
+    del rows, host
+    halves = torch.randint(-(2**31), 2**31, (2, N_MINHASH_DOCS, 64), generator=gen, device=dev,
+                           dtype=torch.int64)
+    items = (halves[0] << 32) | (halves[1] & 0xFFFFFFFF)  # all 64 bits
+    docs = items.cpu().numpy().view(np.uint64)
+    got = loader.minhash_sketch_host(docs, 128)
+    want = _minhash_device(items, 128)
+    if not torch.equal(torch.from_numpy(got.astype(np.int64)).to(dev), want):
+        raise AssertionError("minhash_sketch_host differs from the device hashes")
+    host_ms = _median_host_ms(lambda: loader.minhash_sketch_host(docs, 128), reps=3)
+    dev_ms = _median_ms(lambda: _minhash_device(items, 128), reps=3)
+    log(f"[timing] minhash_sketch_host {N_MINHASH_DOCS} docs x 64 shingles, 128 slots: equal to the device "
+        f"hashes; host {host_ms!r} ms ({'C runtime' if native else 'numpy'}), device (int64 "
+        f"torch, this script's twin) {dev_ms!r} ms")
+
+
+
 def main() -> int:
     if not (ROOT / "innr_tpu_torch").is_dir():
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -2371,8 +2828,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     maxsim_launches, maxsim_times = phase_maxsim(dev, prune_errs, bounds)
     times.update(maxsim_times)
+    torch.cuda.empty_cache()
+    slice_launches = {}
+    ivf, ivf_qs = phase_ties(dev, slice_launches)
+    phase_sparse_long(dev, slice_launches)
+    segmented, _ = phase_segmented(dev, slice_launches)
+    phase_serving(dev, segmented, ivf, ivf_qs, slice_launches)
+    del segmented, ivf
+    torch.cuda.empty_cache()
+    phase_loader(dev)
     for counts in (gauss_launches, packed_launches, pipeline_launches, prune_launches,
-                   slot_launches, sparse_launches, maxsim_launches):
+                   slot_launches, sparse_launches, maxsim_launches, slice_launches):
         for name, n in counts.items():
             launches[name] += n
     for name in prune_times:

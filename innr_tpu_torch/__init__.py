@@ -28,6 +28,11 @@ module names. Ported so far:
 - ColBERT MaxSim late interaction (``maxsim``, ``maxsim_cosine``,
   ``batch_maxsim``) and MaxSim retrieval (``maxsim_knn``,
   ``maxsim_knn_batch``) on the MaxSim scan (``csrc/maxsim.cu``);
+- the mutable serving path: :class:`SegmentedCorpus` (adds, deletes with
+  permanent ids, compaction; one K1 scan per segment and a device-side
+  merge) and :class:`MicroBatcher` (concurrent single-query callers
+  coalesced into one batched search per window), and the host ingest
+  encoders of :mod:`~innr_tpu_torch.loader` on the native C runtime;
 - the pair ops, plain torch as in the JAX package: dense f32
   (:mod:`~innr_tpu_torch.ops.dense`), float64
   (:mod:`~innr_tpu_torch.ops.dense_f64`), the bit-hack rsqrt
@@ -45,7 +50,7 @@ mismatch; cosine returns 0.0 for effectively-zero norms (< 1e-9); orderings
 follow IEEE total order with ties to the lowest index.
 """
 
-from innr_tpu_torch import backend, batch, config, distance, io, pipeline, prune
+from innr_tpu_torch import backend, batch, config, distance, io, loader, pipeline, prune, serving
 from innr_tpu_torch.distance import (
     Distance,
     DistCosine,
@@ -56,6 +61,8 @@ from innr_tpu_torch.distance import (
     DistSlotU32,
 )
 from innr_tpu_torch.pipeline import CoarseConfig, TwoStageIndex
+from innr_tpu_torch.serving import MicroBatcher
+from innr_tpu_torch.segmented import SegmentedCorpus
 from innr_tpu_torch.ivf import IVFIndex
 from innr_tpu_torch.prune import (
     TileSummary,

@@ -10,7 +10,10 @@
 // One signed max over composites gives "key descending, row ascending", so
 // ties go to the lowest row, and an exclusion bound (resume after a previous
 // pass) is a single compare. LLONG_MIN is the empty slot: it decodes to
-// (INT_MIN, -1) and never beats a real row.
+// (INT_MIN, -1) and never beats a real row. With a row-id map ids (N,)
+// int32 the composite carries ids[row] in place of row, so ties go to the
+// lowest id and the exclusion bound is an id bound too; every read of a
+// row (its products, its re-score, aux and mask) stays at its position.
 //
 // Scores by mode (score = 0 dot, 1 l2, 2 cosine; a non-null mask adds the
 // predicate forms l2m / dotm / cosinem):
@@ -416,6 +419,7 @@ struct TcArgs {
   const float* aux;
   const float* mask;
   const long long* excl;
+  const int* ids;      // the row-id map of the composites, or null (the row)
   const float* qmeta;  // per query: kappa ||q|| (+inf: always re-scored)
   float m_abs, m_aux;  // the margin's absolute and |aux| terms
   unsigned long long* rescored;
@@ -792,7 +796,7 @@ __global__ void __launch_bounds__(kTcThreads, Tc<T>::kMinBlocks) knn_scan_tc(TcA
           key = total_key(sc);
           if (score == 1) key = ~key;
         }
-        cand = composite(key, row);
+        cand = composite(key, p.ids != nullptr ? static_cast<long long>(p.ids[row]) : row);
         if (cand >= bound[c]) cand = LLONG_MIN;
       }
       // The rest of the queue moves to its front.
@@ -974,7 +978,7 @@ cudaError_t launch_dtype(TcArgs p, const Slabs& slabs, cudaStream_t stream) {
 }
 
 int scan(const void* qs, const void* rows, int dtype, const void* aux, const void* mask,
-         const void* excl, const void* qmeta, float m_abs, float m_aux, void* rescored,
+         const void* excl, const void* ids, const void* qmeta, float m_abs, float m_aux, void* rescored,
          void* kth, void* partial, int n_q, long long n, int d, int k, int score, Slabs slabs,
          void* stream) {
   if (qmeta == nullptr || kth == nullptr) return static_cast<int>(cudaErrorInvalidValue);
@@ -988,7 +992,7 @@ int scan(const void* qs, const void* rows, int dtype, const void* aux, const voi
   }
   const TcArgs p{static_cast<const float*>(qs), rows, static_cast<const float*>(aux),
                  static_cast<const float*>(mask), static_cast<const long long*>(excl),
-                 static_cast<const float*>(qmeta), m_abs, m_aux,
+                 static_cast<const int*>(ids), static_cast<const float*>(qmeta), m_abs, m_aux,
                  static_cast<unsigned long long*>(rescored), static_cast<int*>(kth), slabs.order,
                  slabs.n_live,
                  static_cast<long long*>(partial), n_q, n, d, k, score, slabs.slab_rows,
@@ -1007,8 +1011,9 @@ int scan(const void* qs, const void* rows, int dtype, const void* aux, const voi
 
 extern "C" {
 
-// dtype: 0 f32, 1 bf16, 2 u8. score: 0 dot, 1 l2, 2 cosine. aux, mask and
-// excl may be null. qmeta: (n_q,) f32, per query kappa ||q|| of
+// dtype: 0 f32, 1 bf16, 2 u8. score: 0 dot, 1 l2, 2 cosine. aux, mask,
+// excl and ids may be null; ids: (n,) int32, the id each row's composite
+// carries (ties to the lowest id; excl bounds (key, id)), else the row. qmeta: (n_q,) f32, per query kappa ||q|| of
 // kernels/knn.py:knn_margin (+inf: every pair re-scored), and m_abs, m_aux
 // its absolute and |aux| terms; kth: space for (n_q * (1 + n_ctas),) int32
 // (n_ctas: the grid's CTAs per query tile, ceil(n / slab_rows) here), which
@@ -1019,24 +1024,24 @@ extern "C" {
 // slab_rows), n_q, k) int64.
 // Returns the cudaError_t of the launch (0 on success).
 int innr_knn_scan(const void* qs, const void* rows, int dtype, const void* aux,
-                  const void* mask, const void* excl, const void* qmeta, float m_abs,
+                  const void* mask, const void* excl, const void* ids, const void* qmeta, float m_abs,
                   float m_aux, void* rescored, void* kth, void* partial, int n_q, long long n,
                   int d, int k, int score, int slab_rows, void* stream) {
   if (n_q <= 0 || n <= 0 || d <= 0 || k <= 0 || slab_rows <= 0 || slab_rows % kTcRows != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Slabs slabs{nullptr, nullptr, slab_rows, slab_rows, (n + slab_rows - 1) / slab_rows};
-  return scan(qs, rows, dtype, aux, mask, excl, qmeta, m_abs, m_aux, rescored, kth, partial,
-              n_q, n, d, k, score, slabs, stream);
+  return scan(qs, rows, dtype, aux, mask, excl, ids, qmeta, m_abs, m_aux, rescored, kth,
+              partial, n_q, n, d, k, score, slabs, stream);
 }
 
 // The pruned scan: the same scan over the tiles order[0..*n_live) of
 // tile_rows rows each (any tile_rows >= 1), cut into chunks of chunk_rows
 // rows and dealt to n_ctas CTAs; n_live is read on the device. order:
 // (n_tiles,) int32 tile ids, the live ones ascending; n_live: one int32 on
-// the device; excl may be null; partial: (n_ctas, n_q, k) int64, every list
+// the device; excl and ids may be null (as for innr_knn_scan); partial: (n_ctas, n_q, k) int64, every list
 // written (empty for a CTA without work), for innr_knn_merge.
 int innr_knn_scan_tiles(const void* qs, const void* rows, int dtype, const void* aux,
-                        const void* mask, const void* excl, const void* qmeta, float m_abs,
+                        const void* mask, const void* excl, const void* ids, const void* qmeta, float m_abs,
                         float m_aux, void* rescored, void* kth, const void* order,
                         const void* n_live,
                         void* partial, int n_q, long long n, int d, int k, int score,
@@ -1046,8 +1051,8 @@ int innr_knn_scan_tiles(const void* qs, const void* rows, int dtype, const void*
     return static_cast<int>(cudaErrorInvalidValue);
   const Slabs slabs{static_cast<const int*>(order), static_cast<const int*>(n_live), tile_rows,
                     chunk_rows, n_ctas};
-  return scan(qs, rows, dtype, aux, mask, excl, qmeta, m_abs, m_aux, rescored, kth, partial,
-              n_q, n, d, k, score, slabs, stream);
+  return scan(qs, rows, dtype, aux, mask, excl, ids, qmeta, m_abs, m_aux, rescored, kth,
+              partial, n_q, n, d, k, score, slabs, stream);
 }
 
 // The scan's grid at this shape: info[0] the queries per CTA, info[1] the

@@ -44,6 +44,16 @@
 // knn_merge (knn.cu) selects the final top k from all slabs. A table too
 // large for shared memory halves the query tile (the wrapper).
 //
+// A query whose table does not fit in shared memory even alone (thousands
+// of entries: 8193 at k = 256) keeps the same lookup with the table in
+// global memory, where L2 (50 MB) holds it: sparse_table<QT> builds each
+// query tile's table once, one CTA a tile, by the same four steps, into a
+// scratch area the wrapper sizes; then sparse_scan<QT, true> reads it
+// instead of building its own. Its slots hold (id, union index + 1) and the
+// masks stay an array (no 16-bit limit on the union). Each document's sums
+// take the same products in the same order, so the result is the shared
+// path's bit for bit; only where the table lives changes.
+//
 // What bounds it on the H100: 10M documents x 32 entries are 2.56 GB of
 // indices and values, about 0.76 ms at 3.35 TB/s, whatever the batch; the
 // lookups are one shared access per entry or two, and the matched
@@ -101,29 +111,41 @@ __device__ __forceinline__ unsigned slot_holding(const uint2* hash_s, unsigned x
   return h;
 }
 
+// A query tile's table at t: the hash [2^hbits] uint2, the values
+// [u_max][vstride<QT>], the masks [u_max], the union count [1].
 template <int QT>
-__global__ void __launch_bounds__(kScanThreads, 2) sparse_scan(
-    const unsigned* __restrict__ q_idx, const float* __restrict__ q_val,
-    const unsigned* __restrict__ idx_t, const float* __restrict__ val_t,
-    const long long* __restrict__ excl, long long* __restrict__ partial, int n_q, long long n,
-    int l, int lq, int hbits, int k, long long slab_rows) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int q0 = blockIdx.y * QT;
-  TileTopK<QT> top;
-  uint2* hash_s = reinterpret_cast<uint2*>(top.init(smem, k, excl, q0, n_q));  // [2^hbits]
-  const int hsize = 1 << hbits, u_max = max(1, QT * lq);
-  float* val_s = reinterpret_cast<float*>(hash_s + hsize);               // [u_max][vstride<QT>]
-  unsigned* mask_s = reinterpret_cast<unsigned*>(val_s + u_max * vstride<QT>());  // [u_max]
-  int* count_s = reinterpret_cast<int*>(mask_s + u_max);                       // [1]
-  const int tid = threadIdx.x;
-  const long long row_begin = static_cast<long long>(blockIdx.x) * slab_rows;
-  const long long row_end = min(n, row_begin + slab_rows);
+struct Table {
+  uint2* hash;
+  float* val;
+  unsigned* mask;
+  int* count;
+  __host__ __device__ static size_t bytes(int lq, int hbits) {
+    const size_t u_max = lq > 0 ? static_cast<size_t>(QT) * lq : 1;
+    return (8 * (size_t{1} << hbits) + 4 * u_max * (vstride<QT>() + 1) + 4 + 15) & ~size_t{15};
+  }
+  __device__ static Table at(unsigned char* t, int lq, int hbits) {
+    const size_t u_max = max(1, QT * lq);
+    Table tab;
+    tab.hash = reinterpret_cast<uint2*>(t);
+    tab.val = reinterpret_cast<float*>(tab.hash + (size_t{1} << hbits));
+    tab.mask = reinterpret_cast<unsigned*>(tab.val + u_max * vstride<QT>());
+    tab.count = reinterpret_cast<int*>(tab.mask + u_max);
+    return tab;
+  }
+};
 
-  // The tile's table, built in four steps: the union of its queries' ids
-  // into the hash; a union index per id; each query's mask bit and value at
-  // its first occurrence; each slot's (id, mask << 16 | index).
+// The table of queries [q0, q0 + QT), built by the whole CTA in four steps:
+// the union of its queries' ids into the hash; a union index per id; each
+// query's mask bit and value at its first occurrence; each slot's (id,
+// mask << 16 | index) (packed: shared memory) or (id, index + 1) (global).
+template <int QT>
+__device__ void build_table(const Table<QT>& tab, const unsigned* __restrict__ q_idx,
+                            const float* __restrict__ q_val, int q0, int n_q, int lq, int hbits,
+                            bool packed) {
+  const int tid = threadIdx.x, hsize = 1 << hbits;
+  uint2* hash_s = tab.hash;
   for (int i = tid; i < hsize; i += kScanThreads) hash_s[i] = make_uint2(kSentinel, 0u);
-  if (tid == 0) *count_s = 0;
+  if (tid == 0) *tab.count = 0;
   __syncthreads();
   for (int f = tid; f < QT * lq; f += kScanThreads) {
     const int j = f / lq, p = f % lq;
@@ -139,9 +161,9 @@ __global__ void __launch_bounds__(kScanThreads, 2) sparse_scan(
   __syncthreads();
   for (int h = tid; h < hsize; h += kScanThreads)
     if (hash_s[h].x != kSentinel) {
-      const int u = atomicAdd(count_s, 1);
+      const int u = atomicAdd(tab.count, 1);
       hash_s[h].y = u;
-      mask_s[u] = 0;
+      tab.mask[u] = 0;
     }
   __syncthreads();
   for (int f = tid; f < QT * lq; f += kScanThreads) {
@@ -151,13 +173,48 @@ __global__ void __launch_bounds__(kScanThreads, 2) sparse_scan(
     const unsigned x = row[p];
     if (!first_of_id(row, p, x)) continue;
     const unsigned u = hash_s[slot_holding(hash_s, x, hbits)].y;
-    atomicOr(mask_s + u, 1u << j);
-    val_s[u * vstride<QT>() + j] = q_val[static_cast<size_t>(q0 + j) * lq + p];
+    atomicOr(tab.mask + u, 1u << j);
+    tab.val[static_cast<size_t>(u) * vstride<QT>() + j] = q_val[static_cast<size_t>(q0 + j) * lq + p];
   }
   __syncthreads();
   for (int h = tid; h < hsize; h += kScanThreads)
-    if (hash_s[h].x != kSentinel) hash_s[h].y |= mask_s[hash_s[h].y] << 16;
+    if (hash_s[h].x != kSentinel) hash_s[h].y = packed ? hash_s[h].y | tab.mask[hash_s[h].y] << 16
+                                                       : hash_s[h].y + 1;
   __syncthreads();
+}
+
+// Query tile blockIdx.x's table into global memory, tile_bytes apart.
+template <int QT>
+__global__ void __launch_bounds__(kScanThreads) sparse_table(
+    const unsigned* __restrict__ q_idx, const float* __restrict__ q_val, unsigned char* table,
+    size_t tile_bytes, int n_q, int lq, int hbits) {
+  const Table<QT> tab = Table<QT>::at(table + blockIdx.x * tile_bytes, lq, hbits);
+  build_table<QT>(tab, q_idx, q_val, blockIdx.x * QT, n_q, lq, hbits, false);
+}
+
+// kGlobal: the tile's table is sparse_table's, in global memory; else the
+// CTA builds it in shared memory.
+template <int QT, bool kGlobal>
+__global__ void __launch_bounds__(kScanThreads, 2) sparse_scan(
+    const unsigned* __restrict__ q_idx, const float* __restrict__ q_val,
+    const unsigned* __restrict__ idx_t, const float* __restrict__ val_t,
+    const long long* __restrict__ excl, unsigned char* table, size_t tile_bytes,
+    long long* __restrict__ partial, int n_q, long long n, int l, int lq, int hbits, int k,
+    long long slab_rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int q0 = blockIdx.y * QT;
+  TileTopK<QT> top;
+  unsigned char* after_top = top.init(smem, k, excl, q0, n_q);
+  const Table<QT> tab = Table<QT>::at(kGlobal ? table + blockIdx.y * tile_bytes : after_top, lq,
+                                      hbits);
+  if constexpr (!kGlobal) build_table<QT>(tab, q_idx, q_val, q0, n_q, lq, hbits, true);
+  else __syncthreads();  // top.init's stores
+  const uint2* hash_s = tab.hash;
+  const float* val_s = tab.val;
+  const unsigned* mask_s = tab.mask;
+  const int tid = threadIdx.x;
+  const long long row_begin = static_cast<long long>(blockIdx.x) * slab_rows;
+  const long long row_end = min(n, row_begin + slab_rows);
 
   for (long long t0 = row_begin; t0 < row_end; t0 += kScanRowTile) {
     const long long row = t0 + tid;
@@ -189,9 +246,17 @@ __global__ void __launch_bounds__(kScanThreads, 2) sparse_scan(
         for (int g = 0; g < kGroup; ++g) hit[g] = lookup(hash_s, hit[g], h[g], e[g], hbits);
 #pragma unroll
         for (int g = 0; g < kGroup; ++g) {
-          const unsigned m = hit[g] >> 16;
+          unsigned m;
+          const float* qv;
+          if constexpr (kGlobal) {  // (id, index + 1); 0: no query holds it
+            const size_t u = hit[g] == 0u ? 0 : hit[g] - 1u;
+            m = hit[g] == 0u ? 0u : (QT == 1 ? 1u : mask_s[u]);
+            qv = val_s + u * vstride<QT>();
+          } else {
+            m = hit[g] >> 16;
+            qv = val_s + (hit[g] & 0xFFFFu) * vstride<QT>();
+          }
           if (m != 0) {
-            const float* qv = val_s + (hit[g] & 0xFFFFu) * vstride<QT>();
 #pragma unroll
             for (int j = 0; j < QT; ++j)
               if ((m >> j) & 1u) acc[j] = __fadd_rn(acc[j], __fmul_rn(v[g], qv[j]));
@@ -207,23 +272,46 @@ __global__ void __launch_bounds__(kScanThreads, 2) sparse_scan(
   top.write(k, q0, n_q, partial);
 }
 
-template <int QT>
-cudaError_t launch_as(const unsigned* q_idx, const float* q_val, const unsigned* idx_t,
-                      const float* val_t, const long long* excl, long long* partial, int n_q,
-                      long long n, int l, int lq, int hbits, int k, int slab_rows,
-                      cudaStream_t stream) {
-  const size_t u_max = lq > 0 ? static_cast<size_t>(QT) * lq : 1;
-  const size_t smem =
-      topk_smem_bytes<QT>(k) + 8 * (size_t{1} << hbits) + 4 * u_max * (vstride<QT>() + 1) + 16;
-  cudaError_t err = cudaFuncSetAttribute(sparse_scan<QT>,
+template <int QT, bool kGlobal>
+cudaError_t launch_scan(const unsigned* q_idx, const float* q_val, const unsigned* idx_t,
+                        const float* val_t, const long long* excl, unsigned char* table,
+                        long long* partial, int n_q, long long n, int l, int lq, int hbits, int k,
+                        int slab_rows, cudaStream_t stream) {
+  const size_t tile_bytes = Table<QT>::bytes(lq, hbits);
+  const size_t smem = topk_smem_bytes<QT>(k) + (kGlobal ? 0 : tile_bytes);
+  cudaError_t err = cudaFuncSetAttribute(sparse_scan<QT, kGlobal>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
+  const unsigned n_tiles = (n_q + QT - 1) / QT;
+  if (kGlobal) {
+    sparse_table<QT><<<n_tiles, kScanThreads, 0, stream>>>(q_idx, q_val, table, tile_bytes, n_q,
+                                                           lq, hbits);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
   const long long n_slabs = (n + slab_rows - 1) / slab_rows;
-  const dim3 grid(static_cast<unsigned>(n_slabs), (n_q + QT - 1) / QT);
-  sparse_scan<QT><<<grid, kScanThreads, smem, stream>>>(q_idx, q_val, idx_t, val_t, excl, partial,
-                                                        n_q, n, l, lq, hbits, k, slab_rows);
+  const dim3 grid(static_cast<unsigned>(n_slabs), n_tiles);
+  sparse_scan<QT, kGlobal><<<grid, kScanThreads, smem, stream>>>(
+      q_idx, q_val, idx_t, val_t, excl, table, tile_bytes, partial, n_q, n, l, lq, hbits, k,
+      slab_rows);
   return cudaGetLastError();
+}
+
+template <int QT>
+cudaError_t launch_as(const unsigned* q_idx, const float* q_val, const unsigned* idx_t,
+                      const float* val_t, const long long* excl, void* table,
+                      long long table_bytes, long long* partial, int n_q, long long n, int l,
+                      int lq, int hbits, int k, int slab_rows, cudaStream_t stream) {
+  if (table == nullptr)
+    return launch_scan<QT, false>(q_idx, q_val, idx_t, val_t, excl, nullptr, partial, n_q, n, l,
+                                  lq, hbits, k, slab_rows, stream);
+  const long long need = static_cast<long long>(Table<QT>::bytes(lq, hbits)) *
+                         ((n_q + QT - 1) / QT);
+  if (table_bytes < need) return cudaErrorInvalidValue;
+  return launch_scan<QT, true>(q_idx, q_val, idx_t, val_t, excl,
+                               static_cast<unsigned char*>(table), partial, n_q, n, l, lq, hbits,
+                               k, slab_rows, stream);
 }
 
 }  // namespace
@@ -233,17 +321,21 @@ extern "C" {
 // q_idx, q_val: (n_q, lq) uint32 / float32, each row sorted ascending as
 // unsigned (sentinel padding last); idx_t, val_t: (l, n) uint32 / float32;
 // excl: null or (n_q,) int64 bounds. query_tile: 1, 2, 4, 8 or 16; the
-// hash holds 2^hash_bits slots (4 <= hash_bits <= 24, at least twice
-// query_tile * lq, which is at most 65536). partial: (ceil(n / slab_rows),
-// n_q, k) int64, for innr_knn_merge. Returns the cudaError_t of the launch
-// (0 on success).
+// hash holds 2^hash_bits slots (at least twice query_tile * lq). table:
+// null (each CTA builds its tile's table in shared memory: hash_bits <= 24,
+// query_tile * lq <= 65536), or table_bytes of global scratch for one
+// table per query tile (innr_sparse_table_bytes each; hash_bits <= 30).
+// partial: (ceil(n / slab_rows), n_q, k) int64, for innr_knn_merge.
+// Returns the cudaError_t of the launch (0 on success).
 int innr_sparse_scan(const void* q_idx, const void* q_val, const void* idx_t, const void* val_t,
-                     const void* excl, void* partial, int n_q, long long n, int l, int lq,
-                     int hash_bits, int k, int query_tile, int slab_rows, void* stream) {
+                     const void* excl, void* table, long long table_bytes, void* partial, int n_q,
+                     long long n, int l, int lq, int hash_bits, int k, int query_tile,
+                     int slab_rows, void* stream) {
   const long long u_max = static_cast<long long>(query_tile) * lq;
-  if (n_q <= 0 || n <= 0 || l < 0 || lq < 0 || u_max > 65536 || hash_bits < 4 ||
-      hash_bits > 24 || (1LL << hash_bits) < 2 * u_max || k <= 0 || slab_rows <= 0 ||
-      slab_rows % kScanRowTile != 0)
+  const bool global = table != nullptr;
+  if (n_q <= 0 || n <= 0 || l < 0 || lq < 0 || (!global && u_max > 65536) || hash_bits < 4 ||
+      hash_bits > (global ? 30 : 24) || (1LL << hash_bits) < 2 * u_max || k <= 0 ||
+      slab_rows <= 0 || slab_rows % kScanRowTile != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   auto qi = static_cast<const unsigned*>(q_idx);
   auto qv = static_cast<const float*>(q_val);
@@ -252,7 +344,9 @@ int innr_sparse_scan(const void* q_idx, const void* q_val, const void* idx_t, co
   auto e = static_cast<const long long*>(excl);
   auto out = static_cast<long long*>(partial);
   auto st = static_cast<cudaStream_t>(stream);
-#define INNR_SPARSE_LAUNCH(QT) launch_as<QT>(qi, qv, it, vt, e, out, n_q, n, l, lq, hash_bits, k, slab_rows, st)
+#define INNR_SPARSE_LAUNCH(QT) \
+  launch_as<QT>(qi, qv, it, vt, e, table, table_bytes, out, n_q, n, l, lq, hash_bits, k, \
+                slab_rows, st)
   switch (query_tile) {
     case 1: return INNR_SPARSE_LAUNCH(1);
     case 2: return INNR_SPARSE_LAUNCH(2);
@@ -262,6 +356,19 @@ int innr_sparse_scan(const void* q_idx, const void* q_val, const void* idx_t, co
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef INNR_SPARSE_LAUNCH
+}
+
+// Bytes of one query tile's table in global memory (innr_sparse_scan's
+// table holds ceil(n_q / query_tile) of them), or 0 for a bad tile.
+long long innr_sparse_table_bytes(int query_tile, int lq, int hash_bits) {
+  switch (query_tile) {
+    case 1: return static_cast<long long>(Table<1>::bytes(lq, hash_bits));
+    case 2: return static_cast<long long>(Table<2>::bytes(lq, hash_bits));
+    case 4: return static_cast<long long>(Table<4>::bytes(lq, hash_bits));
+    case 8: return static_cast<long long>(Table<8>::bytes(lq, hash_bits));
+    case 16: return static_cast<long long>(Table<16>::bytes(lq, hash_bits));
+    default: return 0;
+  }
 }
 
 }  // extern "C"

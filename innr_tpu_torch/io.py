@@ -6,9 +6,10 @@ package loads in the other: ``kind`` plus ``rows`` (float32),
 kinds, and ``words`` or ``pos`` / ``neg`` (uint32 words, the JAX package's
 type; this package holds them as bit-identical int32) with ``dimension``
 for the packed kinds, ``sketches`` (uint16 or uint32) for ``SketchCorpus``
-and ``indices`` (uint32) with ``values`` (float32) for ``SparseCorpus``.
-The ``SegmentedCorpus`` kind is not ported yet and raises
-:class:`ContractError`.
+and ``indices`` (uint32) with ``values`` (float32) for ``SparseCorpus``;
+``SegmentedCorpus`` keeps its compacted view: the alive ``rows``
+(float32), their permanent ``ids`` (int64), ``dimension`` and ``next_id``,
+so a restored index returns the same ids and never reuses a deleted one.
 """
 
 from __future__ import annotations
@@ -22,13 +23,12 @@ from innr_tpu_torch.ops.scalar import QuantizedU8Batch
 from innr_tpu_torch.ops.slot import SketchCorpus
 from innr_tpu_torch.ops.sparse import SparseCorpus
 from innr_tpu_torch.ops.ternary import PackedTernary, PackedTernaryBatch
+from innr_tpu_torch.segmented import SegmentedCorpus, _Segment
 from innr_tpu_torch.utils.asserts import ContractError
 from innr_tpu_torch.utils.bits import unsigned_to_numpy, words_to_numpy
-from innr_tpu_torch.utils.tensors import host_device
+from innr_tpu_torch.utils.tensors import as_tensor, host_device
 
 __all__ = ["save_npz", "load_npz"]
-
-_NOT_PORTED = {"SegmentedCorpus"}
 
 
 def save_npz(path: str, obj) -> None:
@@ -52,6 +52,14 @@ def save_npz(path: str, obj) -> None:
     elif isinstance(obj, SparseCorpus):
         np.savez(path, kind="SparseCorpus", indices=unsigned_to_numpy(obj.indices),
                  values=obj.values.cpu().numpy())
+    elif isinstance(obj, SegmentedCorpus):
+        segs = obj._segments
+        rows = (torch.cat([s.vb.rows[s.alive_dev()] for s in segs]).cpu().numpy() if segs
+                else np.zeros((0, obj.dimension), np.float32))
+        ids = (np.concatenate([s.ids[s.alive] for s in segs]) if segs
+               else np.zeros(0, np.int64))
+        np.savez(path, kind="SegmentedCorpus", rows=rows, ids=ids, dimension=obj.dimension,
+                 next_id=obj._next_id)
     else:
         raise ContractError(f"save_npz: unsupported container {type(obj).__name__}")
 
@@ -81,6 +89,12 @@ def load_npz(path: str, device=None):
             return SketchCorpus(z["sketches"], device=device)
         if kind == "SparseCorpus":
             return SparseCorpus((z["indices"], z["values"]), device=device)
-        if kind in _NOT_PORTED:
-            raise ContractError(f"load_npz: container kind {kind!r} not yet ported")
+        if kind == "SegmentedCorpus":
+            sc = SegmentedCorpus(int(z["dimension"]), device=host_device(device))
+            ids = np.asarray(z["ids"], dtype=np.int64)
+            if len(ids):
+                sc._segments.append(_Segment(as_tensor(z["rows"], torch.float32, sc.device),
+                                             ids))
+            sc._next_id = int(z["next_id"])
+            return sc
         raise ContractError(f"load_npz: unknown container kind {kind!r}")

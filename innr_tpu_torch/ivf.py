@@ -13,6 +13,11 @@ clusters and each tile's centroid/radius summary describes one cluster:
 - **Padding rows never win.** They are left out of the tile summary
   (``row_valid``) and pinned to the worst key in the scan (K1's masked
   modes "dotm" / "l2m" / "cosinem").
+- **Ties go to the lowest original index.** The scans select on (key,
+  original index): each layout row's original index rides in its
+  composite (the kernels' row-id map; padding rows take distinct ids
+  counting down from INT32_MAX), so a tie between two clusters resolves as
+  in a scan of the original order, whatever the layout.
 - **All-device build.** Fit, assignment and the padded scatter run on the
   corpus's device; only the per-cluster sizes (kc ints) go to the host, to
   fix the padded shape.
@@ -86,8 +91,8 @@ class IVFIndex:
     stays on its device unless ``device`` is given.
     """
 
-    __slots__ = ("metric", "rows", "orig_idx", "tile_n", "n_true",
-                 "_valid", "_aux", "_summary", "cluster_sizes")
+    __slots__ = ("metric", "rows", "tile_n", "n_true",
+                 "_valid", "_ids", "_aux", "_summary", "cluster_sizes")
 
     def __init__(self, rows, n_clusters: int = 256, metric: str = "dot",
                  tile_n: int | None = None, dtype=torch.float32, n_iters: int = 5,
@@ -124,9 +129,13 @@ class IVFIndex:
         offsets = torch.as_tensor(np.concatenate([[0], np.cumsum(padded)[:-1]]), device=dev)
         starts = torch.as_tensor(np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64),
                                  device=dev)
-        self.rows, self.orig_idx = _scatter_layout(
+        self.rows, orig_idx = _scatter_layout(
             rows.to(dtype).contiguous(), sorted_assign, perm, offsets, starts, n_pad)
-        self._valid = self.orig_idx >= 0
+        self._valid = orig_idx >= 0
+        # The scans' row-id map: the original index, distinct ids counting
+        # down from INT32_MAX on padding rows (composites stay unique).
+        pad_ids = 2**31 - torch.cumsum((~self._valid).to(torch.int32), 0)
+        self._ids = torch.where(self._valid, orig_idx, pad_ids.to(torch.int32))
         validf = self._valid.to(torch.float32)
         if metric == "dot":
             self._aux = validf
@@ -138,6 +147,12 @@ class IVFIndex:
             self.rows, tile, normalized=(metric == "cosine"), row_valid=self._valid)
 
     # -- introspection -------------------------------------------------------
+
+    @property
+    def orig_idx(self) -> torch.Tensor:
+        """(n_pad,) int32: each layout row's index in the constructor's
+        order, -1 on padding rows."""
+        return torch.where(self._valid, self._ids, -1)
 
     @property
     def num_vectors(self) -> int:
@@ -154,7 +169,7 @@ class IVFIndex:
 
     def memory_bytes(self) -> int:
         return (self.rows.numel() * self.rows.element_size()
-                + self.orig_idx.numel() * 4
+                + self._ids.numel() * 4
                 + self._aux.numel() * 4
                 + self._summary.memory_bytes())
 
@@ -184,17 +199,17 @@ class IVFIndex:
 
     def search_batch(self, queries, k: int) -> BatchKnnResult:
         """Exact top-k for a (Q, D) batch: plan and tile scan on the
-        device, then one host copy of the ``(scores, original indices)``
-        pair. Indices refer to the row order passed to the constructor."""
+        device, selecting on (key, original index), then one host copy of
+        the ``(scores, original indices)`` pair. Indices refer to the row
+        order passed to the constructor; ties go to the lowest."""
         qs = self._queries(queries)
         n_q = int(qs.shape[0])
         if k <= 0 or n_q == 0:
             return BatchKnnResult(indices=np.zeros((n_q, 0), np.int64),
                                   scores=np.zeros((n_q, 0), np.float32))
         k = min(int(k), self.n_true)
-        vals, idx = _pruned._pruned_run(self._plan_queries(qs), self.rows, self._aux,
-                                        self._summary, k, _MODES[self.metric])
-        orig = self.orig_idx[idx.long()]
+        vals, orig = _pruned._pruned_run(self._plan_queries(qs), self.rows, self._aux,
+                                         self._summary, k, _MODES[self.metric], self._ids)
         pair = torch.stack([vals.contiguous().view(torch.int32), orig]).cpu()
         return BatchKnnResult(indices=pair[1].numpy().astype(np.int64),
                               scores=pair[0].view(torch.float32).numpy().astype(np.float32))

@@ -13,6 +13,10 @@ a hash of the sources (``*.cu`` and ``*.cuh``) and flags, so a first use
 builds it and a changed source rebuilds it. ``-Xptxas -v``'s report
 (registers, shared memory, spills per kernel) is kept beside the library
 as ``<lib>.log``.
+
+Building and loading hold one process-wide lock: the first kernel calls of
+two threads (a :class:`~innr_tpu_torch.serving.MicroBatcher`'s flush
+workers) would otherwise run nvcc on the same outputs at once.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
@@ -31,6 +36,7 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIB: ctypes.CDLL | None = None
+_LOCK = threading.RLock()
 
 
 def _nvcc() -> str:
@@ -49,6 +55,11 @@ def _nvcc() -> str:
 def build() -> Path:
     """Compile the sources if no library for their hash exists; return its
     path. Raises if nvcc is missing or the compile fails."""
+    with _LOCK:
+        return _build()
+
+
+def _build() -> Path:
     nvcc = _nvcc()
     sources = sorted(SRC_DIR.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -96,56 +107,65 @@ def build_log() -> str:
 
 def load() -> ctypes.CDLL:
     """The built library with every entry point's argument types declared."""
-    global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        f32 = ctypes.c_float
-        lib.innr_knn_scan.argtypes = [
-            ptr, ptr, i32, ptr, ptr, ptr, ptr, f32, f32, ptr, ptr, ptr, i32, i64, i32, i32, i32,
-            i32, ptr,
-        ]
-        lib.innr_knn_scan.restype = i32
-        lib.innr_knn_grid.argtypes = [i32, i32, i32, i32, ptr]
-        lib.innr_knn_grid.restype = i32
-        lib.innr_knn_merge.argtypes = [ptr, ptr, i32, i32, i32, ptr]
-        lib.innr_knn_merge.restype = i32
-        lib.innr_knn_scan_tiles.argtypes = [
-            ptr, ptr, i32, ptr, ptr, ptr, ptr, f32, f32, ptr, ptr, ptr, ptr, ptr, i32, i64, i32,
-            i32, i32, i64, i64, i32, ptr,
-        ]
-        lib.innr_knn_scan_tiles.restype = i32
-        lib.innr_threshold_scan.argtypes = [
-            ptr, ptr, i32, ptr, ptr, ptr, ptr, i64, i32, i64, i64, i32, ptr,
-        ]
-        lib.innr_threshold_scan.restype = i32
-        lib.innr_nearest_centroid.argtypes = [
-            ptr, i32, ptr, ptr, ctypes.c_float, ptr, ptr, i64, i32, i32, ptr,
-        ]
-        lib.innr_nearest_centroid.restype = i32
-        lib.innr_packed_scan.argtypes = [
-            i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, i32, i32,
-            ptr,
-        ]
-        lib.innr_packed_scan.restype = i32
-        lib.innr_packed_grid.argtypes = [i32, i32, i32, i32, i32, ptr]
-        lib.innr_packed_grid.restype = i32
-        lib.innr_packed_rows.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i64, i32, ptr]
-        lib.innr_packed_rows.restype = i32
-        lib.innr_slot_scan.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, i32, ptr]
-        lib.innr_slot_scan.restype = i32
-        lib.innr_sparse_scan.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, i32, i32, i32, ptr,
-        ]
-        lib.innr_sparse_scan.restype = i32
-        lib.innr_maxsim_scores.argtypes = [
-            ptr, ptr, ptr, ptr, f32, ptr, ptr, i32, i32, i32, i32, i64, i32, i32, i32, i32, i32,
-            i32, i32, ptr,
-        ]
-        lib.innr_maxsim_scores.restype = i32
-        lib.innr_maxsim_scores_bf16.argtypes = [
-            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i64, i32, i32, i32, i32, ptr,
-        ]
-        lib.innr_maxsim_scores_bf16.restype = i32
-        _LIB = lib
+        with _LOCK:
+            if _LIB is None:
+                _declare(ctypes.CDLL(str(build())))
     return _LIB
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    """Declare every entry point's argument and result types, then
+    publish the library."""
+    global _LIB
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    f32 = ctypes.c_float
+    lib.innr_knn_scan.argtypes = [
+        ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, f32, f32, ptr, ptr, ptr, i32, i64, i32, i32,
+        i32, i32, ptr,
+    ]
+    lib.innr_knn_scan.restype = i32
+    lib.innr_knn_grid.argtypes = [i32, i32, i32, i32, ptr]
+    lib.innr_knn_grid.restype = i32
+    lib.innr_knn_merge.argtypes = [ptr, ptr, i32, i32, i32, ptr]
+    lib.innr_knn_merge.restype = i32
+    lib.innr_knn_scan_tiles.argtypes = [
+        ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, f32, f32, ptr, ptr, ptr, ptr, ptr, i32, i64,
+        i32, i32, i32, i64, i64, i32, ptr,
+    ]
+    lib.innr_knn_scan_tiles.restype = i32
+    lib.innr_threshold_scan.argtypes = [
+        ptr, ptr, i32, ptr, ptr, ptr, ptr, i64, i32, i64, i64, i32, ptr,
+    ]
+    lib.innr_threshold_scan.restype = i32
+    lib.innr_nearest_centroid.argtypes = [
+        ptr, i32, ptr, ptr, ctypes.c_float, ptr, ptr, i64, i32, i32, ptr,
+    ]
+    lib.innr_nearest_centroid.restype = i32
+    lib.innr_packed_scan.argtypes = [
+        i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, i32, i32,
+        ptr,
+    ]
+    lib.innr_packed_scan.restype = i32
+    lib.innr_packed_grid.argtypes = [i32, i32, i32, i32, i32, ptr]
+    lib.innr_packed_grid.restype = i32
+    lib.innr_packed_rows.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i64, i32, ptr]
+    lib.innr_packed_rows.restype = i32
+    lib.innr_slot_scan.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, i32, ptr]
+    lib.innr_slot_scan.restype = i32
+    lib.innr_sparse_scan.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr, i32, i64, i32, i32, i32, i32, i32, i32, ptr,
+    ]
+    lib.innr_sparse_scan.restype = i32
+    lib.innr_sparse_table_bytes.argtypes = [i32, i32, i32]
+    lib.innr_sparse_table_bytes.restype = i64
+    lib.innr_maxsim_scores.argtypes = [
+        ptr, ptr, ptr, ptr, f32, ptr, ptr, i32, i32, i32, i32, i64, i32, i32, i32, i32, i32,
+        i32, i32, ptr,
+    ]
+    lib.innr_maxsim_scores.restype = i32
+    lib.innr_maxsim_scores_bf16.argtypes = [
+        ptr, ptr, ptr, ptr, i32, i32, i32, i32, i64, i32, i32, i32, i32, ptr,
+    ]
+    lib.innr_maxsim_scores_bf16.restype = i32
+    _LIB = lib

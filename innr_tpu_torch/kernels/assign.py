@@ -38,6 +38,11 @@ _MAX = 2**31 - 1
 # Elements of the (rows, KC) score block the plain version holds at a time.
 _PLAIN_CHUNK = 1 << 25
 
+# The module-level state below (launch counts, the last launch's
+# statistics) is diagnostics only, read by tests and chip_smoke.py: every
+# call allocates its own scratch tensors, so concurrent calls (a
+# MicroBatcher's flush workers) share none; a count bumped by two threads at
+# once may lose one.
 # Kernel launches, in all and by row dtype. Incremented only where the
 # kernel launches.
 LAUNCHES = 0

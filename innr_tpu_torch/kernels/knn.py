@@ -11,7 +11,11 @@ leaves on the table.
 
 Selection runs on int64 composites of (int32 total-order key, row index)
 (:mod:`innr_tpu_torch.utils.order`): larger is better, ties go to the lower
-row, and the exclusion bound of a resumed pass is one compare. The raw form
+row, and the exclusion bound of a resumed pass is one compare. A row-id map
+(``row_ids``: (N,) int32, distinct) puts each row's id in the composite in
+place of its position, so ties go to the lowest id and the returned indices
+are ids: a permuted layout (:class:`~innr_tpu_torch.ivf.IVFIndex`) selects
+as a scan of the original order would. The raw form
 (:func:`fused_knn_keys_batch`) returns keys that are larger-is-better for
 every mode (L2 keys come bit-inverted), ready for a cross-shard merge.
 
@@ -72,6 +76,11 @@ _EMPTY = torch.iinfo(torch.int64).min
 _INT32_MIN = torch.iinfo(torch.int32).min
 _MAX_ROWS = 2**31 - 1
 
+# The module-level state below (launch counts, the last launch's
+# statistics) is diagnostics only, read by tests and chip_smoke.py: every
+# call allocates its own scratch tensors, so concurrent calls (a
+# MicroBatcher's flush workers) share none; a count bumped by two threads at
+# once may lose one.
 # Kernel passes launched (each pass launches knn_scan, then knn_merge), in
 # all and by corpus dtype. Incremented only where the kernels launch.
 LAUNCHES = 0
@@ -218,6 +227,19 @@ def _split_aux(aux, mode: str, n: int):
     return aux[0].contiguous(), aux[1].contiguous()
 
 
+def _check_ids(row_ids, rows, op: str):
+    """``row_ids`` as a contiguous (N,) int32 tensor on the corpus's device,
+    or None."""
+    if row_ids is None:
+        return None
+    if (row_ids.dim() != 1 or row_ids.shape[0] != rows.shape[0]
+            or row_ids.device != rows.device):
+        raise ContractError(
+            f"innr_tpu_torch::{op}: row_ids must be ({rows.shape[0]},) on {rows.device}, got "
+            f"{tuple(row_ids.shape)} on {row_ids.device}")
+    return row_ids.to(torch.int32).contiguous()
+
+
 def _check(qs, rows, vals, mask, k: int, op: str) -> None:
     if rows.dim() != 2 or rows.dtype not in _DTYPES:
         raise ContractError(
@@ -243,7 +265,7 @@ def _check(qs, rows, vals, mask, k: int, op: str) -> None:
         raise ContractError(f"innr_tpu_torch::{op}: k={k} outside [1, {n}]")
 
 
-def _plain_composites(qs, rows, vals, mask, mode: str) -> torch.Tensor:
+def _plain_composites(qs, rows, vals, mask, mode: str, row_ids=None) -> torch.Tensor:
     score = _MODES[mode][0]
     q = qs.to(torch.bfloat16).float() if rows.dtype == torch.bfloat16 else qs
     # "+ 0.0" turns a -0.0 sum into +0.0, as the kernel's sums start at +0.0.
@@ -257,27 +279,31 @@ def _plain_composites(qs, rows, vals, mask, mode: str) -> torch.Tensor:
         keys = ~keys
     if mask is not None:
         keys = torch.where(mask > 0, keys, _INT32_MIN)
-    return composite_keys(keys, torch.arange(rows.shape[0], device=rows.device))
+    ids = torch.arange(rows.shape[0], device=rows.device) if row_ids is None else row_ids
+    return composite_keys(keys, ids)
 
 
-def _plain_top(qs, rows, vals, mask, k: int, mode: str, bound=None) -> torch.Tensor:
-    comp = _plain_composites(qs, rows, vals, mask, mode)
+def _plain_top(qs, rows, vals, mask, k: int, mode: str, bound=None,
+               row_ids=None) -> torch.Tensor:
+    comp = _plain_composites(qs, rows, vals, mask, mode, row_ids)
     if bound is not None:
         comp = torch.where(comp < bound[:, None], comp, _EMPTY)
     return torch.topk(comp, k, dim=1).values
 
 
-def knn_plain(qs, rows, aux, k: int, mode: str, excl=None):
+def knn_plain(qs, rows, aux, k: int, mode: str, excl=None, row_ids=None):
     """The plain PyTorch version of the kernel: matmul scores, keys,
-    composite top-k. Returns raw ``(keys, idx)`` int32 (Q, k), best first.
+    composite top-k. Returns raw ``(keys, idx)`` int32 (Q, k), best first
+    (``idx``: ``row_ids`` of the rows when a map is given).
 
     ``excl``: optional per-query ``(keys, idx)`` bound; only candidates
     strictly after it in (key desc, idx asc) order are kept. Slots past the
     last kept candidate hold ``(INT32_MIN, -1)``."""
     vals, mask = _split_aux(aux, mode, rows.shape[0])
     _check(qs, rows, vals, mask, k, "knn_plain")
+    row_ids = _check_ids(row_ids, rows, "knn_plain")
     bound = None if excl is None else composite_keys(excl[0], excl[1])
-    return split_composite(_plain_top(qs, rows, vals, mask, k, mode, bound))
+    return split_composite(_plain_top(qs, rows, vals, mask, k, mode, bound, row_ids))
 
 
 def _ptr(t) -> int | None:
@@ -332,7 +358,7 @@ def _note_rescored(rows, n_q: int, counter) -> None:
     _LAST_RESCORED = (rows.shape[0], n_q, counter)
 
 
-def _scan_pass(qs, rows, vals, mask, k: int, mode: str, bound) -> torch.Tensor:
+def _scan_pass(qs, rows, vals, mask, k: int, mode: str, bound, row_ids=None) -> torch.Tensor:
     """One kernel pass (knn_scan + knn_merge): (Q, k) int64 composites."""
     global LAUNCHES
     from innr_tpu_torch.kernels import _build
@@ -348,7 +374,7 @@ def _scan_pass(qs, rows, vals, mask, k: int, mode: str, bound) -> torch.Tensor:
         kth = shared_keys(n_q, -(-n // slab_rows), rows.device)
         return lib.innr_knn_scan(
             qs.data_ptr(), rows.data_ptr(), _DTYPES[rows.dtype], _ptr(vals), _ptr(mask),
-            _ptr(bound), _ptr(qmeta), m_abs, m_aux, _ptr(counter), kth.data_ptr(), partial, n_q,
+            _ptr(bound), _ptr(row_ids), _ptr(qmeta), m_abs, m_aux, _ptr(counter), kth.data_ptr(), partial, n_q,
             n, d, k, _MODES[mode][0], slab_rows, stream)
 
     out = _scan_and_merge(
@@ -360,9 +386,11 @@ def _scan_pass(qs, rows, vals, mask, k: int, mode: str, bound) -> torch.Tensor:
     return out
 
 
-def fused_knn_keys_batch(qs, rows, aux, k: int, mode: str):
+def fused_knn_keys_batch(qs, rows, aux, k: int, mode: str, row_ids=None):
     """Top-k as RAW int32 total-order keys (larger is better for every mode;
-    L2 keys come bit-inverted) plus int32 row indices, both (Q, k).
+    L2 keys come bit-inverted) plus int32 row indices, both (Q, k). With
+    ``row_ids`` ((N,) int32, distinct) the indices are the rows' ids, and
+    ties go to the lowest id.
 
     Any k in [1, N]: above :func:`single_pass_k` the kernel runs
     exclusion-bounded passes, each resuming strictly after the previous
@@ -371,6 +399,7 @@ def fused_knn_keys_batch(qs, rows, aux, k: int, mode: str):
     rows = rows.contiguous()
     vals, mask = _split_aux(aux, mode, rows.shape[0])
     _check(qs, rows, vals, mask, k, "fused_knn_keys_batch")
+    row_ids = _check_ids(row_ids, rows, "fused_knn_keys_batch")
     if rows.device.type == "cpu" or config.reference_forced():
         run_pass = _plain_top
     elif rows.device.type == "cuda":
@@ -378,7 +407,7 @@ def fused_knn_keys_batch(qs, rows, aux, k: int, mode: str):
     else:
         raise ContractError(f"innr_tpu_torch::knn: unsupported device {rows.device}")
     comp = _multi_pass(
-        lambda pass_k, bound: run_pass(qs, rows, vals, mask, pass_k, mode, bound),
+        lambda pass_k, bound: run_pass(qs, rows, vals, mask, pass_k, mode, bound, row_ids),
         k, single_pass_k(qs.shape[0]),
     )
     return split_composite(comp)
@@ -438,8 +467,8 @@ def _multi_pass(run_pass, k: int, cap: int) -> torch.Tensor:
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
-def _fused_knn(qs, rows, aux, k: int, mode: str):
-    keys, idx = fused_knn_keys_batch(qs, rows, aux, k, mode)
+def _fused_knn(qs, rows, aux, k: int, mode: str, row_ids=None):
+    keys, idx = fused_knn_keys_batch(qs, rows, aux, k, mode, row_ids)
     if mode in ("l2", "l2m"):
         keys = ~keys
     return invert_total_key(keys), idx

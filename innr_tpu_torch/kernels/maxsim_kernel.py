@@ -73,6 +73,8 @@ _BF16_MAX_TOKENS = 512
 # Incremented only where the kernel launches.
 LAUNCHES = 0
 LAUNCHES_BY_DTYPE = {"float32": 0, "bfloat16": 0}
+# Diagnostics only, as in kernels/knn.py: each call allocates its own
+# scratch, so concurrent calls share none.
 # The last f32 launch's (query tokens, documents, device counter of the
 # (query token, document token) pairs it re-scored exactly); read by
 # maxsim_rescore_stats().

@@ -28,6 +28,11 @@ here.
 k above K1's per-pass cap runs K1's exclusion-bounded multi-pass full scan,
 as the JAX package does.
 
+A row-id map (``row_ids``, as in :func:`.knn.fused_knn_keys_batch`) reaches
+both scans: the tile scan and, above the cap, K1's full scan put each row's
+id in its composite, so a permuted layout (:class:`~innr_tpu_torch.ivf.
+IVFIndex`) breaks ties by the lowest original index and returns ids.
+
 Dispatch: a CUDA tensor runs the kernels, or the call raises; a CPU tensor,
 or :func:`innr_tpu_torch.config.force_reference`, runs the plain versions.
 """
@@ -102,24 +107,27 @@ def _check_plan(order, n_surv, tile_n: int, rows, op: str):
     return order.to(torch.int32).contiguous(), n_surv
 
 
-def _plain_tiles(qs, rows, vals, mask, order, n_surv, tile_n, k, mode):
-    comp = _knn._plain_composites(qs, rows, vals, mask, mode)
+def _plain_tiles(qs, rows, vals, mask, order, n_surv, tile_n, k, mode, row_ids=None):
+    comp = _knn._plain_composites(qs, rows, vals, mask, mode, row_ids)
     alive = _row_alive(order, n_surv, tile_n, rows.shape[0])
     comp = torch.where(alive[None, :], comp, _knn._EMPTY)
     return split_composite(torch.topk(comp, k, dim=1).values)
 
 
-def pruned_knn_plain(qs, rows, aux, order, n_surv, tile_n: int, k: int, mode: str):
+def pruned_knn_plain(qs, rows, aux, order, n_surv, tile_n: int, k: int, mode: str,
+                     row_ids=None):
     """The plain version of the tile scan: ``knn_plain`` over the rows of
     the tiles ``order[:n_surv]`` only. Raw ``(keys, idx)`` int32 (Q, k),
-    best first; slots past the last live row hold ``(INT32_MIN, -1)``."""
+    best first (``idx``: ``row_ids`` of the rows when a map is given); slots
+    past the last live row hold ``(INT32_MIN, -1)``."""
     vals, mask = _knn._split_aux(aux, mode, rows.shape[0])
     _knn._check(qs, rows, vals, mask, k, "pruned_knn_plain")
+    row_ids = _knn._check_ids(row_ids, rows, "pruned_knn_plain")
     order, n_surv = _check_plan(order, n_surv, tile_n, rows, "pruned_knn_plain")
-    return _plain_tiles(qs, rows, vals, mask, order, n_surv, tile_n, k, mode)
+    return _plain_tiles(qs, rows, vals, mask, order, n_surv, tile_n, k, mode, row_ids)
 
 
-def _scan_tiles(qs, rows, vals, mask, order, n_surv, tile_n, k, mode, bound):
+def _scan_tiles(qs, rows, vals, mask, order, n_surv, tile_n, k, mode, bound, row_ids=None):
     """One tile-scan pass (knn_scan over the tiles, knn_merge of the live
     slabs): (Q, k) int64 composites."""
     global LAUNCHES
@@ -145,7 +153,7 @@ def _scan_tiles(qs, rows, vals, mask, order, n_surv, tile_n, k, mode, bound):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.innr_knn_scan_tiles(
             qs.data_ptr(), rows.data_ptr(), _knn._DTYPES[rows.dtype], _knn._ptr(vals),
-            _knn._ptr(mask), _knn._ptr(bound), _knn._ptr(qmeta), m_abs, m_aux,
+            _knn._ptr(mask), _knn._ptr(bound), _knn._ptr(row_ids), _knn._ptr(qmeta), m_abs, m_aux,
             _knn._ptr(counter), kth.data_ptr(), order.data_ptr(), n_surv.data_ptr(),
             partial.data_ptr(), n_q,
             n, d, k, _knn._MODES[mode][0], int(tile_n), _SCAN_CHUNK_ROWS, n_ctas, stream,
@@ -161,22 +169,24 @@ def _scan_tiles(qs, rows, vals, mask, order, n_surv, tile_n, k, mode, bound):
     return out
 
 
-def pruned_keys(qs, rows, aux, order, n_surv, tile_n: int, k: int, mode: str):
+def pruned_keys(qs, rows, aux, order, n_surv, tile_n: int, k: int, mode: str, row_ids=None):
     """Top-k over the tiles ``order[:n_surv]`` as raw int32 ``(keys, idx)``
-    (Q, k), K1's key contract: the tile kernel for CUDA tensors (k above
+    (Q, k), K1's key contract (``idx``: ``row_ids`` of the rows when a map
+    is given): the tile kernel for CUDA tensors (k above
     ``knn.single_pass_k`` in K1's exclusion-bounded passes), the plain
     version for CPU tensors."""
     qs, rows = qs.contiguous(), rows.contiguous()
     vals, mask = _knn._split_aux(aux, mode, rows.shape[0])
     _knn._check(qs, rows, vals, mask, k, "pruned_keys")
+    row_ids = _knn._check_ids(row_ids, rows, "pruned_keys")
     order, n_surv = _check_plan(order, n_surv, tile_n, rows, "pruned_keys")
     if rows.device.type == "cpu" or config.reference_forced():
-        return _plain_tiles(qs, rows, vals, mask, order, n_surv, tile_n, k, mode)
+        return _plain_tiles(qs, rows, vals, mask, order, n_surv, tile_n, k, mode, row_ids)
     if rows.device.type != "cuda":
         raise ContractError(f"innr_tpu_torch::pruned_keys: unsupported device {rows.device}")
     return split_composite(_knn._multi_pass(
         lambda pass_k, bound: _scan_tiles(qs, rows, vals, mask, order, n_surv, tile_n,
-                                          pass_k, mode, bound),
+                                          pass_k, mode, bound, row_ids),
         k, _knn.single_pass_k(qs.shape[0])))
 
 
@@ -204,18 +214,18 @@ def plan(qs, rows, summary, k: int, mode: str):
                           plan_mode, fast=_fast_plan_ok(k, summary))
 
 
-def _pruned_run(qs, rows, aux, summary, k: int, mode: str):
+def _pruned_run(qs, rows, aux, summary, k: int, mode: str, row_ids=None):
     """Plan and scan: ``(scores (Q, k), idx (Q, k))``, equal to K1's full
-    scan of the same mode."""
+    scan of the same mode (``idx``: ids when ``row_ids`` is given)."""
     if summary.tile_n * summary.n_tiles < rows.shape[0]:
         raise ValueError("TileSummary does not cover the corpus")
     if k > _knn.single_pass_k(qs.shape[0]):
-        vals, idx = _knn._fused_knn(qs, rows, aux, k, mode)
+        vals, idx = _knn._fused_knn(qs, rows, aux, k, mode, row_ids)
         if mode in ("l2", "l2m"):
             vals = _knn._clamp_l2(vals, qs)
         return vals, idx
     order, n_surv = plan(qs, rows, summary, k, mode)
-    keys, idx = pruned_keys(qs, rows, aux, order, n_surv, summary.tile_n, k, mode)
+    keys, idx = pruned_keys(qs, rows, aux, order, n_surv, summary.tile_n, k, mode, row_ids)
     if mode in ("l2", "l2m"):
         keys = ~keys
     vals = invert_total_key(keys)

@@ -29,8 +29,10 @@ multi-pass driver (:func:`.knn._multi_pass`).
 
 Dispatch: a CUDA tensor runs the kernel, or the call raises; a CPU tensor,
 or :func:`innr_tpu_torch.config.force_reference`, runs the plain version.
-Any query whose table fits in shared memory runs in the kernel (thousands
-of entries; :func:`_table_tile` raises above that).
+Any query length runs in the kernel: a query tile whose table does not fit
+in shared memory (a single query of thousands of entries) gets its table
+in global memory, where L2 holds it (:func:`_table_plan`), with the same
+lookups and sums, bit for bit.
 """
 
 from __future__ import annotations
@@ -58,8 +60,11 @@ MAX_QUERY_NNZ = 256
 # in chunks with a running top-k.
 _PLAIN_CHUNK = 1 << 24
 _LOW32 = 0xFFFFFFFF
-# csrc/sparse_knn.cu: a hash slot holds a union index in 16 bits.
+# csrc/sparse_knn.cu: a shared-memory hash slot holds a union index in 16
+# bits. A table in global memory has no such limit; its query tile is the
+# largest whose table stays within _GLOBAL_TABLE_BYTES (the H100's L2 is 50 MB), else 1.
 _MAX_UNION = 1 << 16
+_GLOBAL_TABLE_BYTES = 8 << 20
 
 # Kernel passes launched (each pass launches sparse_scan, then knn_merge).
 # Incremented only where the kernels launch.
@@ -142,12 +147,32 @@ def _table_smem(tile: int, lq: int, k: int, spread: int = 2) -> tuple[int, int]:
     return topk + 8 * (1 << hbits) + 4 * u_max * (stride + 1) + 16, hbits
 
 
+def _global_table(n_q: int, lq: int, k: int) -> tuple[int, int, int]:
+    """``(query tile, hash bits, bytes of one tile's table)`` of a table in
+    global memory, the hash at most a quarter full: the largest power of
+    two <= :func:`.row_scan.query_tile` whose table stays within
+    ``_GLOBAL_TABLE_BYTES`` and whose top-k buffers fit in shared memory,
+    else 1. Raises :class:`ContractError` when even one query's top-k
+    buffers do not fit (k beyond any pass cap)."""
+    def table(tile):
+        u_max = max(1, tile * lq)
+        hbits = max(4, (4 * u_max - 1).bit_length())
+        stride = tile + 1 if tile > 1 else 1
+        return hbits, -(-(8 * (1 << hbits) + 4 * u_max * (stride + 1) + 4) // 16) * 16
+
+    tile = row_scan.row_scan_tile(n_q, k, 0, "sparse_scan")
+    while tile > 1 and table(tile)[1] > _GLOBAL_TABLE_BYTES:
+        tile //= 2
+    return (tile, *table(tile))
+
+
 def _table_tile(n_q: int, lq: int, k: int) -> tuple[int, int]:
-    """``(query tile, hash bits)``: the largest power of two <=
-    :func:`.row_scan.query_tile` whose table fits in shared memory with the
+    """``(query tile, hash bits)`` of a table in shared memory: the largest
+    power of two <= :func:`.row_scan.query_tile` whose table fits with the
     hash at most half full; then a quarter full where that fits too and
     keeps two CTAs per SM if half full did. Raises :class:`ContractError`
-    naming the limit when a single query's table does not fit."""
+    naming the limit when a single query's table does not fit (then
+    :func:`_table_plan` puts the tables in global memory)."""
     tile = row_scan.query_tile(n_q)
     while tile > 1 and _table_smem(tile, lq, k, 1)[0] > row_scan.SMEM_LIMIT:
         tile //= 2
@@ -164,6 +189,15 @@ def _table_tile(n_q: int, lq: int, k: int) -> tuple[int, int]:
     return tile, hbits
 
 
+def _table_plan(n_q: int, lq: int, k: int) -> tuple[int, int, int]:
+    """``(query tile, hash bits, bytes of one tile's table in global
+    memory)``: :func:`_table_tile` with 0 bytes when one query's table fits
+    in shared memory, else :func:`_global_table`."""
+    if _table_smem(1, lq, k, 1)[0] > row_scan.SMEM_LIMIT or lq > _MAX_UNION:
+        return _global_table(n_q, lq, k)
+    return (*_table_tile(n_q, lq, k), 0)
+
+
 def _scan_pass(q_idx, q_val, idx_t, val_t, k: int, bound) -> torch.Tensor:
     """One kernel pass (sparse_scan + knn_merge): (Q, k) int64 composites."""
     global LAUNCHES
@@ -172,12 +206,17 @@ def _scan_pass(q_idx, q_val, idx_t, val_t, k: int, bound) -> torch.Tensor:
     lib = _build.load()
     n_q, lq = q_idx.shape
     l, n = idx_t.shape
-    tile, hbits = _table_tile(n_q, lq, k)
+    tile, hbits, in_global = _table_plan(n_q, lq, k)
+    table = None
+    if in_global:  # one table per query tile, laid out as the library sizes it
+        per_tile = lib.innr_sparse_table_bytes(tile, lq, hbits)
+        table = torch.empty(per_tile * -(-n_q // tile), dtype=torch.uint8, device=idx_t.device)
     out = _knn._scan_and_merge(
         "sparse_scan",
         lambda partial, slab_rows, stream: lib.innr_sparse_scan(
             q_idx.data_ptr(), q_val.data_ptr(), idx_t.data_ptr(), val_t.data_ptr(),
-            _knn._ptr(bound), partial, n_q, n, l, lq, hbits, k, tile, slab_rows, stream),
+            _knn._ptr(bound), _knn._ptr(table), 0 if table is None else table.numel(), partial,
+            n_q, n, l, lq, hbits, k, tile, slab_rows, stream),
         n_q, n, k, tile, row_scan.ROW_TILE, idx_t.device)
     LAUNCHES += 1
     return out

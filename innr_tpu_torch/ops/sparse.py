@@ -247,9 +247,12 @@ def sparse_maxsim(query_tokens, doc_tokens) -> torch.Tensor:
     """SPLADE-style late interaction over sparse token vectors
     (reference ``src/sparse.rs:119``): ``sum_i max_j sparse_dot(q_i, d_j)``.
     Inputs are lists of ``(indices, values)`` pairs or pre-padded ``(T,
-    W)`` pairs from :func:`pad_sparse`. Empty query or doc -> 0.0. The max
-    starts from -inf, so all-negative overlaps keep the least negative."""
+    W)`` pairs from :func:`pad_sparse`, each token in any order (the
+    query's are sorted here). Empty query or doc -> 0.0. The max starts from
+    -inf, so all-negative overlaps keep the least negative."""
     q = _token_pair(query_tokens, None)
+    if q is not None:
+        q = _sorted_queries(*q)
     dev = q[0].device if q is not None else host_device()
     d = _token_pair(doc_tokens, dev)
     if q is None or d is None or q[0].shape[0] == 0 or d[0].shape[0] == 0:
@@ -306,7 +309,10 @@ def _corpus_maxsim_scores(q_idx2, q_val2, d_idx, d_val, d_tok_mask) -> torch.Ten
 def _parse_query_tokens(query_tokens, device):
     """A sparse multi-vector query as a padded ``(Tq, W)`` pair: a list of
     ``(indices, values)`` token pairs, a pre-padded pair, or one 1-D pair
-    (one token). An empty query parses to ``(0, 1)`` tensors."""
+    (one token). An empty query parses to ``(0, 1)`` tensors. Each token is
+    sorted by index (:func:`_sorted_queries`; padding stays last): the join
+    searches each document id in the token, so an unsorted token would miss
+    its matches."""
     if isinstance(query_tokens, tuple) and len(query_tokens) == 2 and not (
             isinstance(query_tokens[0], (tuple, list))):
         q_idx = as_unsigned(query_tokens[0], 32, device)
@@ -317,8 +323,8 @@ def _parse_query_tokens(query_tokens, device):
                 f"got {tuple(q_idx.shape)} / {tuple(q_val.shape)}")
         if q_idx.dim() == 1:
             q_idx, q_val = q_idx[None, :], q_val[None, :]
-        return q_idx, q_val
-    return pad_sparse(query_tokens, device=device)
+        return _sorted_queries(q_idx, q_val)
+    return _sorted_queries(*pad_sparse(query_tokens, device=device))
 
 
 def sparse_maxsim_batch(query_tokens, docs) -> torch.Tensor:

@@ -7,10 +7,12 @@ greatest and cannot poison the acceptance gate (reference
 ``src/topk.rs:96-121``, the NaN regression test at ``:191-208``).
 
 Host-side and numpy, as in the JAX package: the inner-loop tracker the
-reference feeds one candidate at a time. ``insert_batch`` streams through
-``insert`` in Python; the JAX package's native C fast path
-(``innr_tpu/_native.py``) is not ported yet. The kNN paths never use this
-class: they select with :func:`innr_tpu_torch.utils.order.top_k_total`.
+reference feeds one candidate at a time. ``insert_batch`` streams a batch
+through the native C runtime (:mod:`innr_tpu_torch._native`, over
+``native/innr_host.c``: the reference's memmove insertion loop) when it
+builds, else through ``insert`` in Python, with the same result. The kNN
+paths never use this class: they select with
+:func:`innr_tpu_torch.utils.order.top_k_total`.
 """
 
 from __future__ import annotations
@@ -68,11 +70,18 @@ class TopK:
         self._count = c + 1
 
     def insert_batch(self, ids, distances) -> None:
-        """Stream many candidates through the tracker, in order."""
+        """Stream many candidates through the tracker, in order (the
+        native C loop when it is available)."""
         ids = np.ascontiguousarray(ids, dtype=np.uint32)
         dists = np.ascontiguousarray(distances, dtype=np.float32)
         if ids.shape != dists.shape:
             raise ValueError("TopK.insert_batch: ids/distances length mismatch")
+        from innr_tpu_torch import _native
+
+        count = _native.topk_insert_batch(dists, ids, self.k, self._d, self._i, self._count)
+        if count is not None:
+            self._count = count
+            return
         for i, d in zip(ids, dists):
             self.insert(int(i), float(d))
 

@@ -170,8 +170,8 @@ def build(out: Path, names=None) -> dict:
         if proc.returncode != 0:
             raise SystemExit(f"knn_probe: nvcc failed for {name}:\n{log}")
         lib = ctypes.CDLL(str(out / f"knn_{name}.so"))
-        lib.innr_knn_scan.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, ptr, f32, f32, ptr, ptr, ptr,
-                                      i32, i64, i32, i32, i32, i32, ptr]
+        lib.innr_knn_scan.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, f32, f32, ptr, ptr,
+                                      ptr, i32, i64, i32, i32, i32, i32, ptr]
         lib.innr_knn_scan.restype = i32
         lib.innr_knn_grid.argtypes = [i32, i32, i32, i32, ptr]
         lib.innr_knn_grid.restype = i32
@@ -217,7 +217,7 @@ def main() -> int:
             def run(lib=lib, slab=slab, partial=partial, kth=kth):
                 kth.fill_(tk._INT32_MIN)
                 rc = lib.innr_knn_scan(
-                    q.data_ptr(), rows.data_ptr(), 2, None, None, None, qmeta.data_ptr(), m_abs,
+                    q.data_ptr(), rows.data_ptr(), 2, None, None, None, None, qmeta.data_ptr(), m_abs,
                     m_aux, counter.data_ptr(), kth.data_ptr(), partial.data_ptr(), n_q, n, 768,
                     k, 0, slab, torch.cuda.current_stream().cuda_stream)
                 if rc != 0:

@@ -17,7 +17,8 @@ results and times (CUDA events, median of 5) of the parts named in PARTS
   {1, 32} and k in {10, 80, 1000} (80: ``TwoStageIndex``'s u8 coarse pass);
   and ``batch_knn_dot(..., prune=True)`` on the clustered,
   cluster-ordered 10M x 128 corpus of ``chip_smoke.py``'s pruning cells
-  (Q = 32, k = 10);
+  (Q = 32, k = 10), and the tile scan alone (``kernels.pruned_knn.
+  pruned_keys``) on that call's plan;
 - ``maxsim``: the f32 MaxSim scores (``kernels.maxsim_kernel.
   fused_maxsim_scores_batch``) over ``chip_smoke.py``'s ColBERT corpus
   (200K x 180 x 128, ragged lengths) at B in {1, 16}, with and without the
@@ -235,6 +236,15 @@ def knn_part(itt, tk, out: dict, times: dict, dev) -> None:
     res = itt.batch_knn_dot(qc, vb, 10, prune=True)
     out["prune_f32_dot"] = (torch.as_tensor(res.scores), torch.as_tensor(res.indices))
     times["prune_f32_dot_ms"] = median_ms(lambda: itt.batch_knn_dot(qc, vb, 10, prune=True))
+    # K14 alone on the same plan (the tile scan and its merge).
+    from innr_tpu_torch.kernels import pruned_knn as tpk
+
+    order, n_surv = tpk.plan(qc, rows, vb.tile_summary(), 10, "dot")
+    tile_n = vb.tile_summary().tile_n
+    out["k14_f32_dot"] = tuple(t.cpu() for t in tpk.pruned_keys(qc, rows, None, order, n_surv,
+                                                                tile_n, 10, "dot"))
+    times["k14_f32_dot_ms"] = median_ms(
+        lambda: tpk.pruned_keys(qc, rows, None, order, n_surv, tile_n, 10, "dot"))
 
 
 def compare(outdir: str) -> int:

@@ -189,7 +189,7 @@ class TestKernelOnCuda:
         info = torch.iinfo(dtype)
         alphabet = torch.tensor([info.min, -1, 0, 1], dtype=dtype, device=cuda_device)
         rows = alphabet[torch.randint(0, 4, (3077, s), generator=gen, device=cuda_device)]
-        rows[[100, 2000]] = rows[5]
+        rows[[100, 2000]] = rows[5].clone()  # an index_put may not read what it writes
         qs = alphabet[torch.randint(0, 4, (n_q, s), generator=gen, device=cuda_device)]
         qs[0] = rows[5]
         slots_t = rows.T.contiguous()
