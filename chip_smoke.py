@@ -199,6 +199,33 @@ and imports nothing of JAX. Phases:
                  of 100K documents) equal to the device encoders bit for
                  bit, host ms beside device ms.
 
+6. sharded — innr_tpu_torch.parallel on meshes of one card: every container
+              on [cuda:0] and on [cuda:0] x 4 (four shards scanned in turn
+              on the same card), each path with the launch counters reset
+              just before it and read just after, held to the single-card
+              call over the same rows bit for bit:
+              a. f32 10M x 128, Q=32, k=10: ShardedCorpus dot / l2 / cosine
+                 / filtered and a (D,) query, QueryParallelIndex, GridIndex
+                 2 x 2, HierarchicalCorpus 2 x 2, a MicroBatcher (16 client
+                 threads) in front of the 4-shard corpus, and
+                 corpus_from_process_local_rows on a one-rank NCCL group
+                 (file rendezvous in a temporary directory);
+                 sharded_overhead_1dev (one-card mesh against
+                 batch_knn_dot) at 2M and 10M, the 4-shard call, the merge
+                 alone;
+              b. bf16 20M x 128 (dot, l2, cosine, filtered); prune=True on
+                 the clustered 10M x 128 corpus over 4 shards (no K1
+                 launch); ShardedQuantizedU8 1M x 768;
+              c. ShardedPackedBinary 30M x 768 bits and ShardedPackedTernary
+                 15M x 768 (Q=16); ShardedSlotCorpus 10M x 128 u32 and u16;
+                 ShardedSparseCorpus 10M x 32 (Q=16);
+              d. ShardedMaxSimCorpus 200K x 180 x 128 f32 (B=16);
+                 ShardedTwoStageIndex 1M x 768 in the four coarse kinds (4
+                 shards: against the single-card index over each shard's
+                 rows, merged by score).
+              Each family's 4-shard call is timed beside its single-card
+              call (CUDA events, host copy included, median of 7).
+
 Every failed check raises, so the exit code is non-zero. The last two lines
 are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
 """
@@ -233,6 +260,11 @@ N_MAXSIM, MAXSIM_TD, MAXSIM_D, MAXSIM_TQ = 200_000, 180, 128, 32
 N_TIES, TIES_CLUSTERS = 1 << 20, 1024
 N_SEGMENTS, SEGMENT_ROWS = 8, 1_250_000
 N_LOADER, N_MINHASH_DOCS = 1_000_000, 100_000
+# The sharded cells (6), from PERF.md section 4: f32 N_SHARDED x 128 (bf16
+# twice the rows, binary 3x and ternary 1.5x the rows at 768 bits), the
+# overhead cell of bench.py:228 (2M x 128), u8 and the two-stage index at
+# N_SHARDED_U8 x 768.
+N_SHARDED, N_OVERHEAD, N_SHARDED_U8 = 10_000_000, 2_000_000, 1_000_000
 
 # Published peaks of one H100 SXM (NVIDIA's H100 datasheet): HBM at
 # 3.35 TB/s, FP32 SIMT at 67 TFLOP/s, dense tensor cores at 989 TFLOP/s in
@@ -2782,6 +2814,432 @@ def phase_loader(dev) -> None:
         f"torch, this script's twin) {dev_ms!r} ms")
 
 
+# -- phase 6 ---------------------------------------------------------------
+
+def _host_pair(res):
+    """A result as a pair of numpy arrays: ``(scores, indices)`` of a
+    BatchKnnResult, or a pair of tensors / arrays."""
+    import numpy as np
+    import torch
+
+    if hasattr(res, "indices"):
+        res = (res.scores, res.indices)
+    return tuple(np.asarray(t.cpu() if torch.is_tensor(t) else t) for t in res)
+
+
+def _same_pair(name: str, got, want) -> None:
+    """Two results equal: float scores bit for bit, integers exactly."""
+    import numpy as np
+
+    for g, w in zip(_host_pair(got), _host_pair(want), strict=True):
+        if g.dtype.kind == "f":
+            g, w = g.astype(np.float32).view(np.int32), w.astype(np.float32).view(np.int32)
+        else:
+            g, w = g.astype(np.int64), w.astype(np.int64)
+        if g.shape != w.shape or not np.array_equal(g, w):
+            raise AssertionError(f"{name}: differs from the single-card call")
+
+
+def _sharded_time(name: str, sharded, single, times: dict) -> None:
+    """CUDA-event medians of a sharded call and its single-card counterpart
+    (each followed by the host copy of its result), logged with the ratio;
+    the pair goes into ``times`` under ``name``."""
+    s_ms = _median_ms(lambda: _host_pair(sharded()))
+    o_ms = _median_ms(lambda: _host_pair(single()))
+    times[name] = (s_ms, o_ms)
+    log(f"[timing] sharded {name}: {s_ms!r} ms, single-card {o_ms!r} ms, ratio "
+        f"{s_ms / o_ms!r} (CUDA events, host copy included, median of 7)")
+
+
+def _sharded_dense(dev, meshes, total: dict, times: dict) -> None:
+    """6a: f32 10M x 128 through ShardedCorpus (dot, l2, cosine, filtered,
+    a (D,) query), QueryParallelIndex, GridIndex 2 x 2, HierarchicalCorpus 2
+    x 2, a MicroBatcher in front of the 4-shard corpus and a one-rank NCCL
+    group's corpus_from_process_local_rows; sharded_overhead_1dev at 2M and
+    10M, the 4-shard call and the merge alone."""
+    import tempfile
+    import threading
+
+    import torch
+    import torch.distributed as dist
+
+    import innr_tpu_torch as itt
+    import innr_tpu_torch.parallel as par
+    from innr_tpu_torch.kernels import knn as tk
+    from innr_tpu_torch.parallel import multihost
+    from innr_tpu_torch.parallel.sharded import _local_keys, merge_parts
+
+    m1, m4 = meshes.values()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    n, n_q, k = N_SHARDED, 32, 10
+    rows = torch.randn((n, 128), generator=gen, device=dev)
+    qs = torch.randn((n_q, 128), generator=gen, device=dev)
+    mask = (torch.rand(n, generator=gen, device=dev) < 0.3).cpu().numpy()
+    vb = itt.VerticalBatch(rows)
+    full = {"knn_dot": itt.batch_knn_dot, "knn_l2": itt.batch_knn,
+            "knn_cosine": itt.batch_knn_cosine}
+    want = {m: fn(qs, vb, k) for m, fn in full.items()}
+    want["knn_filtered"] = itt.batch_knn_filtered(qs, vb, k, mask)
+    k1 = ["knn_scan+knn_merge<float32>"]
+
+    def check_dense(label: str, index, methods) -> None:
+        got, _ = _run_path(label, k1, lambda: {
+            m: (index.knn_filtered(qs, k, mask) if m == "knn_filtered"
+                else getattr(index, m)(qs, k)) for m in methods}, total)
+        for m in methods:
+            _same_pair(f"{label} {m}", got[m], want[m])
+        log(f"[main] {label} ({n} x 128 f32, Q={n_q}, k={k}): {', '.join(methods)} equal the "
+            "single-card calls bit for bit")
+
+    all4 = ("knn_dot", "knn_l2", "knn_cosine", "knn_filtered")
+    for label, mesh in meshes.items():
+        sc = par.ShardedCorpus(rows, mesh)
+        check_dense(f"ShardedCorpus {label}", sc, all4)
+        got, _ = _run_path(f"ShardedCorpus {label} (D,)", k1, lambda: sc.knn_l2(qs[3], k), total)
+        _same_pair(f"ShardedCorpus {label} (D,)", got, itt.batch_knn(qs[3], vb, k))
+    four = [dev] * 4
+    check_dense("QueryParallelIndex [cuda:0] x 4", par.QueryParallelIndex(rows, m4),
+                all4)
+    check_dense("GridIndex 2 x 2", par.GridIndex(rows, par.grid_mesh(2, 2, four)), all4)
+    check_dense("HierarchicalCorpus 2 x 2",
+                par.HierarchicalCorpus(rows, par.hierarchical_mesh(2, 2, four)), all4[:3])
+
+    # MicroBatcher in front of the 4-shard corpus (its knn_dot backend).
+    sc4 = par.ShardedCorpus(rows, m4)
+    pool = torch.randn((64, 128), generator=gen, device=dev).cpu().numpy()
+    ref_s, ref_i = _host_pair(itt.batch_knn_dot(pool, vb, k))
+    answers, failures = [], []
+
+    def client(t: int, mb) -> None:
+        try:
+            for j in range(4):
+                q = t * 4 + j
+                answers.append((q, mb.search(pool[q], timeout=60.0)))
+        except Exception as e:  # noqa: BLE001 — reported below
+            failures.append(e)
+
+    def serve():
+        with itt.MicroBatcher(sc4, k=k, max_batch=32, max_wait_ms=2.0) as mb:
+            threads = [threading.Thread(target=client, args=(t, mb)) for t in range(16)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120.0)
+            return mb.stats
+
+    stats, _ = _run_path("MicroBatcher over ShardedCorpus", k1, serve, total)
+    if failures or len(answers) != 64:
+        raise AssertionError(f"MicroBatcher over ShardedCorpus: clients failed {failures[:3]}")
+    for q, (s, i) in answers:
+        _same_pair(f"MicroBatcher over ShardedCorpus query {q}", (s, i), (ref_s[q], ref_i[q]))
+    log(f"[main] MicroBatcher over ShardedCorpus [cuda:0] x 4 (knn_dot, k={k}): 64 answers "
+        f"from 16 client threads equal batch_knn_dot bit for bit, {stats.launches} windows")
+
+    # One-rank NCCL group: the process corpus gathers through the group.
+    with tempfile.TemporaryDirectory() as tmp:
+        multihost.initialize(f"file://{tmp}/rdv", 1, 0)
+        try:
+            if dev.type == "cuda" and dist.get_backend() != "nccl":
+                raise AssertionError(f"multihost on the card took {dist.get_backend()}")
+            pc = multihost.corpus_from_process_local_rows(rows, mesh=m4)
+            check_dense("corpus_from_process_local_rows (one-rank NCCL group, 4 shards)", pc,
+                        all4)
+        finally:
+            dist.destroy_process_group()
+
+    # Timing: one-card and 4-shard calls against batch_knn_dot, the merge.
+    for rows_n in (N_OVERHEAD, n):
+        sub = rows[:rows_n]
+        vb_n = itt.VerticalBatch(sub)
+        sc1 = par.ShardedCorpus(sub, m1)
+        sc4 = par.ShardedCorpus(sub, m4)
+        tag = f"{rows_n / 1e6:g}M"
+        _sharded_time(f"knn_dot [cuda:0] {tag}", lambda: sc1.knn_dot(qs, k),
+                      lambda: itt.batch_knn_dot(qs, vb_n, k), times)
+        _sharded_time(f"knn_dot [cuda:0] x 4 {tag}", lambda: sc4.knn_dot(qs, k),
+                      lambda: itt.batch_knn_dot(qs, vb_n, k), times)
+        dev1 = _median_ms(lambda: sc1.knn_dot(qs, k))
+        dev0 = _median_ms(lambda: tk.fused_knn_dot_batch(qs, sub, k))
+        log(f"[timing] sharded_overhead_1dev {tag} x 128 (Q={n_q}, k={k}): "
+            f"{times[f'knn_dot [cuda:0] {tag}'][0] / times[f'knn_dot [cuda:0] {tag}'][1]!r} "
+            f"with the host copies; on the device {dev1!r} ms against K1's "
+            f"fused_knn_dot_batch {dev0!r} ms, ratio {dev1 / dev0!r}")
+    parts = [_local_keys(sc4, i, qs, k, "dot", False) for i in range(4)]
+    merge_ms = _median_ms(lambda: merge_parts(parts, k, dev))
+    times["merge"] = (merge_ms, None)
+    log(f"[timing] the merge alone (4 shards' (32, {k}) candidates: composites, copy, topk): "
+        f"{merge_ms!r} ms")
+    del rows, vb, sc4, pc, parts
+    torch.cuda.empty_cache()
+
+
+def _sharded_bf16_prune_u8(dev, meshes, total: dict, times: dict) -> None:
+    """6b: bf16 20M x 128 (dot, l2, cosine, filtered); prune=True on the
+    clustered, cluster-ordered 10M x 128 corpus over 4 shards (no K1
+    launch); u8 1M x 768 ShardedQuantizedU8."""
+    import torch
+
+    import innr_tpu_torch as itt
+    import innr_tpu_torch.parallel as par
+
+    m1, m4 = meshes.values()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    n_q, k = 32, 10
+    qs = torch.randn((n_q, 128), generator=gen, device=dev)
+    bf16 = torch.empty((2 * N_SHARDED, 128), dtype=torch.bfloat16, device=dev)
+    for s in range(0, bf16.shape[0], 1 << 20):
+        bf16[s:s + (1 << 20)] = torch.randn((min(1 << 20, bf16.shape[0] - s), 128),
+                                            generator=gen, device=dev)
+    mask = (torch.rand(bf16.shape[0], generator=gen, device=dev) < 0.3).cpu().numpy()
+    vb = itt.VerticalBatch(bf16, dtype=torch.bfloat16)
+    full = {"knn_dot": itt.batch_knn_dot, "knn_l2": itt.batch_knn,
+            "knn_cosine": itt.batch_knn_cosine}
+    want = {m: fn(qs, vb, k) for m, fn in full.items()}
+    want["knn_filtered"] = itt.batch_knn_filtered(qs, vb, k, mask)
+    for label, mesh in meshes.items():
+        sc = par.ShardedCorpus(bf16, mesh, dtype=torch.bfloat16)
+        got, _ = _run_path(f"ShardedCorpus bf16 {label}", ["knn_scan+knn_merge<bfloat16>"],
+                           lambda: {m: (sc.knn_filtered(qs, k, mask) if m == "knn_filtered"
+                                        else getattr(sc, m)(qs, k)) for m in want}, total)
+        for m in want:
+            _same_pair(f"ShardedCorpus bf16 {label} {m}", got[m], want[m])
+    log(f"[main] ShardedCorpus bf16 {bf16.shape[0]} x 128 on [cuda:0] and [cuda:0] x 4: dot, "
+        "l2, cosine, "
+        "filtered equal the single-card calls bit for bit")
+    _sharded_time(f"knn_dot bf16 [cuda:0] x 4 {bf16.shape[0] / 1e6:g}M", lambda: sc.knn_dot(qs, k),
+                  lambda: itt.batch_knn_dot(qs, vb, k), times)
+    del bf16, vb, sc
+    torch.cuda.empty_cache()
+
+    rows, centers = _clustered(gen, N_PRUNE, 256, True, dev)
+    qs = centers[:n_q] + 0.01 * torch.randn((n_q, 128), generator=gen, device=dev)
+    vb = itt.VerticalBatch(rows)
+    want = {m: fn(qs, vb, k) for m, fn in full.items()}
+    sc = par.ShardedCorpus(rows, m4)
+    for s in (False, True):
+        sc.tile_summary(normalized=s)
+    torch.cuda.synchronize()
+    got, counts = _run_path("ShardedCorpus prune=True [cuda:0] x 4",
+                            ["knn_scan_tiles+knn_merge<float32>"],
+                            lambda: {m: getattr(sc, m)(qs, k, prune=True) for m in want}, total)
+    if launches_of(counts, "knn_scan+knn_merge"):
+        raise AssertionError("ShardedCorpus prune=True launched K1's full scan")
+    for m in want:
+        _same_pair(f"ShardedCorpus prune=True {m}", got[m], want[m])
+    log(f"[main] ShardedCorpus prune=True on the clustered {N_PRUNE} x 128 corpus, 4 shards "
+        f"(per-shard tile summaries of {sc.tile_summary()[0].tile_n} rows): dot, l2, cosine "
+        "equal the single-card full scan bit for bit, with no K1 launch")
+    vb.tile_summary()
+    _sharded_time(f"knn_dot prune=True clustered [cuda:0] x 4 {N_PRUNE / 1e6:g}M",
+                  lambda: sc.knn_dot(qs, k, prune=True),
+                  lambda: itt.batch_knn_dot(qs, vb, k, prune=True), times)
+    del rows, vb, sc
+    torch.cuda.empty_cache()
+
+    codes = torch.randint(0, 256, (N_SHARDED_U8, 768), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    qs = torch.randn((n_q, 768), generator=gen, device=dev)
+    params = itt.QuantizationParams.from_range(-1.0, 1.0)
+    want = itt.batch_knn_u8_multi(qs, itt.QuantizedU8Batch(codes), params, k)
+    for label, mesh in meshes.items():
+        sq = par.ShardedQuantizedU8(codes, params, mesh)
+        got, _ = _run_path(f"ShardedQuantizedU8 {label}", ["knn_scan+knn_merge<uint8>"],
+                           lambda: sq.knn(qs, k), total)
+        _same_pair(f"ShardedQuantizedU8 {label}", got, want)
+    log(f"[main] ShardedQuantizedU8 {N_SHARDED_U8} x 768 on [cuda:0] and [cuda:0] x 4 equals "
+        "batch_knn_u8_multi bit for bit")
+    u8 = itt.QuantizedU8Batch(codes)
+    _sharded_time(f"ShardedQuantizedU8 [cuda:0] x 4 {N_SHARDED_U8 / 1e6:g}M x 768",
+                  lambda: sq.knn(qs, k), lambda: itt.batch_knn_u8_multi(qs, u8, params, k),
+                  times)
+    del codes, sq, u8
+    torch.cuda.empty_cache()
+
+
+def _sharded_integer_families(dev, meshes, total: dict, times: dict) -> None:
+    """6c: packed binary 30M x 768 bits and ternary 15M x 768 (Q=16), slot
+    sketches 10M x 128 in u32 and u16 (knn_batch, knn, minhash_knn), sparse
+    10M x 32 (Q=16)."""
+    import torch
+
+    import innr_tpu_torch as itt
+    import innr_tpu_torch.parallel as par
+    from innr_tpu_torch.ops.binary import binary_knn_batch
+    from innr_tpu_torch.ops.ternary import ternary_knn_batch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    d, w, n_q, k = 768, 24, 16, 10
+    wb = words(gen, (3 * N_SHARDED, w), dev)
+    (qb,) = planes(gen, "binary", (n_q, w), dev)
+    bb = itt.PackedBinaryBatch(wb, d)
+    want = binary_knn_batch(qb, bb, k)
+    want1 = itt.binary_knn(itt.PackedBinary(qb[0], d), bb, k)
+    for label, mesh in meshes.items():
+        sb = par.ShardedPackedBinary(wb, d, mesh)
+        got, _ = _run_path(f"ShardedPackedBinary {label}", ["packed_scan<binary>"],
+                           lambda: (sb.knn_batch(qb, k), sb.knn(itt.PackedBinary(qb[0], d), k)),
+                           total)
+        _same_pair(f"ShardedPackedBinary {label} knn_batch", got[0], want)
+        _same_pair(f"ShardedPackedBinary {label} knn", got[1], want1)
+    _sharded_time(f"ShardedPackedBinary [cuda:0] x 4 {3 * N_SHARDED / 1e6:g}M x 768 bits Q=16",
+                  lambda: sb.knn_batch(qb, k), lambda: binary_knn_batch(qb, bb, k), times)
+    del wb, bb, sb
+    torch.cuda.empty_cache()
+    pos, neg = planes(gen, "ternary", (3 * N_SHARDED // 2, w), dev)
+    qtp, qtn = planes(gen, "ternary", (n_q, w), dev)
+    tb = itt.PackedTernaryBatch(pos, neg, d)
+    want = ternary_knn_batch((qtp, qtn), tb, k)
+    for label, mesh in meshes.items():
+        st = par.ShardedPackedTernary(pos, neg, d, mesh)
+        got, _ = _run_path(f"ShardedPackedTernary {label}", ["packed_scan<ternary>"],
+                           lambda: st.knn_batch((qtp, qtn), k), total)
+        _same_pair(f"ShardedPackedTernary {label}", got, want)
+    _sharded_time(f"ShardedPackedTernary [cuda:0] x 4 {1.5 * N_SHARDED / 1e6:g}M x 768 Q=16",
+                  lambda: st.knn_batch((qtp, qtn), k),
+                  lambda: ternary_knn_batch((qtp, qtn), tb, k), times)
+    log(f"[main] ShardedPackedBinary {3 * N_SHARDED} x 768 bits (knn_batch Q=16, knn) and "
+        f"ShardedPackedTernary {3 * N_SHARDED // 2} x 768 on [cuda:0] and [cuda:0] x 4 equal "
+        "the single-card "
+        "calls exactly")
+    del pos, neg, tb, st
+    torch.cuda.empty_cache()
+
+    for dtype, bits in ((torch.int32, 32), (torch.int16, 16)):
+        sk = _random_slots(gen, N_SKETCH, SLOTS, dtype, dev)
+        pick = torch.randint(0, N_SKETCH, (n_q,), generator=gen, device=dev)
+        qs = sk[pick].clone()
+        qs[:, :SLOTS // 4] = _random_slots(gen, n_q, SLOTS // 4, dtype, dev)
+        corpus = itt.SketchCorpus(sk)
+        single = itt.slot_knn_u32_batch if bits == 32 else itt.slot_knn_u16_batch
+        want = (single(qs, corpus, k), itt.minhash_knn(qs[0], corpus, k))
+        for label, mesh in meshes.items():
+            ss = par.ShardedSlotCorpus(sk, mesh)
+            got, _ = _run_path(f"ShardedSlotCorpus u{bits} {label}", [f"slot_scan<uint{bits}>"],
+                               lambda: (ss.knn_batch(qs, k), ss.minhash_knn(qs[0], k)), total)
+            _same_pair(f"ShardedSlotCorpus u{bits} {label} knn_batch", got[0], want[0])
+            _same_pair(f"ShardedSlotCorpus u{bits} {label} minhash_knn", got[1], want[1])
+        _sharded_time(f"ShardedSlotCorpus u{bits} [cuda:0] x 4 {N_SKETCH / 1e6:g}M x 128 Q=16",
+                      lambda: ss.knn_batch(qs, k), lambda: single(qs, corpus, k), times)
+        del sk, corpus, ss
+        torch.cuda.empty_cache()
+    log(f"[main] ShardedSlotCorpus {N_SKETCH} x {SLOTS} u32 and u16 (knn_batch Q=16, "
+        "minhash_knn) on "
+        "[cuda:0] and [cuda:0] x 4 equal the single-card calls exactly")
+
+    p = 1.0 / torch.arange(1, VOCAB + 1, dtype=torch.float64, device=dev)
+    cdf = (torch.cumsum(p, 0) / p.sum()).float()
+    perm = torch.randperm(VOCAB, generator=gen, device=dev).to(torch.int32)
+    ids, vals = _zipf_sparse_corpus(gen, dev, perm, cdf)
+    q_ids = torch.stack([perm[torch.randperm(VOCAB, generator=gen, device=dev)[:QUERY_NNZ]]
+                         for _ in range(n_q)])
+    q_idx, _ = unsigned_sort(q_ids, 1)
+    q_val = torch.rand((n_q, QUERY_NNZ), generator=gen, device=dev)
+    corpus = itt.SparseCorpus((ids, vals))
+    want = itt.sparse_knn_batch((q_idx, q_val), corpus, k)
+    for label, mesh in meshes.items():
+        sp = par.ShardedSparseCorpus((ids, vals), mesh)
+        got, _ = _run_path(f"ShardedSparseCorpus {label}", ["sparse_scan"],
+                           lambda: sp.knn_batch((q_idx, q_val), k), total)
+        _same_pair(f"ShardedSparseCorpus {label}", got, want)
+    log(f"[main] ShardedSparseCorpus {N_SPARSE} x {ENTRIES} (Zipf WordPiece ids, Q={n_q}, "
+        f"Lq={QUERY_NNZ}) on [cuda:0] and [cuda:0] x 4 equals sparse_knn_batch bit for bit")
+    _sharded_time(f"ShardedSparseCorpus [cuda:0] x 4 {N_SPARSE / 1e6:g}M x 32 Q={n_q}",
+                  lambda: sp.knn_batch((q_idx, q_val), k),
+                  lambda: itt.sparse_knn_batch((q_idx, q_val), corpus, k), times)
+    del ids, vals, corpus, sp
+    torch.cuda.empty_cache()
+
+
+def _sharded_maxsim_two_stage(dev, meshes, total: dict, times: dict) -> None:
+    """6d: ShardedMaxSimCorpus over 200K x 180 x 128 f32 documents with
+    their mask (B=16); ShardedTwoStageIndex over 1M x 768 in all four
+    coarse kinds (one card: equal to TwoStageIndex; 4 shards: equal to the
+    merge of the single-card index over each shard's rows)."""
+    import torch
+
+    import innr_tpu_torch as itt
+    import innr_tpu_torch.parallel as par
+    from innr_tpu_torch.utils.order import top_k_total
+
+    m1, m4 = meshes.values()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    k, n_b = 10, 16
+    docs, mask, lengths = _colbert_corpus(gen, dev)
+    planted = torch.arange(n_b, device=dev) * (N_MAXSIM // n_b)
+    pick = (torch.rand((n_b, MAXSIM_TQ), generator=gen, device=dev)
+            * lengths[planted, None]).long()
+    qs = docs[planted[:, None], pick] + 0.1 * torch.randn((n_b, MAXSIM_TQ, MAXSIM_D),
+                                                          generator=gen, device=dev)
+    qs = qs / qs.norm(dim=2, keepdim=True)
+    want = itt.maxsim_knn_batch(qs, docs, k, doc_mask=mask)
+    for label, mesh in meshes.items():
+        sm = par.ShardedMaxSimCorpus(docs, mask, mesh)
+        got, _ = _run_path(f"ShardedMaxSimCorpus {label}", ["maxsim_scores<float32>"],
+                           lambda: sm.knn(qs, k), total)
+        _same_pair(f"ShardedMaxSimCorpus {label}", got, want)
+    log(f"[main] ShardedMaxSimCorpus {N_MAXSIM} x {MAXSIM_TD} x {MAXSIM_D} f32 (B={n_b}) on "
+        "[cuda:0] and [cuda:0] x 4 equals maxsim_knn_batch bit for bit")
+    _sharded_time(f"ShardedMaxSimCorpus [cuda:0] x 4 B={n_b}", lambda: sm.knn(qs, k),
+                  lambda: itt.maxsim_knn_batch(qs, docs, k, doc_mask=mask), times)
+    del docs, mask, sm
+    torch.cuda.empty_cache()
+
+    n, d, n_q = N_SHARDED_U8, 768, 32
+    rows = torch.randn((n, d), generator=gen, device=dev)
+    qs = torch.randn((n_q, d), generator=gen, device=dev)
+    kinds = (("binary", itt.CoarseConfig("binary"), 64, "packed_scan<binary>"),
+             ("ternary", itt.CoarseConfig("ternary"), 64, "packed_scan<ternary>"),
+             ("u8", itt.CoarseConfig("u8"), 8, "knn_scan+knn_merge<uint8>"),
+             ("matryoshka", itt.CoarseConfig("matryoshka", prefix_dims=128), 10,
+              "knn_scan+knn_merge<float32>"))
+    for kind, cfg, rf, kernel in kinds:
+        single = itt.TwoStageIndex(rows, cfg, rerank_factor=rf)
+        # The 4-shard reference: the single-card index over each shard's
+        # rows (u8 with the whole corpus's parameters), merged by score.
+        s4 = par.ShardedTwoStageIndex(rows, cfg, rf, m4)
+        parts = []
+        for (a, b) in s4.ranges:
+            part = itt.TwoStageIndex(rows[a:b], cfg, rerank_factor=rf)
+            if kind == "u8":
+                part.params = s4.params
+                part._coarse = itt.QuantizedU8Batch.quantize(rows[a:b], s4.params)
+            res = part.search_batch(qs, k)
+            parts.append((torch.as_tensor(res.scores), torch.as_tensor(res.indices) + a))
+        vals, pos = top_k_total(torch.cat([p[0] for p in parts], 1), k)
+        want4 = (vals, torch.gather(torch.cat([p[1] for p in parts], 1), 1, pos))
+        for label, mesh, want in (("[cuda:0]", m1, single.search_batch(qs, k)),
+                                  ("[cuda:0] x 4", m4, want4)):
+            st = par.ShardedTwoStageIndex(rows, cfg, rf, mesh)
+            got, _ = _run_path(f"ShardedTwoStageIndex {kind} {label}", [kernel],
+                               lambda: st.search_batch(qs, k), total)
+            _same_pair(f"ShardedTwoStageIndex {kind} {label}", got, want)
+        _sharded_time(f"ShardedTwoStageIndex {kind} [cuda:0] x 4 {n / 1e6:g}M x 768",
+                      lambda: st.search_batch(qs, k), lambda: single.search_batch(qs, k), times)
+        del single, s4, st
+    log(f"[main] ShardedTwoStageIndex {n} x 768 (binary, ternary, u8, matryoshka; Q=32, k=10): "
+        "one card equals TwoStageIndex bit for bit, 4 shards the single-card index over each "
+        "shard's rows merged by score")
+    del rows
+    torch.cuda.empty_cache()
+
+
+def phase_sharded(dev, total: dict) -> dict:
+    """6: the sharded family (innr_tpu_torch.parallel) on one card, every
+    container on a one-card mesh and a mesh of four shards on the same card,
+    each path with the counters reset just before it and read just after,
+    held to the single-card call over the same rows bit for bit. Returns the
+    timings by name."""
+    import innr_tpu_torch.parallel as par
+
+    meshes = {"[cuda:0]": par.default_mesh([dev]), "[cuda:0] x 4": par.default_mesh([dev] * 4)}
+    times = {}
+    t0 = time.perf_counter()
+    for part in (_sharded_dense, _sharded_bf16_prune_u8, _sharded_integer_families,
+                 _sharded_maxsim_two_stage):
+        part(dev, meshes, total, times)
+    log(f"[main] phase 6 (sharded) took {time.perf_counter() - t0!r} s of host time")
+    return times
+
 
 def main() -> int:
     if not (ROOT / "innr_tpu_torch").is_dir():
@@ -2837,8 +3295,13 @@ def main() -> int:
     del segmented, ivf
     torch.cuda.empty_cache()
     phase_loader(dev)
+    torch.cuda.empty_cache()
+    sharded_launches = {}
+    phase_sharded(dev, sharded_launches)
+    log(f"[main] kernel passes on the sharded paths: {sharded_launches}")
     for counts in (gauss_launches, packed_launches, pipeline_launches, prune_launches,
-                   slot_launches, sparse_launches, maxsim_launches, slice_launches):
+                   slot_launches, sparse_launches, maxsim_launches, slice_launches,
+                   sharded_launches):
         for name, n in counts.items():
             launches[name] += n
     for name in prune_times:

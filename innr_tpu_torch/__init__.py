@@ -50,7 +50,18 @@ mismatch; cosine returns 0.0 for effectively-zero norms (< 1e-9); orderings
 follow IEEE total order with ties to the lowest index.
 """
 
-from innr_tpu_torch import backend, batch, config, distance, io, loader, pipeline, prune, serving
+from innr_tpu_torch import (
+    backend,
+    batch,
+    config,
+    distance,
+    io,
+    loader,
+    parallel,
+    pipeline,
+    prune,
+    serving,
+)
 from innr_tpu_torch.distance import (
     Distance,
     DistCosine,

@@ -65,6 +65,55 @@ def rerank(rows, queries, cand, k: int):
     return vals, torch.gather(cand, 1, pos)
 
 
+def fit_params(config: CoarseConfig, rows) -> _scalar.QuantizationParams:
+    """The u8 coarse stage's parameters over the whole corpus: min / max,
+    or the ``config.quantile`` clip."""
+    if config.quantile >= 1.0:
+        return _scalar.QuantizationParams.fit(rows)
+    return _scalar.QuantizationParams.fit_quantile(rows, config.quantile)
+
+
+def build_coarse(config: CoarseConfig, rows: torch.Tensor, params, op: str):
+    """The coarse representation of (N, D) f32 ``rows`` on their device, as
+    :func:`coarse_candidates` scans it; ``params`` for the u8 kind."""
+    kind = config.kind
+    if kind == "binary":
+        return _binary.PackedBinaryBatch.encode(rows, config.threshold)
+    if kind == "ternary":
+        return _ternary.PackedTernaryBatch.encode(rows, config.threshold)
+    if kind == "u8":
+        return _scalar.QuantizedU8Batch.quantize(rows, params)
+    if kind == "matryoshka":
+        # The dense kernel streams contiguous rows; the JAX package
+        # materialises the slice too.
+        return rows[:, :min(config.prefix_dims, int(rows.shape[1]))].contiguous()
+    raise ContractError(f"{op}: unknown coarse kind {kind!r}")
+
+
+def coarse_candidates(config: CoarseConfig, coarse, queries: torch.Tensor, n_cand: int):
+    """The coarse scan of ``config.kind`` over its representation ``coarse``
+    (a :class:`~innr_tpu_torch.ops.binary.PackedBinaryBatch`, a
+    :class:`~innr_tpu_torch.ops.ternary.PackedTernaryBatch`, a
+    :class:`~innr_tpu_torch.ops.scalar.QuantizedU8Batch` or the contiguous
+    matryoshka prefix rows): ``(keys, indices)`` (Q, n_cand), best first.
+    Keys are ``-count`` (binary), the ternary dot, the raw u8 mixed dot's
+    total-order key, or the prefix dot's."""
+    kind = config.kind
+    if kind == "matryoshka":
+        qp = queries[:, : coarse.shape[1]].contiguous()
+        return _knn.fused_knn_keys_batch(qp, coarse, None, n_cand, "dot")
+    if kind == "u8":
+        # Selection needs only the raw mixed dot: the affine correction is
+        # per-query monotone (alpha > 0) and cannot reorder rows.
+        return _knn.fused_knn_keys_batch(queries, coarse.codes, None, n_cand, "dot")
+    t = config.threshold
+    if kind == "binary":
+        q_words = _binary.encode_binary_batch(queries, t)
+        return _packed.fused_packed_keys_batch((q_words,), (coarse.words_t,), n_cand)
+    qp, qn = _ternary.encode_ternary_batch(queries, t)
+    return _packed.fused_packed_keys_batch((qp, qn), (coarse.pos_t, coarse.neg_t), n_cand)
+
+
 class TwoStageIndex:
     """Coarse-quantized scan + exact f32 rerank over an (N, D) corpus.
 
@@ -85,25 +134,10 @@ class TwoStageIndex:
             raise ContractError("TwoStageIndex: rows must be 2-D (N, D)")
         self.rows = rows
 
-        kind = coarse.kind
-        if kind == "binary":
-            self._coarse = _binary.PackedBinaryBatch.encode(rows, coarse.threshold)
-        elif kind == "ternary":
-            self._coarse = _ternary.PackedTernaryBatch.encode(rows, coarse.threshold)
-        elif kind == "u8":
-            self.params = (
-                _scalar.QuantizationParams.fit(rows)
-                if coarse.quantile >= 1.0
-                else _scalar.QuantizationParams.fit_quantile(rows, coarse.quantile)
-            )
-            self._coarse = _scalar.QuantizedU8Batch.quantize(rows, self.params)
-        elif kind == "matryoshka":
-            p = min(coarse.prefix_dims, int(rows.shape[1]))
-            # The dense kernel streams contiguous rows; the JAX package
-            # materialises the slice too.
-            self._coarse = rows[:, :p].contiguous()
-        else:
-            raise ContractError(f"TwoStageIndex: unknown coarse kind {kind!r}")
+        if coarse.kind == "u8":
+            self.params = fit_params(coarse, rows)
+        self._coarse = build_coarse(coarse, rows, getattr(self, "params", None),
+                                    "TwoStageIndex")
 
     @property
     def num_vectors(self) -> int:
@@ -127,23 +161,8 @@ class TwoStageIndex:
 
     def candidates(self, queries: torch.Tensor, n_cand: int):
         """The coarse stage: ``(keys, indices)`` (Q, n_cand) on the corpus
-        device, best first. Keys are ``-count`` (binary), the ternary dot,
-        the raw u8 mixed dot's total-order key, or the prefix dot's."""
-        kind = self.config.kind
-        if kind == "matryoshka":
-            qp = queries[:, : self._coarse.shape[1]].contiguous()
-            return _knn.fused_knn_keys_batch(qp, self._coarse, None, n_cand, "dot")
-        if kind == "u8":
-            # Selection needs only the raw mixed dot: the affine correction
-            # is per-query monotone (alpha > 0) and cannot reorder rows.
-            return _knn.fused_knn_keys_batch(queries, self._coarse.codes, None, n_cand, "dot")
-        t = self.config.threshold
-        c = self._coarse
-        if kind == "binary":
-            q_words = _binary.encode_binary_batch(queries, t)
-            return _packed.fused_packed_keys_batch((q_words,), (c.words_t,), n_cand)
-        qp, qn = _ternary.encode_ternary_batch(queries, t)
-        return _packed.fused_packed_keys_batch((qp, qn), (c.pos_t, c.neg_t), n_cand)
+        device, best first (:func:`coarse_candidates`)."""
+        return coarse_candidates(self.config, self._coarse, queries, n_cand)
 
     def _search(self, queries: torch.Tensor, k: int) -> tuple[np.ndarray, np.ndarray]:
         """Coarse scan and rerank on the device, then one wait for the host

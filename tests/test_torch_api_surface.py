@@ -21,7 +21,7 @@ torch = pytest.importorskip("torch")
 import innr_tpu as it  # noqa: E402
 import innr_tpu_torch as itt  # noqa: E402
 
-NOT_YET_PORTED = ["parallel"]
+NOT_YET_PORTED: list[str] = []
 
 PUBLIC = sorted(n for n in dir(it) if not n.startswith("_"))
 
@@ -75,12 +75,17 @@ def test_exported_functions_are_the_modules_own():
                 assert getattr(itt, name) is getattr(mod, name), f"{module}.{name}"
 
 
-def test_parallel_holds_only_the_shared_scan_so_far():
-    """``innr_tpu_torch.parallel`` exports no public name until the sharded
-    family is ported; its ``_scan`` module is what SegmentedCorpus uses."""
+def test_parallel_exports_the_reference_names():
+    """``innr_tpu_torch.parallel`` exports the reference package's
+    ``__all__``, and ``parallel.multihost`` its three names."""
+    import innr_tpu.parallel as ref
+    import innr_tpu.parallel.multihost as ref_multihost
     import innr_tpu_torch.parallel as par
-    from innr_tpu_torch.parallel import _scan
 
-    assert par.__all__ == [] and _exports("parallel") == set()
-    assert {"local_scan_keys", "decode_keys", "resolve_predicate_mask",
-            "local_scan_keys_filtered"} <= set(dir(_scan))
+    assert sorted(par.__all__) == sorted(ref.__all__)
+    assert _exports("parallel") == set(ref.__all__)
+    for name in ref.__all__:
+        assert hasattr(par, name), name
+    assert par.multihost.__all__ == ref_multihost.__all__
+    for name in ref_multihost.__all__:
+        assert callable(getattr(par.multihost, name)), name
