@@ -55,10 +55,15 @@ and imports nothing of JAX. Phases:
                 dots exact in FP32 but not in TF32 (centroids on the 2^-12
                 grid, near ties 1-2 grid units apart), D in {8, 128, 130},
                 KC in {1, 255, 256, 16896}, with the shortlist sizes;
-              - the slot scan, uint16 and uint32, on slots from a 4-value
-                alphabet drawn over the full width (counts tie) with
-                planted duplicate rows, Q in {1, 5, 16, 33}, S in {1, 7,
-                128, 256}, k in {1, 10, cap + 3}; a raw (N, S) corpus too;
+              - the slot scans, compare and table, uint16 and uint32, on
+                slots from a 4-value alphabet drawn over the full width
+                (counts tie, nearly every table lookup hits) and on slots
+                over the whole width, with planted duplicate rows and
+                queries sharing values, Q in {1, 2, 4, 16, 32, 33}, S in
+                {1, 7, 128, 256}, k in {1, 10, cap + 3}, N = 3080 and 3077
+                (slot rows on and off 16-byte boundaries); a raw (N, S)
+                corpus too; 2000 slots at Q = 16 (the compare scan, where
+                no table fits);
               - the sparse scan on integer values: ids over the full 32
                 bits with sentinel padding and empty documents, duplicate
                 query ids, NaN / +-inf / -0.0 values on matched and
@@ -126,7 +131,10 @@ and imports nothing of JAX. Phases:
                  minhash_knn_batch (k=10) on a 10M x 128 uint32
                  SketchCorpus of random slots with near-duplicate queries
                  planted, then the same on a 10M x 128 uint16 corpus; counts
-                 and indices equal to the plain version's;
+                 and indices equal to the plain version's; then a hit-heavy
+                 10M x 128 corpus per width (slots from 4 values, 16 of its
+                 rows as queries) at Q = 16 and 1, equal to the plain
+                 version;
               f. sparse: sparse_knn (a 64-entry query) and sparse_knn_batch
                  (16 of them), k=10, on a SparseCorpus of 10M documents x
                  32 entries, ids from a Zipf law (exponent 1) over the
@@ -162,8 +170,12 @@ and imports nothing of JAX. Phases:
               IVFIndex build in scan-equivalents of K1's full f32 scan, the
               k-means++ seeding's host time apart, and of one
               IVFIndex.search_batch of 32 queries; the slot scans at Q = 16
-              and 1 and the sparse scan at Q = 1 and 16 at the sizes of 3e
-              and 3f, against their plain versions and same-bytes reads; the
+              (table) and 1 (compare) on 3e's corpora and the hit-heavy
+              ones, with the filter passes and table hits per (row, slot)
+              by slot_table_plain's model (the kernel counts neither) and
+              the shared memory of a CTA, and the sparse scan at Q = 1
+              and 16 at the size of 3f, against their plain versions and
+              same-bytes reads; the
               MaxSim scan at Q = 1 and B = 16 (f32) and B = 16 (bf16) at the
               size of 3g against its plain version and a read of the valid
               tokens' bytes, the host time of each public call, and the TPU
@@ -914,36 +926,76 @@ def phase_exact_slot_sparse(dev) -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     cap = tk.single_pass_k(1)
     n = 3 * 1024 + 77
-    k_slot = 0
+    k_slot, crossover = 0, tsl.COMPARE_MAX_TILE
     for dtype in (torch.int16, torch.int32):
         info = torch.iinfo(dtype)
+        name = f"slot_scan<uint{info.bits}>"
         # Four slot values over the full width (the view's sign bit set in
-        # the first), so that counts tie often.
+        # the first), so that counts tie and nearly every table lookup hits;
+        # and slots over the whole width, where lookups rarely hit.
         alphabet = torch.randint(info.min, info.max, (4,), generator=gen, device=dev, dtype=dtype)
         alphabet[0] = info.min
-        name = f"slot_scan<uint{info.bits}>"
-        for s in (1, 7, 128, 256):
-            rows = alphabet[torch.randint(0, 4, (n, s), generator=gen, device=dev)]
-            rows[[100, 2000, n - 1]] = rows[5].clone()  # ties go to the lowest row
-            slots_t = rows.T.contiguous()
-            for n_q in (1, 5, 16, 33):
-                qs = alphabet[torch.randint(0, 4, (n_q, s), generator=gen, device=dev)]
-                qs[0] = rows[5]
-                for k in (1, 10, cap + 3):
-                    expect_equal(f"exact {name} s={s} q={n_q} k={k}",
-                                 tsl.fused_slot_keys_batch(qs, slots_t, k),
-                                 tsl.slot_knn_plain(qs, slots_t, k))
-                    k_slot += 1
+        for kind in ("four", "full"):
+            def draw(shape):
+                if kind == "four":
+                    return alphabet[torch.randint(0, 4, shape, generator=gen, device=dev)]
+                return _random_slots(gen, shape[0], shape[1], dtype, dev)
+
+            for s in (1, 7, 128, 256):
+                rows = draw((n + 3, s))
+                rows[[100, 2000, n - 1]] = rows[5].clone()  # ties go to the lowest row
+                # n + 3 rows: every slot row on a 16-byte boundary; n: most
+                # off it (the compare scan's shifted vector pairs).
+                for slots_t in (rows.T.contiguous(), rows[:n].T.contiguous()):
+                    for n_q in (1, 2, 4, 16, 32, 33):
+                        qs = draw((n_q, s))
+                        qs[0] = rows[5]
+                        if n_q > 1:  # query 1 shares query 0's value at every third slot
+                            qs[1] = rows[9]
+                            qs[1, ::3] = qs[0, ::3]
+                        for k in (1, 10, cap + 3):
+                            want = tsl.slot_knn_plain(qs, slots_t, k)
+                            # Each scan at every Q: the crossover past
+                            # every tile (compare), then below the first.
+                            for mode, cut in (("compare", 32), ("table", 0)):
+                                before = tsl.LAUNCHES_BY_MODE[mode]
+                                tsl.COMPARE_MAX_TILE = cut
+                                try:
+                                    got = tsl.fused_slot_keys_batch(qs, slots_t, k)
+                                finally:
+                                    tsl.COMPARE_MAX_TILE = crossover
+                                expect_equal(f"exact {name} {mode} {kind} n={slots_t.shape[1]} "
+                                             f"s={s} q={n_q} k={k}", got, want)
+                                if tsl.LAUNCHES_BY_MODE[mode] == before:
+                                    raise AssertionError(f"{name}: mode {mode} did not launch")
+                                k_slot += 1
         # A raw (N, S) corpus on the card is transposed per call and still
         # runs the kernel.
+        slots_t = rows[:n].T.contiguous()
         before = tsl.LAUNCHES
         raw = itt.slot_knn_u16_batch if info.bits == 16 else itt.slot_knn_u32_batch
-        counts, idx = raw(qs, rows, 10)
+        counts, idx = raw(qs, rows[:n], 10)
         if tsl.LAUNCHES == before:
             raise AssertionError(f"{name}: a raw CUDA corpus did not launch the kernel")
         expect_equal(f"exact {name} raw corpus", (-counts, idx), tsl.slot_knn_plain(qs, slots_t, 10))
+        # Wide sketches: no table tile fits, so 16 queries run the compare
+        # scan (the plan's own choice), at N off and on 16-byte rows.
+        rows = _random_slots(gen, n + 3, 2000, dtype, dev)
+        rows[[100, n - 1]] = rows[5].clone()
+        qs = _random_slots(gen, 16, 2000, dtype, dev)
+        qs[0] = rows[5]
+        for slots_t in (rows.T.contiguous(), rows[:n].T.contiguous()):
+            for k in (1, 10):
+                before = tsl.LAUNCHES_BY_MODE["compare"]
+                expect_equal(f"exact {name} s=2000 n={slots_t.shape[1]} q=16 k={k}",
+                             tsl.fused_slot_keys_batch(qs, slots_t, k),
+                             tsl.slot_knn_plain(qs, slots_t, k))
+                if tsl.LAUNCHES_BY_MODE["compare"] == before:
+                    raise AssertionError(f"{name}: 2000 slots did not run the compare scan")
+                k_slot += 1
     torch.cuda.synchronize()
-    log(f"[exact] {k_slot} slot-scan checks agree bit for bit (and a raw corpus per width)")
+    log(f"[exact] {k_slot} slot-scan checks (compare and table scans) agree bit for bit (and a "
+        f"raw corpus per width)")
 
     # Ids over the full 32 bits (no sentinel among them), integer values:
     # every product and sum below is exact.
@@ -1928,11 +1980,61 @@ def _random_slots(gen, n: int, s: int, dtype, dev):
     return out
 
 
+def _slot_cell(name: str, qs, slots_t, k: int, q: int, reps: int = 7) -> tuple:
+    """One slot cell at Q = q: the scan (the plan's mode) against its plain
+    version, bit for bit, then the kernel, plain and a same-bytes read
+    timed. Logs them beside the bound (the read: each slot once, the
+    queries, the result), the design's own work (compares, or filter
+    lookups a tile, and the filter passes and hits of slot_table_plain's
+    model, which the kernel does not count) and the shared memory of a
+    CTA. Returns (kernel,
+    plain) ms."""
+    import torch
+
+    from innr_tpu_torch.kernels import slot_knn as tsl
+
+    s, n = slots_t.shape
+    bits = torch.iinfo(slots_t.dtype).bits
+    qs = qs[:q].contiguous()
+    want = tsl.slot_knn_plain(qs, slots_t, k)
+    expect_equal(f"{name} Q={q}", tsl.fused_slot_keys_batch(qs, slots_t, k), want)
+    kernel = _median_ms(lambda: tsl.fused_slot_keys_batch(qs, slots_t, k))
+    plain = _median_ms(lambda: tsl.slot_knn_plain(qs, slots_t, k), reps=reps)
+    read = _median_ms(lambda: slots_t.view(torch.float32).sum())
+    b = _slot_bound(bits, n, s, q, k)
+    mode, tile = tsl.plan(q, k, s, bits)
+    if mode == "compare":
+        ops_ms = 2 * n * s * q / PEAK_OPS_PER_S["int32"] * 1e3
+        work = f"{n * s * q} compares and adds ({ops_ms!r} ms at the INT32 rate)"
+    else:
+        stats = tsl.slot_table_plain(qs, slots_t, tile)
+        lookups = n * s * -(-q // tile)
+        work = (f"{lookups} filter lookups ({lookups / PEAK_OPS_PER_S['shared'] * 1e3!r} ms at the "
+                f"shared-load rate); by slot_table_plain's model of the table (not counted by "
+                f"the kernel): filter passes per (row, slot) {stats.passes / (n * s)!r}, hits "
+                f"per (row, slot) {stats.hits / (n * s)!r}")
+    log(f"[timing] {name} {n} x {s}, Q={q}, k={k}: kernel {kernel!r} ms, plain {plain!r} ms, "
+        f"same-bytes read {read!r} ms, share (bound/kernel) {b[0] / kernel!r}, roofline fraction "
+        f"(read/kernel) {read / kernel!r}, {bound_text(b)}; mode {mode}, query tile {tile}, "
+        f"shared memory {tsl.smem_bytes(bits, mode, tile, s, k)} bytes a CTA; design work: "
+        f"{work}")
+    return kernel, plain
+
+
+def _slot_bound(bits: int, n: int, s: int, q: int, k: int) -> tuple:
+    """The slot scan's bound: its read (each slot once, the queries, the
+    (Q, k) int32 counts and indices)."""
+    return bound(bits // 8 * (n * s + q * s) + 8 * q * k)
+
+
 def phase_slot(dev, errs: dict, bounds: dict) -> tuple[dict, dict]:
     """3e and its timing: MinHash retrieval on 10M x 128 uint32 and uint16
     SketchCorpora, each path with the counters reset just before it and
-    read just after. Returns the paths' launches and each width's (ms,
-    plain ms) at Q = 16."""
+    read just after; then each width at Q = 16 (the table scan) and Q = 1
+    (the compare scan) against the read, on full-width slots and on a
+    hit-heavy corpus (slots from 4 values, queries drawn from it), the
+    worst case of the table scan. Returns the paths' launches and each
+    width's (ms, plain ms) at Q = 16."""
     import torch
 
     import innr_tpu_torch as itt
@@ -1977,23 +2079,24 @@ def phase_slot(dev, errs: dict, bounds: dict) -> tuple[dict, dict]:
             f"best counts {(-keys[:4, 0]).tolist()} at rows {idx[:4, 0].tolist()}, "
             f"launches {counts[name]}")
 
-        def slot_bound(q):
-            size = bits // 8
-            return bound(size * (n * s + q * s) + 8 * q * k, int32=2 * n * s * q)
-
-        bounds[name] = slot_bound(n_q)
-        read = lambda: corpus.slots_t.view(torch.float32).sum()  # noqa: E731
-        for q, reps in ((n_q, 7), (1, 7)):
-            kernel = _median_ms(lambda: tsl.fused_slot_keys_batch(qs[:q], corpus.slots_t, k))
-            plain = _median_ms(lambda: tsl.slot_knn_plain(qs[:q], corpus.slots_t, k), reps=reps)
-            read_ms = _median_ms(read)
-            if q == n_q:
-                times[name] = (kernel, plain)
-            log(f"[timing] {name} {n} x {s}, Q={q}, k={k}: kernel {kernel!r} ms, plain "
-                f"{plain!r} ms, same-bytes read {read_ms!r} ms, roofline fraction "
-                f"(read/kernel) {read_ms / kernel!r}, compares per ms {n * s * q / kernel!r}, "
-                f"{bound_text(slot_bound(q))}")
+        bounds[name] = _slot_bound(bits, n, s, n_q, k)
+        times[name] = _slot_cell(name, qs, corpus.slots_t, k, n_q)
+        _slot_cell(name, qs, corpus.slots_t, k, 1)
         del corpus, sketches
+        torch.cuda.empty_cache()
+        # The hit-heavy corpus: every slot one of 4 values (the sign bit
+        # set in one), queries 16 of its rows: nearly every (row, slot)
+        # passes the filter and hits the table.
+        info = torch.iinfo(dtype)
+        alphabet = torch.tensor([info.min, -1, 0, 1], dtype=dtype, device=dev)
+        heavy = torch.empty((s, n), dtype=dtype, device=dev)
+        for a in range(0, n, 1 << 20):
+            b = min(n, a + (1 << 20))
+            heavy[:, a:b] = alphabet[torch.randint(0, 4, (s, b - a), generator=gen, device=dev)]
+        qs = heavy[:, rows].T.contiguous()
+        _slot_cell(f"{name} hit-heavy (4 values)", qs, heavy, k, n_q, reps=3)
+        _slot_cell(f"{name} hit-heavy (4 values)", qs, heavy, k, 1, reps=3)
+        del heavy
         torch.cuda.empty_cache()
     return total, times
 

@@ -1,14 +1,16 @@
-// The parts of a one-row-per-thread top-k scan, shared by slot_scan
+// The parts of a row-per-thread top-k scan, shared by the slot scans
 // (slot_knn.cu) and sparse_scan (sparse_knn.cu):
 // the CTA's shared-memory top-k buffers, the offer of a tile's keys to
 // them, the fold of a query's buffers into one, the write of the slab's
 // partial top k for knn_merge (knn.cu), and the load of a tile's query
 // words from shared memory.
 //
-// A CTA of 256 threads walks its slab of corpus rows in tiles of 256, one
-// row per thread, for a tile of QT queries (1, 2, 4, 8 or 16, a template
-// parameter). Each thread writes its row's QT int32 keys (larger is better)
-// to shared memory; then each warp owns max(QT, 8) / 8 top-k buffers of
+// A CTA of 256 threads walks its slab of corpus rows in tiles of ROWS (256
+// by default: one row per thread; a multiple of 256 when each thread takes
+// several neighbouring rows), for a tile of QT queries (1 to 32, a power of
+// two; template parameters). Each thread writes its rows' QT int32 keys
+// (larger is better) to shared memory; then each warp owns max(QT, 8) / 8
+// top-k buffers of
 // int64 composites (topk.cuh) and offers the tile's rows to them: with
 // QT < 8, the G = 8 / QT warps of one query each keep a buffer over their
 // own share of the rows and are folded into one at the end. Composites are
@@ -28,22 +30,27 @@ namespace {
 constexpr int kScanThreads = 256;
 constexpr int kScanWarps = kScanThreads / 32;
 constexpr int kScanRowTile = kScanThreads;  // one corpus row per thread per tile
-constexpr int kScanChunks = kScanRowTile / 32;
-constexpr int kScanMaxQueryTile = 16;
+constexpr int kScanMaxQueryTile = 16;  // sparse_scan's tiles; the slot table's reach 32
 
 template <int QT>
 __host__ __device__ constexpr int buffers_per_query() {
   return QT >= kScanWarps ? 1 : kScanWarps / QT;
 }
 
-// Shared bytes of the top-k part: [QT * G][k] int64 buffers, [16] int64
-// exclusion bounds, [QT][256] int32 keys. The scan's own data follows it
-// (16-byte aligned: every term is a multiple of 16).
+// Exclusion bounds held: 16, or QT for a wider tile.
 template <int QT>
+__host__ __device__ constexpr int bounds_held() {
+  return QT > kScanMaxQueryTile ? QT : kScanMaxQueryTile;
+}
+
+// Shared bytes of the top-k part: [QT * G][k] int64 buffers, [max(16, QT)]
+// int64 exclusion bounds, [QT][ROWS] int32 keys. The scan's own data follows
+// it (16-byte aligned: every term is a multiple of 16).
+template <int QT, int ROWS = kScanRowTile>
 __host__ __device__ constexpr size_t topk_smem_bytes(int k) {
   return sizeof(long long) * (static_cast<size_t>(QT * buffers_per_query<QT>()) * k +
-                              kScanMaxQueryTile) +
-         sizeof(int) * QT * kScanRowTile;
+                              bounds_held<QT>()) +
+         sizeof(int) * static_cast<size_t>(QT) * ROWS;
 }
 
 // QT consecutive 32-bit query words from shared memory; 16-byte loads when
@@ -66,11 +73,12 @@ __device__ __forceinline__ void load_query_words(const unsigned* q, unsigned (&o
   }
 }
 
-template <int QT>
+template <int QT, int ROWS = kScanRowTile>
 struct TileTopK {
+  static constexpr int kChunks = ROWS / 32;
   long long* best;   // [QT * G][k]
-  long long* bound;  // [16]
-  int* keys;         // [QT][256]
+  long long* bound;  // [max(16, QT)]
+  int* keys;         // [QT][ROWS]
 
   // Lay the buffers out at smem, empty them and load the exclusion bounds
   // (null excl: no bound). Returns the first byte after them. The caller
@@ -80,15 +88,15 @@ struct TileTopK {
     constexpr int kBufs = QT * buffers_per_query<QT>();
     best = reinterpret_cast<long long*>(smem);
     bound = best + kBufs * k;
-    keys = reinterpret_cast<int*>(bound + kScanMaxQueryTile);
+    keys = reinterpret_cast<int*>(bound + bounds_held<QT>());
     for (int i = threadIdx.x; i < kBufs * k; i += kScanThreads) best[i] = LLONG_MIN;
     if (threadIdx.x < QT)
       bound[threadIdx.x] =
           (excl != nullptr && q0 + threadIdx.x < n_q) ? excl[q0 + threadIdx.x] : LLONG_MAX;
-    return reinterpret_cast<unsigned char*>(keys + QT * kScanRowTile);
+    return reinterpret_cast<unsigned char*>(keys + QT * ROWS);
   }
 
-  // Offer the tile of rows [t0, t0 + 256) ∩ [.., row_end), whose keys are
+  // Offer the tile of rows [t0, t0 + ROWS) ∩ [.., row_end), whose keys are
   // in `keys`, to the buffers. Called by every thread after the keys are
   // written and synchronised; ends synchronised.
   __device__ void offer(int k, long long t0, long long row_end, int q0, int n_q) {
@@ -98,11 +106,11 @@ struct TileTopK {
     for (int bf = warp; bf < QT * G; bf += kScanWarps) {
       const int j = bf / G, g = bf % G;
       if (q0 + j >= n_q) continue;  // uniform across the warp
-      for (int c = g; c < kScanChunks; c += G) {
+      for (int c = g; c < kChunks; c += G) {
         const int r = c * 32 + lane;
         long long cand = LLONG_MIN;
         if (t0 + r < row_end) {
-          cand = composite(keys[j * kScanRowTile + r], t0 + r);
+          cand = composite(keys[j * ROWS + r], t0 + r);
           if (cand >= bound[j]) cand = LLONG_MIN;
         }
         warp_offer(best + bf * k, k, cand, lane);

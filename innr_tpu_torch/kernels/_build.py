@@ -151,8 +151,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.innr_packed_grid.restype = i32
     lib.innr_packed_rows.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i64, i32, ptr]
     lib.innr_packed_rows.restype = i32
-    lib.innr_slot_scan.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, i32, ptr]
+    lib.innr_slot_scan.argtypes = [
+        i32, i32, ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, i32, ptr,
+    ]
     lib.innr_slot_scan.restype = i32
+    lib.innr_slot_smem_bytes.argtypes = [i32, i32, i32, i32, i32]
+    lib.innr_slot_smem_bytes.restype = i64
     lib.innr_sparse_scan.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr, i32, i64, i32, i32, i32, i32, i32, i32, ptr,
     ]

@@ -1,5 +1,5 @@
 """The query tile of the one-row-per-thread scans built on ``csrc/row_scan.cuh``:
-``slot_scan`` and ``sparse_scan``.
+``sparse_scan`` (the slot scans plan their own tiles, :func:`.slot_knn.plan`).
 
 A CTA of 256 threads walks its slab in tiles of :data:`ROW_TILE` rows, one
 row per thread, for a tile of 1, 2, 4, 8 or 16 queries (a template parameter

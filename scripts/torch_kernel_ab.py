@@ -32,8 +32,16 @@ results and times (CUDA events, median of 5) of the parts named in PARTS
   ternary 15M x 768 one (random words over all 32 bits, disjoint planes, as
   ``chip_smoke.py`` draws them, made word-major) at Q in {1, 16, 32}, k in
   {10, 640} (640: three passes, the second and third after an exclusion
-  bound). Run the turns as parent, this, this, parent in one call, so that
-both trees meet the same card. ``--compare`` holds every turn's results to
+  bound);
+- ``slot``: the slot scan's raw top-k (``kernels.slot_knn.
+  fused_slot_keys_batch``) over ``chip_smoke.py``'s MinHash corpora (10M x
+  128 uint32 and uint16 slots over the full width, 16 near-duplicate
+  queries) and its hit-heavy ones (slots from 4 values, 16 of the rows as
+  queries) at Q in {1, 4, 16}, k = 10; and the full-width corpora with
+  N + 1 and N + 3 rows (slot rows off 16-byte boundaries) at Q in {1, 4}.
+
+Run the turns as parent, this, this, parent in one call, so that both
+trees meet the same card. ``--compare`` holds every turn's results to
 the first turn's, bit for bit, and prints one JSON object of the times.
 """
 
@@ -166,7 +174,56 @@ def packed_part(out: dict, times: dict, dev) -> None:
         torch.cuda.empty_cache()
 
 
-def turn(root: str, tag: str, outdir: str, parts: str = "knn,maxsim,sparse,packed") -> None:
+def slot_part(out: dict, times: dict, dev) -> None:
+    """chip_smoke.py's phase_slot corpora and queries, drawn the same way."""
+    import torch
+
+    import chip_smoke as cs
+    from innr_tpu_torch.kernels import slot_knn as tsl
+
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 6)
+    n, n_q = cs.N_SKETCH, 16
+    for dtype in (torch.int32, torch.int16):
+        bits = torch.iinfo(dtype).bits
+        sketches = cs._random_slots(gen, n, cs.SLOTS, dtype, dev)
+        rows = torch.arange(n_q, device=dev) * (n // n_q) + 12_345
+        sketches[(rows + 1_000_003) % n] = sketches[rows]
+        qs = sketches[rows].clone()
+        qs[:, :13] = cs._random_slots(gen, n_q, 13, dtype, dev)
+        slots_t = sketches.T.contiguous()
+        del sketches
+        # Then chip_smoke.py's hit-heavy corpus: every slot one of 4 values,
+        # 16 of its rows as queries.
+        info = torch.iinfo(dtype)
+        alphabet = torch.tensor([info.min, -1, 0, 1], dtype=dtype, device=dev)
+        for corpus in ("", "_hit_heavy"):
+            if corpus:
+                for a in range(0, n, 1 << 20):
+                    b = min(n, a + (1 << 20))
+                    slots_t[:, a:b] = alphabet[torch.randint(0, 4, (cs.SLOTS, b - a),
+                                                             generator=gen, device=dev)]
+                qs = slots_t[:, rows].T.contiguous()
+            for q in (1, 4, n_q):
+                qq = qs[:q].contiguous()
+                key = f"slot_u{bits}{corpus}_q{q}_k10"
+                out[key] = tuple(t.cpu() for t in tsl.fused_slot_keys_batch(qq, slots_t, 10))
+                times[f"{key}_ms"] = median_ms(lambda: tsl.fused_slot_keys_batch(qq, slots_t, 10))
+            # N + 1 and N + 3 rows: slot rows that start off a 16-byte
+            # boundary (the first d rows repeated at the end).
+            for d in () if corpus else (1, 3):
+                odd = torch.cat([slots_t, slots_t[:, :d]], dim=1)
+                for q in (1, 4):
+                    qq = qs[:q].contiguous()
+                    key = f"slot_u{bits}_n{n + d}_q{q}_k10"
+                    out[key] = tuple(t.cpu() for t in tsl.fused_slot_keys_batch(qq, odd, 10))
+                    times[f"{key}_ms"] = median_ms(lambda: tsl.fused_slot_keys_batch(qq, odd, 10))
+                del odd
+        del slots_t
+        torch.cuda.empty_cache()
+
+
+def turn(root: str, tag: str, outdir: str,
+         parts: str = "knn,maxsim,sparse,packed,slot") -> None:
     sys.path.insert(0, str(Path(root).resolve()))
     sys.path.append(str(Path(__file__).resolve().parent.parent))  # chip_smoke's cells
     import torch
@@ -185,6 +242,8 @@ def turn(root: str, tag: str, outdir: str, parts: str = "knn,maxsim,sparse,packe
         knn_part(itt, tk, out, times, dev)
     if "packed" in parts.split(","):
         packed_part(out, times, dev)
+    if "slot" in parts.split(","):
+        slot_part(out, times, dev)
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     torch.save({"out": out, "times": times, "gpu": gpu, "root": root},

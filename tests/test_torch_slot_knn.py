@@ -166,11 +166,11 @@ class TestDispatchAndContracts:
         (1, 10, 512, 1), (5, 10, 512, 8), (33, 256, 1024, 16), (16, 256, 12_000, 8),
     ])
     def test_row_scan_tile_fits_shared_memory(self, n_q, k, query_bytes, tile):
-        assert row_scan.row_scan_tile(n_q, k, query_bytes, "slot_scan") == tile
+        assert row_scan.row_scan_tile(n_q, k, query_bytes, "sparse_scan") == tile
 
     def test_row_scan_tile_raises_naming_the_limit(self):
         with pytest.raises(ContractError, match="232448"):
-            row_scan.row_scan_tile(1, 256, 240_000, "slot_scan")
+            row_scan.row_scan_tile(1, 256, 240_000, "sparse_scan")
 
 
 @pytest.fixture
