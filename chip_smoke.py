@@ -38,7 +38,13 @@ and imports nothing of JAX. Phases:
                 plans with no, one, every and a scattered set of tiles, on
                 the kNN phase's corpus (NaN, +-inf, -0.0 rows) with planted
                 duplicate rows; also against K1's full scan on full plans;
-              - the threshold scan, f32 and bf16, D in {1, 127, 128, 768};
+              - the threshold scan, f32 and bf16, D in {1, 127, 128, 768}:
+                the dense form against its plain version, and the
+                compacted form against the dense kernel's rows under the
+                keep-mask at thresholds that keep nothing, some and every
+                live row; the threshold plan's kernel against
+                plan_threshold_survivors (1 to 16,896 tiles, Q 1 and 3, NaN
+                radii, thresholds -inf to +inf and NaN), exactly;
               - K1's tensor-core scan, full and tile scan, on exact
                 arithmetic its products cannot represent: f32 rows of odd
                 integers in [2049, 4095] (TF32 drops the low bit), bf16
@@ -122,8 +128,12 @@ and imports nothing of JAX. Phases:
                  on the Gaussian corpus of 3a (nothing prunes): bit for bit
                  the full scan's result, with no K1 launch;
                  batch_knn_adaptive equal to batch_knn;
-                 batch_l2_squared_pruning (threshold 1.0) against a plain full
-                 pass; VerticalBatch.cluster_reorder of the unordered corpus
+                 batch_l2_squared_pruning (threshold 1.0, f32 and bf16: one
+                 plan and one compacting launch, no dense one) against a
+                 plain full pass, its plan equal to plan_threshold_survivors',
+                 and the compacted scan bit for bit the dense kernel's rows
+                 under the keep-mask, at 1.0 and at +inf (every row);
+                 VerticalBatch.cluster_reorder of the unordered corpus
                  (256 clusters), then prune=True mapped back through perm;
                  IVFIndex (16896 clusters, dot, n_iters=3) against
                  batch_knn_dot;
@@ -163,8 +173,13 @@ and imports nothing of JAX. Phases:
               kernel, prune=True end to end, plain) against K1's full scan
               and reads of all / the surviving rows, on the clustered corpus
               and on the Gaussian one (the nothing-prunes overhead); the
-              threshold scan against its plain version and a read of its
-              surviving rows; the nearest-centroid pass at KC = 256 and
+              dense threshold scan against its plain version and a read of
+              its surviving rows, and over every tile against torch.addmv;
+              the compacted call (launch, sync, pairs to the host) against
+              its plain version, over every tile, and
+              batch_l2_squared_pruning end to end beside the path it
+              replaced; the plan's kernel call against
+              plan_threshold_survivors; the nearest-centroid pass at KC = 256 and
               16896 against its plain version (3 runs at 16896), with its
               shortlist sizes; the host time of cluster_reorder and of an
               IVFIndex build in scan-equivalents of K1's full f32 scan, the
@@ -329,7 +344,10 @@ def _counted():
         ("packed_scan", tp, "LAUNCHES", tp.LAUNCHES_BY_KIND),
         ("packed_rows", th, "LAUNCHES", th.LAUNCHES_BY_KIND),
         ("knn_scan_tiles+knn_merge", tpk, "LAUNCHES", tpk.LAUNCHES_BY_DTYPE),
-        ("threshold_scan", tpk, "THRESHOLD_LAUNCHES", tpk.THRESHOLD_LAUNCHES_BY_DTYPE),
+        ("threshold_scan", tpk, "THRESHOLD_LAUNCHES", tpk.THRESHOLD_LAUNCHES_BY_FORM["dense"]),
+        ("threshold_compact", tpk, "THRESHOLD_LAUNCHES",
+         tpk.THRESHOLD_LAUNCHES_BY_FORM["compact"]),
+        ("threshold_plan", tpk, "PLAN_LAUNCHES", None),  # one instance
         ("nearest_centroid", ta, "LAUNCHES", ta.LAUNCHES_BY_DTYPE),
         ("slot_scan", tsl, "LAUNCHES", tsl.LAUNCHES_BY_DTYPE),
         ("sparse_scan", tsp, "LAUNCHES", None),  # one instance
@@ -667,12 +685,13 @@ def phase_exact_pruned(dev) -> int:
     torch.cuda.synchronize()
     log(f"[exact] {checks} tile-scan checks agree bit for bit (with K1 on full plans)")
 
-    k15 = 0
+    k15 = compact = 0
     for dtype in (torch.float32, torch.bfloat16):
         for d in (1, 127, 128, 768):
             rows = _int_corpus(gen, n, d, dtype, dev)
             norms2 = tk._norms2(rows)
             q = torch.randint(-4, 5, (d,), generator=gen, device=dev).float()
+            qq = (q * q).sum()
             for tile_n in (128, 200, 4736):
                 for plan, (order, n_surv) in _plans(gen, -(-n // tile_n), dev).items():
                     got = tpk.threshold_dists(q, rows, norms2, order, n_surv, tile_n)
@@ -682,8 +701,14 @@ def phase_exact_pruned(dev) -> int:
                             f"exact threshold_scan {dtype} d={d} tile={tile_n} plan={plan}: "
                             "kernel != plain")
                     k15 += 1
+                    compact += _exact_compact(
+                        f"exact threshold_compact {dtype} d={d} tile={tile_n} plan={plan}",
+                        q, rows, norms2, qq, order, n_surv, tile_n, got + qq, plan == "all")
     torch.cuda.synchronize()
-    log(f"[exact] {k15} threshold-scan checks agree bit for bit")
+    log(f"[exact] {k15} threshold-scan checks agree bit for bit; {compact} compacted-scan "
+        "checks equal the dense kernel's rows within the threshold bit for bit (+inf on "
+        "plans of every tile)")
+    plans = _exact_plans(gen, dev)
 
     k13 = 0
     for dtype in (torch.float32, torch.bfloat16, torch.uint8):
@@ -711,7 +736,82 @@ def phase_exact_pruned(dev) -> int:
     torch.cuda.synchronize()
     log(f"[exact] {k13} nearest-centroid checks agree exactly")
     k13 += _exact_tf32_near_ties(gen, n, dev)
-    return checks + k15 + k13
+    return checks + k15 + compact + plans + k13
+
+
+def _exact_plans(gen, dev) -> int:
+    """The threshold plan's kernel against ``plan_threshold_survivors``:
+    order, n_surv and alive equal, for 1 to 16,896 tiles (one to 17 chunks
+    of the kernel's CTA), 1 and 3 queries near a centroid, NaN radii, and
+    thresholds from -inf through the bounds' spread to +inf and NaN."""
+    import torch
+
+    from innr_tpu_torch.kernels import pruned_knn as tpk
+    from innr_tpu_torch.prune import plan_threshold_survivors
+
+    checks = 0
+    for n_tiles in (1, 1024, 1025, 2112, 16_896):
+        cent = 3.0 * torch.randn((n_tiles, 128), generator=gen, device=dev)
+        rad = torch.rand(n_tiles, generator=gen, device=dev) * 8
+        if n_tiles > 1:
+            rad[n_tiles // 3] = float("nan")
+        for n_q in (1, 3):
+            qs = cent[:1] + 0.5 * torch.randn((n_q, 128), generator=gen, device=dev)
+            for thr in (-float("inf"), 0.0, 30.0, 1500.0, 2300.0, 3000.0, float("inf"),
+                        float("nan")):
+                got = tpk.threshold_plan(qs, cent, rad, thr)
+                want = plan_threshold_survivors(qs, cent, rad, thr)
+                if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                        and torch.equal(got[2], want[2])):
+                    raise AssertionError(f"exact threshold_plan tiles={n_tiles} q={n_q} "
+                                         f"threshold={thr}: kernel != plain")
+                checks += 1
+    torch.cuda.synchronize()
+    log(f"[exact] {checks} threshold-plan checks agree exactly (order, n_surv, alive)")
+    return checks
+
+
+def _dense_survivors(dense, threshold: float):
+    """Today's keep-mask and ``nonzero`` over the dense distances (+ qq):
+    ``(idx, dists)`` on the host."""
+    import numpy as np
+    import torch
+
+    keep = ~(dense > float(np.float32(threshold))) & ~torch.isnan(dense)
+    idx = torch.nonzero(keep).flatten()
+    return idx.cpu(), dense[idx].cpu()
+
+
+def _same_survivors(name: str, got, want) -> None:
+    """Indices equal and distances equal bit for bit."""
+    import torch
+
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1].view(torch.int32),
+                                                         want[1].view(torch.int32))):
+        raise AssertionError(f"{name}: {len(got[0])} pairs against {len(want[0])} of the dense "
+                             "kernel with the keep-mask")
+
+
+def _exact_compact(name: str, q, rows, norms2, qq, order, n_surv, tile_n, dense,
+                   every_tile: bool) -> int:
+    """The compacted scan at thresholds that keep nothing, one row, half
+    and every finite live row, against the dense kernel's distances
+    (``dense``, + qq) under today's keep-mask: bit for bit. At +inf the mask
+    keeps the dead tiles' +inf rows too, and the planner then leaves no
+    tile dead: +inf is checked on plans of every tile. Returns the checks
+    made."""
+    import torch
+
+    from innr_tpu_torch.kernels import pruned_knn as tpk
+
+    fin = dense[torch.isfinite(dense)]
+    levels = [-1.0] + ([float("inf")] if every_tile else [])
+    if fin.numel():
+        levels += [float(fin.min()), float(fin.median()), float(fin.max())]
+    for thr in levels:
+        got = tpk.threshold_survivors(q, rows, norms2, qq, order, n_surv, tile_n, thr)
+        _same_survivors(f"{name} threshold={thr!r}", got, _dense_survivors(dense, thr))
+    return len(levels)
 
 
 def _exact_tf32_near_ties(gen, n: int, dev) -> int:
@@ -1433,6 +1533,65 @@ def _scan_equivalents(ms: float, full_ms: float) -> str:
     return f"{ms!r} ms = {ms / full_ms!r} scan-equivalents"
 
 
+def _l2_tol(rows, q):
+    """K1's tolerance of an L2^2 score (per row), in float64 on the rows'
+    device."""
+    r = rows.double()
+    qd = q.double()
+    return (32 * EPS32 * ((r * r).sum(1) + float((qd * qd).sum()))
+            + 64 * EPS32 * (r.abs() @ qd.abs()))
+
+
+def _survivors_close(name: str, got, want, rows, q, thr: float) -> float:
+    """A compacted result against its plain version: the distances of rows
+    both keep within K1's tolerance, a row that only one keeps within
+    tolerance of the threshold. Returns the largest difference."""
+    import torch
+
+    gi, gd, wi, wd = (t.cpu() for t in (*got, *want))
+    union = torch.unique(torch.cat([gi, wi]))
+    tol = _l2_tol(rows[union.to(rows.device)], q).cpu()
+    kept, dist = [], []
+    for idx, d in ((gi, gd), (wi, wd)):
+        at = torch.searchsorted(union, idx)
+        k = torch.zeros(len(union), dtype=torch.bool)
+        k[at] = True
+        v = torch.full((len(union),), float("nan"), dtype=torch.float64)
+        v[at] = d.double()
+        kept.append(k)
+        dist.append(v)
+    both, one = kept[0] & kept[1], kept[0] ^ kept[1]
+    diff = (dist[0] - dist[1]).abs()[both]
+    edge = (torch.where(kept[0], dist[0], dist[1]) - thr).abs()[one]
+    if bool((diff > tol[both]).any()) or bool((edge > tol[one]).any()):
+        raise AssertionError(f"{name}: kernel and plain differ beyond rounding")
+    return float(diff.max()) if bool(both.any()) else 0.0
+
+
+def _pruning_against_plain(name: str, idx, dists, rows, q, thr: float) -> None:
+    """``batch_l2_squared_pruning``'s rows and distances against a plain
+    full pass in float64 over ``rows`` (f32 or bf16, widened), within K1's
+    tolerance: every row clearly within the threshold is kept, no row
+    clearly beyond it, each distance within tolerance."""
+    import torch
+
+    n = rows.shape[0]
+    plain = torch.empty(n, dtype=torch.float64, device=rows.device)
+    tol = torch.empty(n, dtype=torch.float64, device=rows.device)
+    for a in range(0, n, 1 << 21):
+        r = rows[a:a + (1 << 21)].double()
+        plain[a:a + (1 << 21)] = ((r - q.double()) ** 2).sum(1)
+        tol[a:a + (1 << 21)] = _l2_tol(rows[a:a + (1 << 21)], q)
+    sure = set(torch.nonzero(plain <= thr - tol).flatten().cpu().tolist())
+    maybe = set(torch.nonzero(plain <= thr + tol).flatten().cpu().tolist())
+    if not sure <= set(idx.tolist()) <= maybe:
+        raise AssertionError(f"{name}: survivor set != the plain full pass's")
+    at = torch.as_tensor(idx, device=rows.device)
+    diff = (torch.as_tensor(dists, device=rows.device).double() - plain[at]).abs()
+    if bool((diff > tol[at]).any()):
+        raise AssertionError(f"{name}: a distance is off the plain pass's")
+
+
 def phase_prune(dev, full_ms: float, errs: dict, bounds: dict,
                 library: dict) -> tuple[dict, dict]:
     """3d and its timing: prune=True, batch_knn_adaptive,
@@ -1491,26 +1650,42 @@ def phase_prune(dev, full_ms: float, errs: dict, bounds: dict,
     log("[main] batch_knn_adaptive equals batch_knn (exact)")
 
     q0, thr = qs[0], 1.0
-    (idx, dists), _ = path("batch_l2_squared_pruning", ["threshold_scan<float32>"],
-                           lambda: itt.batch_l2_squared_pruning(q0, vb, thr))
     norms2 = vb.norms2()
-    plain = torch.cat([itt.batch_l2_squared(q0, itt.VerticalBatch(rows[s:s + (1 << 21)]))
-                       for s in range(0, n, 1 << 21)])
-    tol = (32 * EPS32 * (norms2.double() + float((q0 * q0).sum()))
-           + 64 * EPS32 * (rows.abs() @ q0.abs()).double())
-    sure = torch.nonzero(plain.double() <= thr - tol).flatten().cpu().numpy()
-    maybe = torch.nonzero(plain.double() <= thr + tol).flatten().cpu().numpy()
-    if not (set(sure.tolist()) <= set(idx.tolist()) <= set(maybe.tolist())):
-        raise AssertionError("batch_l2_squared_pruning: survivor set != the plain full pass's")
-    idx_t = torch.as_tensor(idx, device=dev)
-    diff = (torch.as_tensor(dists, device=dev).double() - plain[idx_t].double()).abs()
-    if bool((diff > tol[idx_t]).any()):
-        raise AssertionError("batch_l2_squared_pruning: a distance is off the plain pass's")
+    for b, batch in (("f32", vb), ("bf16", vb16)):
+        kernel = f"threshold_compact<{'float32' if b == 'f32' else 'bfloat16'}>"
+        (idx, dists), counts = path(f"batch_l2_squared_pruning {b}", [kernel, "threshold_plan"],
+                                    lambda: itt.batch_l2_squared_pruning(q0, batch, thr))
+        if launches_of(counts, "threshold_scan"):
+            raise AssertionError("batch_l2_squared_pruning launched the dense threshold scan")
+        _pruning_against_plain(f"batch_l2_squared_pruning {b}", idx, dists, batch.rows, q0, thr)
     t_order, t_surv, t_alive = plan_threshold_survivors(
         q0[None], vb.tile_summary().centroids, vb.tile_summary().radii, thr)
-    log(f"[main] batch_l2_squared_pruning (threshold {thr}): {len(idx)} rows, equal to the "
-        f"plain full pass within K1's tolerance; {int(t_surv)} of {vb.tile_summary().n_tiles} "
-        "tiles read")
+    log(f"[main] batch_l2_squared_pruning (threshold {thr}, f32 and bf16): {len(idx)} rows "
+        f"(bf16), equal to the plain full pass within K1's tolerance; {int(t_surv)} of "
+        f"{vb.tile_summary().n_tiles} tiles read, one plan and one compacting launch, no "
+        "dense one")
+    got_plan = tpk.threshold_plan(q0[None], vb.tile_summary().centroids,
+                                  vb.tile_summary().radii, thr)
+    if not all(torch.equal(a, b) for a, b in zip(got_plan, (t_order, t_surv, t_alive))):
+        raise AssertionError("threshold_plan: the cell's plan != plan_threshold_survivors'")
+    # The compacted form bit for bit against the dense kernel and today's
+    # keep-mask, at the cell's threshold and at one that keeps every row.
+    s_all = vb.tile_summary()
+    every = torch.arange(s_all.n_tiles, dtype=torch.int32, device=dev)
+    all_n = torch.full((1,), s_all.n_tiles, dtype=torch.int32, device=dev)
+    qq0 = (q0 * q0).sum()
+    for name, order_, n_surv_, level in (("the cell's plan", t_order, t_surv, thr),
+                                         ("every tile", every, all_n, float("inf"))):
+        dense = tpk.threshold_dists(q0, rows, norms2, order_, n_surv_, s_all.tile_n) + qq0
+        got = tpk.threshold_survivors(q0, rows, norms2, qq0, order_, n_surv_, s_all.tile_n,
+                                      level)
+        _same_survivors(f"threshold_compact clustered, {name}, threshold {level}", got,
+                        _dense_survivors(dense, level))
+        log(f"[main] threshold_compact, clustered {n} x 128 f32, {name}, threshold {level}: "
+            f"{len(got[0])} rows, bit for bit the dense kernel's with the keep-mask")
+    if len(got[0]) != n:
+        raise AssertionError("threshold_compact: an infinite threshold must keep every row")
+    del dense, got
 
     times = {}
     order, n_surv, s = _plan(vb, qs, k, "dot")
@@ -1552,8 +1727,6 @@ def phase_prune(dev, full_ms: float, errs: dict, bounds: dict,
     plain_ms = _median_ms(lambda: tpk.threshold_plain(q0, rows, norms2, t_order, t_surv,
                                                       s.tile_n))
     read_t = _median_ms(lambda: rows[:t_surv_rows].sum())
-    every = torch.arange(s.n_tiles, dtype=torch.int32, device=dev)
-    all_n = torch.full((1,), s.n_tiles, dtype=torch.int32, device=dev)
     kernel_all = _median_ms(lambda: tpk.threshold_dists(q0, rows, norms2, every, all_n,
                                                         s.tile_n))
     # Over every tile the scan is norms2 - 2 rows.q, one torch.addmv.
@@ -1561,17 +1734,64 @@ def phase_prune(dev, full_ms: float, errs: dict, bounds: dict,
     times["threshold_scan"] = (kernel, plain_ms)
     library["threshold_scan"] = addmv_all
 
-    def threshold_bound(read_rows):
-        """The rows read and their norms, the query, the (N,) result."""
-        return bound(4 * (read_rows * 129 + 128 + n), fp32=2 * 128 * read_rows)
+    def threshold_bound(read_rows, written):
+        """The rows read and their norms, the query, ``written`` bytes."""
+        return bound(4 * (read_rows * 129 + 128) + written, fp32=2 * 128 * read_rows)
 
-    bounds["threshold_scan"] = threshold_bound(t_surv_rows)
-    log(f"[timing] threshold scan, clustered {n} x 128 f32, threshold {thr}: {int(t_surv)} "
-        f"tiles ({t_surv_rows} rows); kernel {kernel!r} ms, plain {plain_ms!r} ms, read of "
-        f"the surviving rows {read_t!r} ms, {bound_text(bounds['threshold_scan'])}; every "
-        f"tile: kernel {kernel_all!r} ms, read {read_all!r} ms (read/kernel "
-        f"{read_all / kernel_all!r}), torch.addmv {addmv_all!r} ms, "
-        f"{bound_text(threshold_bound(n))}")
+    bounds["threshold_scan"] = threshold_bound(t_surv_rows, 4 * n)
+    log(f"[timing] threshold scan (dense), clustered {n} x 128 f32, threshold {thr}: "
+        f"{int(t_surv)} tiles ({t_surv_rows} rows); kernel {kernel!r} ms, plain {plain_ms!r} "
+        f"ms, read of the surviving rows {read_t!r} ms, {bound_text(bounds['threshold_scan'])} "
+        f"(share {bounds['threshold_scan'][0] / kernel!r}); every tile: kernel {kernel_all!r} "
+        f"ms, read {read_all!r} ms (read/kernel {read_all / kernel_all!r}), torch.addmv "
+        f"{addmv_all!r} ms, {bound_text(threshold_bound(n, 4 * n))}")
+
+    # The compacted form: the call as batch_l2_squared_pruning makes it
+    # (launch, the one synchronisation, the M pairs to the host).
+    got = tpk.threshold_survivors(q0, rows, norms2, qq0, t_order, t_surv, s.tile_n, thr)
+    want = tpk.threshold_survivors_plain(q0, rows, norms2, qq0, t_order, t_surv, s.tile_n, thr)
+    errs["threshold_compact"] = _survivors_close("threshold_compact clustered", got, want, rows,
+                                                 q0, thr)
+    m = len(got[0])
+    compact = _median_ms(lambda: tpk.threshold_survivors(q0, rows, norms2, qq0, t_order, t_surv,
+                                                         s.tile_n, thr))
+    compact_plain = _median_ms(lambda: tpk.threshold_survivors_plain(
+        q0, rows, norms2, qq0, t_order, t_surv, s.tile_n, thr))
+    call = _median_ms(lambda: itt.batch_l2_squared_pruning(q0, vb, thr))
+    # What the call did before this design, on today's dense kernel: the
+    # plain plan, the dense scan, + qq, the keep-mask, nonzero and the two
+    # host copies.
+    def dense_path():
+        o, ns, _ = plan_threshold_survivors(q0[None], s.centroids, s.radii, thr)
+        return _dense_survivors(tpk.threshold_dists(q0, rows, norms2, o, ns, s.tile_n)
+                                + (q0 * q0).sum(), thr)
+
+    dense_path_ms = _median_ms(dense_path)
+    compact_all = _median_ms(lambda: tpk.threshold_survivors(q0, rows, norms2, qq0, every, all_n,
+                                                             s.tile_n, thr))
+    plan_k = _median_ms(lambda: tpk.threshold_plan(q0[None], s.centroids, s.radii, thr))
+    plan_p = _median_ms(lambda: plan_threshold_survivors(q0[None], s.centroids, s.radii, thr))
+    times["threshold_plan"] = (plan_k, plan_p)
+    library["threshold_plan"] = None
+    errs["threshold_plan"] = 0.0  # order, n_surv and alive equal (checked above)
+    # The plan's function: centroids, radii and the query read, order,
+    # alive and n_surv written; 2 T D FP32 operations for q . c.
+    t_n = s.n_tiles
+    bounds["threshold_plan"] = bound(4 * (t_n * 128 + t_n + 128) + 5 * t_n + 4,
+                                     fp32=2 * t_n * 128)
+    log(f"[timing] threshold plan, {t_n} tiles: the call (product, sums, one plan launch) "
+        f"{plan_k!r} ms, plan_threshold_survivors {plan_p!r} ms, "
+        f"{bound_text(bounds['threshold_plan'])}")
+    times["threshold_compact"] = (compact, compact_plain)
+    library["threshold_compact"] = None
+    bounds["threshold_compact"] = threshold_bound(t_surv_rows, 8 * m)
+    log(f"[timing] threshold scan (compacted), the same cell: {m} rows kept; the call "
+        f"(launch, sync, pairs to the host) {compact!r} ms, plain {compact_plain!r} ms, "
+        f"{bound_text(bounds['threshold_compact'])} (share "
+        f"{bounds['threshold_compact'][0] / compact!r}); every tile {compact_all!r} ms; "
+        f"batch_l2_squared_pruning end to end {call!r} ms (the plain plan and the dense "
+        f"path with mask, nonzero and copies: {dense_path_ms!r} ms)")
+    del got, want
 
     cent256 = centers + 0.1 * torch.randn(centers.shape, generator=gen, device=dev)
     errs["nearest_centroid"] = _assign_check(
@@ -1596,7 +1816,7 @@ def phase_prune(dev, full_ms: float, errs: dict, bounds: dict,
     bounds["nearest_centroid"] = assign_bound(256, shortlist)
     log(f"[timing] nearest_centroid {n} x 128, KC=256: kernel {kernel!r} ms, plain "
         f"{plain_ms!r} ms, {bound_text(bounds['nearest_centroid'])}")
-    del vb, vb16, rows, full, plain, norms2
+    del vb, vb16, rows, full, norms2
     torch.cuda.empty_cache()
 
     rows, centers = _clustered(gen, n, 256, False, dev)
@@ -3412,32 +3632,37 @@ def main() -> int:
     errs = ({f"knn_scan+knn_merge<{name}>": err for name, err in errs.items()} | packed_errs
             | prune_errs)
     kernels = [
-        ("knn_scan+knn_merge<float32>", "knn.cu", "knn.py:197"),
-        ("knn_scan+knn_merge<bfloat16>", "knn.cu", "knn.py:197"),
-        ("knn_scan+knn_merge<uint8>", "knn.cu", "knn.py:197"),
-        ("packed_scan<binary>", "packed_knn.cu", "packed_knn.py:93,150"),
-        ("packed_scan<ternary>", "packed_knn.cu", "packed_knn.py:228,292"),
-        ("packed_rows<binary>", "packed.cu", "hamming.py:32"),
-        ("packed_rows<ternary>", "packed.cu", "hamming.py:62"),
-        ("knn_scan_tiles+knn_merge", "knn.cu", "pruned_knn.py:80,162"),
-        ("threshold_scan", "pruned.cu", "pruned_knn.py:483,566"),
-        ("nearest_centroid", "assign.cu", "assign.py:71"),
-        ("slot_scan<uint32>", "slot_knn.cu", "slot_knn.py:83,145"),
-        ("slot_scan<uint16>", "slot_knn.cu", "slot_knn.py:83,145"),
-        ("sparse_scan", "sparse_knn.cu", "sparse_knn.py:73"),
-        ("maxsim_scores<float32>", "maxsim.cu", "maxsim_kernel.py:41,166"),
-        ("maxsim_scores<bfloat16>", "maxsim_bf16.cu", "maxsim_kernel.py:41,166"),
+        ("knn_scan+knn_merge<float32>", "knn.cu", "kernels/knn.py:197"),
+        ("knn_scan+knn_merge<bfloat16>", "knn.cu", "kernels/knn.py:197"),
+        ("knn_scan+knn_merge<uint8>", "knn.cu", "kernels/knn.py:197"),
+        ("packed_scan<binary>", "packed_knn.cu", "kernels/packed_knn.py:93,150"),
+        ("packed_scan<ternary>", "packed_knn.cu", "kernels/packed_knn.py:228,292"),
+        ("packed_rows<binary>", "packed.cu", "kernels/hamming.py:32"),
+        ("packed_rows<ternary>", "packed.cu", "kernels/hamming.py:62"),
+        ("knn_scan_tiles+knn_merge", "knn.cu", "kernels/pruned_knn.py:80,162"),
+        ("threshold_scan", "pruned.cu", "kernels/pruned_knn.py:483,566"),
+        ("threshold_compact", "pruned.cu", "kernels/pruned_knn.py:483,566"),
+        # No TPU kernel: the JAX plan's elementwise steps and partition,
+        # fused into one launch.
+        ("threshold_plan", "pruned.cu", "prune.py:255"),
+        ("nearest_centroid", "assign.cu", "kernels/assign.py:71"),
+        ("slot_scan<uint32>", "slot_knn.cu", "kernels/slot_knn.py:83,145"),
+        ("slot_scan<uint16>", "slot_knn.cu", "kernels/slot_knn.py:83,145"),
+        ("sparse_scan", "sparse_knn.cu", "kernels/sparse_knn.py:73"),
+        ("maxsim_scores<float32>", "maxsim.cu", "kernels/maxsim_kernel.py:41,166"),
+        ("maxsim_scores<bfloat16>", "maxsim_bf16.cu", "kernels/maxsim_kernel.py:41,166"),
     ]
     # No single PyTorch call computes the other functions: the scans need a
     # product (or a count) and a selection, torch has no popcount, and
     # MaxSim needs a product, a masked max and a sum. Over every tile the
-    # threshold scan is one torch.addmv, which phase 4 times beside it.
+    # dense threshold scan is one torch.addmv, which phase 4 times beside
+    # it; the compacted form adds a selection (no single call).
     record = {"kernels": [
         {
             "name": name,
             "route": "cuda",
             "source": f"innr_tpu_torch/csrc/{source}",
-            "replaces": f"innr_tpu/kernels/{replaces}",
+            "replaces": f"innr_tpu/{replaces}",
             "launches": launches[name],
             "max_abs_err": errs[name],
             "ms": times[name][0],

@@ -103,9 +103,11 @@ def _declare(lib) -> None:
     lib.innr_pack_ternary_rows_mt.argtypes = [f32p, i64, i64, f32, u32p, u32p, i32]
     lib.innr_quantize_u8_rows_mt.argtypes = [f32p, i64, i64, f32, f32, u8p, i32]
     lib.innr_minhash_rows_mt.argtypes = [u64p, i64p, i64, i32, u32p, i32]
+    lib.innr_pack_ternary.argtypes = [f32p, i64, f32, u32p, u32p]
+    lib.innr_hamming_scan.argtypes = [u32p, u32p, i64, i64, u32p]
     for fn in (lib.innr_topk_insert_batch, lib.innr_pack_binary_rows_mt,
                lib.innr_pack_ternary_rows_mt, lib.innr_quantize_u8_rows_mt,
-               lib.innr_minhash_rows_mt):
+               lib.innr_minhash_rows_mt, lib.innr_pack_ternary, lib.innr_hamming_scan):
         fn.restype = None
 
 
@@ -172,6 +174,20 @@ def pack_ternary_rows(rows: np.ndarray, threshold: float):
     return pos, neg
 
 
+def pack_ternary(v: np.ndarray, threshold: float):
+    """One (D,) float32 vector -> ((W,) pos, (W,) neg) uint32 bitplanes."""
+    lib = _load()
+    if lib is None:
+        return None
+    v = np.ascontiguousarray(v, dtype=np.float32)
+    w = (v.size + 31) // 32
+    pos = np.zeros(w, dtype=np.uint32)
+    neg = np.zeros(w, dtype=np.uint32)
+    lib.innr_pack_ternary(_ptr(v, ctypes.c_float), v.size, threshold,
+                          _ptr(pos, ctypes.c_uint32), _ptr(neg, ctypes.c_uint32))
+    return pos, neg
+
+
 def quantize_u8_rows(rows: np.ndarray, alpha: float, offset: float) -> np.ndarray | None:
     """(R, D) float32 rows -> (R, D) uint8 codes. The C encoder rounds
     ``255 / alpha`` in float32 from a float32 ``alpha``."""
@@ -183,6 +199,20 @@ def quantize_u8_rows(rows: np.ndarray, alpha: float, offset: float) -> np.ndarra
     out = np.zeros((r, d), dtype=np.uint8)
     lib.innr_quantize_u8_rows_mt(_ptr(rows, ctypes.c_float), r, d, alpha, offset,
                                  _ptr(out, ctypes.c_uint8), _n_threads(r))
+    return out
+
+
+def hamming_scan(query: np.ndarray, corpus: np.ndarray) -> np.ndarray | None:
+    """Hamming distances of a (W,) uint32 query to each row of an (N, W)
+    uint32 corpus -> (N,) uint32."""
+    lib = _load()
+    if lib is None:
+        return None
+    query = np.ascontiguousarray(query, dtype=np.uint32)
+    corpus = np.ascontiguousarray(corpus, dtype=np.uint32)
+    out = np.zeros(corpus.shape[0], dtype=np.uint32)
+    lib.innr_hamming_scan(_ptr(query, ctypes.c_uint32), _ptr(corpus, ctypes.c_uint32),
+                          corpus.shape[0], corpus.shape[1], _ptr(out, ctypes.c_uint32))
     return out
 
 

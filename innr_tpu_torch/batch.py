@@ -459,17 +459,16 @@ def batch_l2_squared_pruning(query, batch: VerticalBatch, threshold: float):
     Runs the tile-skipping threshold scan: tiles whose centroid/radius lower
     bound exceeds the threshold are never read. Scores are ``norms2 - 2 q.r
     + ||q||^2``, so a row whose distance ties the threshold to the last ulp
-    may fall either side of it under another summation order. The keep-mask
-    and its ``nonzero`` are taken on the device; only the survivors are
+    may fall either side of it under another summation order. On the card
+    one kernel scores the live tiles and writes only the rows that pass,
+    in order; one synchronisation reads their count and they alone are
     copied to the host. NaN distances are kept out."""
     q = _check_query(query, batch, "batch_l2_squared_pruning")
     if batch.num_vectors == 0:
         return np.zeros(0, np.int64), np.zeros(0, np.float32)
-    dists = _pruned.l2_squared_pruning_scan(
+    idx, dists = _pruned.l2_squared_pruning_survivors(
         q, batch.rows, batch.norms2(), batch.tile_summary(), float(threshold))
-    keep = ~(dists > float(np.float32(threshold))) & ~torch.isnan(dists)
-    idx = torch.nonzero(keep).flatten()
-    return idx.cpu().numpy().astype(np.int64), dists[idx].cpu().numpy().astype(np.float32)
+    return idx.cpu().numpy(), dists.cpu().numpy()
 
 
 def _variance_order(batch: VerticalBatch) -> torch.Tensor:

@@ -135,9 +135,22 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     lib.innr_knn_scan_tiles.restype = i32
     lib.innr_threshold_scan.argtypes = [
-        ptr, ptr, i32, ptr, ptr, ptr, ptr, i64, i32, i64, i64, i32, ptr,
+        ptr, ptr, i32, ptr, ptr, ptr, ptr, i64, i32, i64, i32, i32, ptr,
     ]
     lib.innr_threshold_scan.restype = i32
+    lib.innr_threshold_compact.argtypes = [
+        ptr, ptr, i32, ptr, ptr, ptr, ptr, f32, ptr, i64, i32, i64, i32, i32, ptr,
+    ]
+    lib.innr_threshold_compact.restype = i32
+    lib.innr_threshold_plan.argtypes = [ptr, ptr, ptr, ptr, i32, i32, f32, f32, ptr, ptr, ptr,
+                                        ptr]
+    lib.innr_threshold_plan.restype = i32
+    lib.innr_threshold_header_words.argtypes = [i64, i32]
+    lib.innr_threshold_header_words.restype = i64
+    lib.innr_threshold_count.argtypes = [ptr, ptr, ptr]
+    lib.innr_threshold_count.restype = i32
+    lib.innr_threshold_copy.argtypes = [ptr, i64, i64, i64, ptr, ptr, ptr]
+    lib.innr_threshold_copy.restype = i32
     lib.innr_nearest_centroid.argtypes = [
         ptr, i32, ptr, ptr, ctypes.c_float, ptr, ptr, i64, i32, i32, ptr,
     ]

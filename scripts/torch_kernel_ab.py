@@ -38,7 +38,13 @@ results and times (CUDA events, median of 5) of the parts named in PARTS
   128 uint32 and uint16 slots over the full width, 16 near-duplicate
   queries) and its hit-heavy ones (slots from 4 values, 16 of the rows as
   queries) at Q in {1, 4, 16}, k = 10; and the full-width corpora with
-  N + 1 and N + 3 rows (slot rows off 16-byte boundaries) at Q in {1, 4}.
+  N + 1 and N + 3 rows (slot rows off 16-byte boundaries) at Q in {1, 4};
+- ``threshold``: the threshold scan on ``chip_smoke.py``'s clustered
+  10M x 128 cell (query near centre 0, threshold 1.0): the dense form
+  (``kernels.pruned_knn.threshold_dists``) on the call's plan and over
+  every tile, f32, and on the bf16 corpus's plan; and
+  ``batch_l2_squared_pruning`` end to end (CUDA events around the call,
+  host copies included), f32 and bf16.
 
 Run the turns as parent, this, this, parent in one call, so that both
 trees meet the same card. ``--compare`` holds every turn's results to
@@ -222,8 +228,42 @@ def slot_part(out: dict, times: dict, dev) -> None:
         torch.cuda.empty_cache()
 
 
+def threshold_part(itt, out: dict, times: dict, dev) -> None:
+    """chip_smoke.py's clustered cell and threshold query, drawn the same
+    way."""
+    import torch
+
+    import chip_smoke as cs
+    from innr_tpu_torch.kernels import pruned_knn as tpk
+    from innr_tpu_torch.prune import plan_threshold_survivors
+
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 3)
+    rows, centers = cs._clustered(gen, cs.N_PRUNE, 256, True, dev)
+    q0 = (centers[:32] + 0.01 * torch.randn((32, 128), generator=gen, device=dev))[0].contiguous()
+    thr = 1.0
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        vb = itt.VerticalBatch(rows, dtype=dtype)
+        s, norms2 = vb.tile_summary(), vb.norms2()
+        order, n_surv, _ = plan_threshold_survivors(q0[None], s.centroids, s.radii, thr)
+        cells = [("plan", order, n_surv)]
+        if name == "f32":
+            cells.append(("every_tile", torch.arange(s.n_tiles, dtype=torch.int32, device=dev),
+                          torch.full((1,), s.n_tiles, dtype=torch.int32, device=dev)))
+        for cell, o, ns in cells:
+            key = f"threshold_dense_{name}_{cell}"
+            out[key] = (tpk.threshold_dists(q0, vb.rows, norms2, o, ns, s.tile_n).cpu(),)
+            times[f"{key}_ms"] = median_ms(
+                lambda: tpk.threshold_dists(q0, vb.rows, norms2, o, ns, s.tile_n))
+        key = f"batch_l2_squared_pruning_{name}"
+        idx, dists = itt.batch_l2_squared_pruning(q0, vb, thr)
+        out[key] = (torch.as_tensor(idx), torch.as_tensor(dists))
+        times[f"{key}_ms"] = median_ms(lambda: itt.batch_l2_squared_pruning(q0, vb, thr))
+        del vb
+        torch.cuda.empty_cache()
+
+
 def turn(root: str, tag: str, outdir: str,
-         parts: str = "knn,maxsim,sparse,packed,slot") -> None:
+         parts: str = "knn,maxsim,sparse,packed,slot,threshold") -> None:
     sys.path.insert(0, str(Path(root).resolve()))
     sys.path.append(str(Path(__file__).resolve().parent.parent))  # chip_smoke's cells
     import torch
@@ -244,6 +284,8 @@ def turn(root: str, tag: str, outdir: str,
         packed_part(out, times, dev)
     if "slot" in parts.split(","):
         slot_part(out, times, dev)
+    if "threshold" in parts.split(","):
+        threshold_part(itt, out, times, dev)
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     torch.save({"out": out, "times": times, "gpu": gpu, "root": root},

@@ -89,3 +89,20 @@ def test_parallel_exports_the_reference_names():
     assert par.multihost.__all__ == ref_multihost.__all__
     for name in ref_multihost.__all__:
         assert callable(getattr(par.multihost, name)), name
+
+
+def test_native_host_functions_are_ported():
+    """Every public function of ``innr_tpu._native`` (the ctypes wrappers
+    over ``native/innr_host.c``) has its namesake in
+    ``innr_tpu_torch._native``."""
+    import inspect
+
+    import innr_tpu._native as ref
+    import innr_tpu_torch._native as port
+
+    def public(mod):
+        return {n for n, o in vars(mod).items() if not n.startswith("_")
+                and inspect.isfunction(o) and o.__module__ == mod.__name__}
+
+    assert {"pack_ternary", "hamming_scan"} <= public(ref)
+    assert public(ref) <= public(port), sorted(public(ref) - public(port))

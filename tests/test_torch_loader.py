@@ -119,6 +119,49 @@ class TestEncoders:
             tloader.encode_binary_host(rows)
 
 
+class TestHostHelpers:
+    """``pack_ternary`` and ``hamming_scan`` over the same C symbols as the
+    JAX package's: the same bits on the same inputs, ``None`` without the
+    library."""
+
+    @pytest.fixture
+    def native(self):
+        if not (t_native.available() and j_native.available()):
+            pytest.skip("no C compiler here: the native library cannot be built")
+
+    @pytest.mark.parametrize("d", [1, 31, 32, 77])
+    @pytest.mark.parametrize("threshold", [0.0, 0.25])
+    def test_pack_ternary(self, native, d, threshold):
+        v = rows_of(7, n=1, d=max(d, 5))[0, :d]
+        pos, neg = t_native.pack_ternary(v, threshold)
+        jpos, jneg = j_native.pack_ternary(v, threshold)
+        assert pos.dtype == np.uint32 and pos.shape == ((d + 31) // 32,)
+        np.testing.assert_array_equal(pos, jpos)
+        np.testing.assert_array_equal(neg, jneg)
+        rows_pos, rows_neg = t_native.pack_ternary_rows(v[None], threshold)
+        np.testing.assert_array_equal(pos, rows_pos[0])
+        np.testing.assert_array_equal(neg, rows_neg[0])
+
+    @pytest.mark.parametrize("w", [1, 3, 24])
+    def test_hamming_scan(self, native, w):
+        rng = np.random.default_rng(w)
+        corpus = rng.integers(0, 2**32, (50, w), dtype=np.uint64).astype(np.uint32)
+        query = rng.integers(0, 2**32, w, dtype=np.uint64).astype(np.uint32)
+        corpus[3] = query  # distance 0
+        corpus[4] = ~query  # every bit differs
+        got = t_native.hamming_scan(query, corpus)
+        assert got.dtype == np.uint32 and got.shape == (50,)
+        np.testing.assert_array_equal(got, j_native.hamming_scan(query, corpus))
+        bits = np.unpackbits((corpus ^ query).view(np.uint8), axis=1).sum(axis=1)
+        np.testing.assert_array_equal(got, bits)
+        assert got[3] == 0 and got[4] == 32 * w
+
+    def test_none_without_the_library(self, monkeypatch):
+        monkeypatch.setattr(t_native, "_load", lambda: None)
+        assert t_native.pack_ternary(np.zeros(3, np.float32), 0.0) is None
+        assert t_native.hamming_scan(np.zeros(1, np.uint32), np.zeros((2, 1), np.uint32)) is None
+
+
 class TestTopKInsertBatch:
     @pytest.mark.parametrize("k", [1, 5, 40])
     def test_equals_streaming_insert(self, arm, k):

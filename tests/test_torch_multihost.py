@@ -5,14 +5,22 @@ directory: no TCP port, safe under xdist), each holding its own block of
 the corpus sharded over four CPU entries, must return the one-process
 scan's answer on every rank: indices equal, scores bit for bit on
 integer-valued rows, where ties across the processes go to the lowest
-global index. Each subprocess has its own time limit, so a hang fails the
-test. The in-process arms (argument and environment parsing, the no-op
-cases, the contracts) run without a group.
+global index. The workers talk over loopback (``GLOO_SOCKET_IFNAME=lo``:
+gloo otherwise picks its interface from the host name, which need not be
+reachable where the tests run) and use one intra-op thread each (the test
+runs beside other pytest workers). Each prints the step it starts; a worker
+that hangs dumps its stack and exits at its own limit, below the test's,
+and a failure shows both workers' output, so it names the step (the
+rendezvous, a search, the save) or the result key that differed. The
+in-process arms (argument and environment parsing, the no-op cases, the
+contracts) run without a group.
 """
 
+import os
 import subprocess
 import sys
 import textwrap
+import time
 from pathlib import Path
 
 import numpy as np
@@ -44,10 +52,24 @@ def corpus(seed=0):
     return rows, rng.integers(-3, 4, (4, 16)).astype(np.float32)
 
 
+# A worker dumps its stack and exits after this many seconds; the test
+# waits a little longer for both.
+WORKER_LIMIT_S = 240
+TEST_LIMIT_S = WORKER_LIMIT_S + 60
+
 WORKER = textwrap.dedent(
     """
+    import faulthandler
     import sys
+    faulthandler.dump_traceback_later(int(sys.argv[4]), exit=True)
+
+    def step(name):
+        print("step", name, flush=True)
+
+    step("import")
     import numpy as np
+    import torch
+    torch.set_num_threads(1)
     from innr_tpu_torch import config
     config.set_default_device("cpu")
     from innr_tpu_torch.parallel import default_mesh, multihost
@@ -55,8 +77,10 @@ WORKER = textwrap.dedent(
     pid, rdv = int(sys.argv[1]), sys.argv[2]
     data = np.load(sys.argv[3])
     rows, qs = data["rows"], data["qs"]
+    step("rendezvous")
     multihost.initialize(f"file://{rdv}", 2, pid)
     assert multihost.is_multiprocess()
+    step("corpus")
     local = rows[:70] if pid == 0 else rows[70:]  # unequal blocks
     c = multihost.corpus_from_process_local_rows(local, n_total=130,
                                                  mesh=default_mesh(["cpu"] * 4))
@@ -64,37 +88,52 @@ WORKER = textwrap.dedent(
     out = {}
     for name in ("knn_dot", "knn_l2", "knn_cosine"):
         for k in (1, 9, 130):
+            step(f"search {name}{k}")
             v, i = getattr(c, name)(qs, k)
             out[f"{name}{k}"] = (v.numpy(), i.numpy())
+    step("search filtered")
     mask = np.arange(130) % 3 == 0
     v, i = c.knn_filtered(qs, 12, mask)
     out["filtered"] = (v.numpy(), i.numpy())
+    step("search prune")
     v, i = c.knn_dot(qs[0], 5, prune=True)
     out["prune"] = (v.numpy(), i.numpy())
+    step("save")
     np.save(f"{rdv}.{pid}.npy", np.array(out, dtype=object), allow_pickle=True)
-    print("WORKER OK", pid)
+    print("WORKER OK", pid, flush=True)
     """
 )
+
+
+def _run_workers(rdv, data):
+    """Both workers' (return code, output); a worker still running at the
+    test's limit is killed and reported with its output so far."""
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", WORKER, str(pid), str(rdv), str(data), str(WORKER_LIMIT_S)],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for pid in (0, 1)]
+    deadline = time.monotonic() + TEST_LIMIT_S
+    results = []
+    for p in procs:
+        try:
+            out = p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0]
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out = p.communicate()[0] + f"\n[killed after {TEST_LIMIT_S} s]"
+        results.append((p.returncode, out))
+    return results
 
 
 def test_two_gloo_processes_equal_one_process(tmp_path):
     rdv = tmp_path / "rdv"
     rows, qs = corpus()
     np.savez(tmp_path / "data.npz", rows=rows, qs=qs)
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", WORKER, str(pid), str(rdv), str(tmp_path / "data.npz")],
-        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for pid in (0, 1)]
-    outs = []
-    for p in procs:
-        try:
-            outs.append(p.communicate(timeout=120)[0])
-        except subprocess.TimeoutExpired:
-            for q in procs:
-                q.kill()
-            pytest.fail("a gloo worker did not finish within 120 s")
-    for p, out in zip(procs, outs):
-        assert p.returncode == 0, out[-3000:]
+    results = _run_workers(rdv, tmp_path / "data.npz")
+    if any(rc != 0 for rc, _ in results):
+        pytest.fail("a gloo worker failed; the last step it printed is where:\n" + "\n".join(
+            f"--- rank {pid}, return code {rc}:\n{out[-3000:]}"
+            for pid, (rc, out) in enumerate(results)))
     one = tp.ShardedCorpus(rows, tp.default_mesh(["cpu"] * 8))
     want = {f"{n}{k}": getattr(one, n)(qs, k) for n in ("knn_dot", "knn_l2", "knn_cosine")
             for k in (1, 9, 130)}
@@ -105,7 +144,7 @@ def test_two_gloo_processes_equal_one_process(tmp_path):
         for key, (v, i) in want.items():
             np.testing.assert_array_equal(got[key][1], i.numpy(), err_msg=f"{key} rank {pid}")
             np.testing.assert_array_equal(got[key][0].view(np.int32),
-                                          v.numpy().view(np.int32), err_msg=key)
+                                          v.numpy().view(np.int32), err_msg=f"{key} rank {pid}")
     jv, ji = jp.ShardedCorpus(rows).knn_l2(qs, 9)
     np.testing.assert_array_equal(got["knn_l29"][1], np.asarray(ji))
 
