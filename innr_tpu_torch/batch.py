@@ -22,6 +22,12 @@ results, reading only tiles that can hold a winner.
 ``batch_knn_adaptive`` is the exact pruned scan unless asked for the
 approximate warmup path. This package has no ``MIN_ROWS_PALLAS`` size
 gate: a corpus of any size takes these paths.
+
+While a profiler records (:mod:`innr_tpu_torch.utils.trace`), a
+``batch_knn`` / ``batch_knn_dot`` / ``batch_knn_cosine`` call is an
+``index.call`` span whose first child, ``index.to_device``, is the copy of
+its queries to the device and whose last, ``index.to_host``, the copy of
+its result to the host.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from innr_tpu_torch.config import NORM_EPSILON
 from innr_tpu_torch.kernels import knn as _kernels
 from innr_tpu_torch.kernels import pruned_knn as _pruned
 from innr_tpu_torch.prune import build_tile_summary, cluster_reorder, suggest_tile_n
+from innr_tpu_torch.utils import trace as _trace
 from innr_tpu_torch.utils.asserts import ContractError
 from innr_tpu_torch.utils.order import composite_keys, top_k_total, total_order_key_f32
 from innr_tpu_torch.utils.padding import round_up
@@ -354,10 +361,11 @@ def _empty_result(q) -> BatchKnnResult:
 def _result(q, vals, idx) -> BatchKnnResult:
     if q.dim() == 1:
         vals, idx = vals[0], idx[0]
-    return BatchKnnResult(
-        indices=idx.cpu().numpy().astype(np.int64),
-        scores=vals.cpu().numpy().astype(np.float32),
-    )
+    with _trace.span("index.to_host"):
+        return BatchKnnResult(
+            indices=idx.cpu().numpy().astype(np.int64),
+            scores=vals.cpu().numpy().astype(np.float32),
+        )
 
 
 def _queries(q) -> torch.Tensor:
@@ -368,33 +376,37 @@ def batch_knn(query, batch: VerticalBatch, k: int, prune: bool = False) -> Batch
     """Exact k nearest neighbors by squared L2 (reference ``src/batch.rs:385``).
     Scores ascending; k is capped at N. ``prune=True``: the tile-skipping
     scan, the same results reading only tiles that can hold a winner."""
-    q = _check_query(query, batch, "batch_knn", allow_multi=True)
-    if batch.num_vectors == 0 or k == 0:
-        return _empty_result(q)
-    k = min(int(k), batch.num_vectors)
-    if prune:
-        vals, idx = _pruned.fused_knn_l2_pruned_batch(
-            _queries(q), batch.rows, batch.tile_summary(), k, norms2=batch.norms2())
-    else:
-        vals, idx = _kernels.fused_knn_l2_batch(_queries(q), batch.rows, k,
-                                                norms2=batch.norms2())
-    return _result(q, vals, idx)
+    with _trace.span("index.call"):
+        with _trace.span("index.to_device"):
+            q = _check_query(query, batch, "batch_knn", allow_multi=True)
+        if batch.num_vectors == 0 or k == 0:
+            return _empty_result(q)
+        k = min(int(k), batch.num_vectors)
+        if prune:
+            vals, idx = _pruned.fused_knn_l2_pruned_batch(
+                _queries(q), batch.rows, batch.tile_summary(), k, norms2=batch.norms2())
+        else:
+            vals, idx = _kernels.fused_knn_l2_batch(_queries(q), batch.rows, k,
+                                                    norms2=batch.norms2())
+        return _result(q, vals, idx)
 
 
 def batch_knn_dot(query, batch: VerticalBatch, k: int, prune: bool = False) -> BatchKnnResult:
     """Top-k by dot product — MIPS (reference ``src/batch.rs:731``).
     Scores descending; NaN scores sort first. ``prune=True``: the
     tile-skipping scan (see :func:`batch_knn`)."""
-    q = _check_query(query, batch, "batch_knn_dot", allow_multi=True)
-    if batch.num_vectors == 0 or k == 0:
-        return _empty_result(q)
-    k = min(int(k), batch.num_vectors)
-    if prune:
-        vals, idx = _pruned.fused_knn_dot_pruned_batch(
-            _queries(q), batch.rows, batch.tile_summary(), k)
-    else:
-        vals, idx = _kernels.fused_knn_dot_batch(_queries(q), batch.rows, k)
-    return _result(q, vals, idx)
+    with _trace.span("index.call"):
+        with _trace.span("index.to_device"):
+            q = _check_query(query, batch, "batch_knn_dot", allow_multi=True)
+        if batch.num_vectors == 0 or k == 0:
+            return _empty_result(q)
+        k = min(int(k), batch.num_vectors)
+        if prune:
+            vals, idx = _pruned.fused_knn_dot_pruned_batch(
+                _queries(q), batch.rows, batch.tile_summary(), k)
+        else:
+            vals, idx = _kernels.fused_knn_dot_batch(_queries(q), batch.rows, k)
+        return _result(q, vals, idx)
 
 
 def batch_knn_cosine(query, batch: VerticalBatch, k: int, prune: bool = False) -> BatchKnnResult:
@@ -403,18 +415,20 @@ def batch_knn_cosine(query, batch: VerticalBatch, k: int, prune: bool = False) -
     NaN and sorts first (the JAX kernel paths' rule, ROADMAP R4).
     ``prune=True``: the tile-skipping scan over unit-row bounds (see
     :func:`batch_knn`)."""
-    q = _check_query(query, batch, "batch_knn_cosine", allow_multi=True)
-    if batch.num_vectors == 0 or k == 0:
-        return _empty_result(q)
-    k = min(int(k), batch.num_vectors)
-    if prune:
-        vals, idx = _pruned.fused_knn_cosine_pruned_batch(
-            _queries(q), batch.rows, batch.tile_summary(normalized=True), k,
-            inv=batch.inv_norms())
-    else:
-        vals, idx = _kernels.fused_knn_cosine_batch(
-            _queries(q), batch.rows, k, inv=batch.inv_norms())
-    return _result(q, vals, idx)
+    with _trace.span("index.call"):
+        with _trace.span("index.to_device"):
+            q = _check_query(query, batch, "batch_knn_cosine", allow_multi=True)
+        if batch.num_vectors == 0 or k == 0:
+            return _empty_result(q)
+        k = min(int(k), batch.num_vectors)
+        if prune:
+            vals, idx = _pruned.fused_knn_cosine_pruned_batch(
+                _queries(q), batch.rows, batch.tile_summary(normalized=True), k,
+                inv=batch.inv_norms())
+        else:
+            vals, idx = _kernels.fused_knn_cosine_batch(
+                _queries(q), batch.rows, k, inv=batch.inv_norms())
+        return _result(q, vals, idx)
 
 
 def batch_knn_filtered(query, batch: VerticalBatch, k: int, predicate) -> BatchKnnResult:

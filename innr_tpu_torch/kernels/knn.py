@@ -23,17 +23,23 @@ Dispatch: a CUDA tensor runs the kernel, or the call raises; a CPU tensor
 runs the plain version. :func:`innr_tpu_torch.config.force_reference` sends
 every tensor to the plain version. There is no size gate and no fallback.
 Both run through the same exclusion-bounded multi-pass driver for k above
-:func:`single_pass_k`.
+:func:`single_pass_k`. While a profiler records
+(:mod:`innr_tpu_torch.utils.trace`), each pass of
+:func:`fused_knn_keys_batch` is a ``dispatch.k1_pass`` span (``rows``,
+``n_q``; on the card ``rescored``, the pass's device counter of re-scored
+pairs, kept by reference: read it after the window).
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple
 
 import torch
 
 from innr_tpu_torch import config
+from innr_tpu_torch.utils import trace as _trace
 from innr_tpu_torch.utils.asserts import ContractError
 from innr_tpu_torch.utils.order import (
     canonical_nan,
@@ -88,6 +94,9 @@ LAUNCHES_BY_DTYPE = {"float32": 0, "bfloat16": 0, "uint8": 0}
 # The last tensor-core launch's (rows, queries, device counter of the
 # (row, query) pairs it re-scored exactly); read by rescore_stats().
 _LAST_RESCORED = None
+# The same counter of this thread's last launch, for its dispatch.k1_pass
+# span (another thread's launch may have replaced _LAST_RESCORED meanwhile).
+_THIS_THREAD = threading.local()
 # Queries whose norm is not below this (or not finite) get every pair
 # re-scored, and so do rows (csrc/knn.cu): the bound assumes no overflow.
 _REGULAR_NORM = 2.0**50
@@ -190,7 +199,10 @@ def rescore_stats():
     """``(rows, queries, pairs)`` of the last scan launch (any corpus
     dtype, full or tile scan): its corpus rows, its queries and the (row,
     query) pairs it re-scored exactly. Reads a device counter
-    (synchronises); None before any launch."""
+    (synchronises); None before any launch. For sums over many launches,
+    read the ``rescored`` counters of the ``dispatch.k1_pass`` spans
+    (:mod:`innr_tpu_torch.utils.trace`), which need no synchronisation
+    until they are read."""
     if _LAST_RESCORED is None:
         return None
     n, n_q, counter = _LAST_RESCORED
@@ -356,6 +368,7 @@ def shared_keys(n_q: int, n_ctas: int, dev) -> torch.Tensor:
 def _note_rescored(rows, n_q: int, counter) -> None:
     global _LAST_RESCORED
     _LAST_RESCORED = (rows.shape[0], n_q, counter)
+    _THIS_THREAD.rescored = counter
 
 
 def _scan_pass(qs, rows, vals, mask, k: int, mode: str, bound, row_ids=None) -> torch.Tensor:
@@ -406,11 +419,17 @@ def fused_knn_keys_batch(qs, rows, aux, k: int, mode: str, row_ids=None):
         run_pass = _scan_pass
     else:
         raise ContractError(f"innr_tpu_torch::knn: unsupported device {rows.device}")
-    comp = _multi_pass(
-        lambda pass_k, bound: run_pass(qs, rows, vals, mask, pass_k, mode, bound, row_ids),
-        k, single_pass_k(qs.shape[0]),
-    )
-    return split_composite(comp)
+    n, n_q = rows.shape[0], qs.shape[0]
+    on_card = run_pass is _scan_pass
+
+    def one_pass(pass_k, bound):
+        with _trace.span("dispatch.k1_pass", rows=n, n_q=n_q) as span:
+            comp = run_pass(qs, rows, vals, mask, pass_k, mode, bound, row_ids)
+            if on_card:
+                span.set(rescored=_THIS_THREAD.rescored)
+            return comp
+
+    return split_composite(_multi_pass(one_pass, k, single_pass_k(n_q)))
 
 
 def _chunked_top(keys_of, n: int, step: int, k: int, bound, dev) -> torch.Tensor:

@@ -28,6 +28,11 @@ keys INT32_MIN and can never beat an alive one, so ``min(k, alive rows)``
 candidates per segment are exact. Alive rows' scores are the unmasked
 scan's, bit for bit. Dead rows are still pinned in key space after the
 scan, as in the JAX package, as a guard.
+
+While a profiler records (:mod:`innr_tpu_torch.utils.trace`), a search is an
+``index.call`` span: ``index.to_device`` (the queries' copy to the device),
+one ``index.segment`` child per segment scanned, then ``index.merge`` and
+``index.to_host``, the one host copy.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from innr_tpu_torch import config
 from innr_tpu_torch.batch import VerticalBatch
 from innr_tpu_torch.kernels import knn as _knn
 from innr_tpu_torch.parallel._scan import decode_keys, local_scan_keys
+from innr_tpu_torch.utils import trace as _trace
 from innr_tpu_torch.utils.asserts import ContractError
 from innr_tpu_torch.utils.order import composite_keys, total_order_key_f32
 from innr_tpu_torch.utils.tensors import as_tensor
@@ -245,48 +251,53 @@ class SegmentedCorpus:
         _scan.local_scan_keys`), decoded and re-keyed on one key space, ids
         and tombstones gathered on the device, one composite top-k merge
         (best key first, then the lowest permanent id), one host copy."""
-        qs = as_tensor(queries, torch.float32, self._device)
-        single = qs.dim() == 1
-        if single:
-            qs = qs[None, :]
-        if qs.dim() != 2 or qs.shape[1] != self._dim:
-            raise ContractError(
-                f"innr_tpu_torch::{op}: queries must be (Q, {self._dim}), got "
-                f"{tuple(qs.shape)}")
-        qs = qs.contiguous()
-        n_q = int(qs.shape[0])
-        k = min(int(k), self.num_vectors)
-        if k <= 0:
-            scores, ids = np.zeros((n_q, 0), np.float32), np.zeros((n_q, 0), np.int64)
+        with _trace.span("index.call"):
+            with _trace.span("index.to_device"):
+                qs = as_tensor(queries, torch.float32, self._device)
+            single = qs.dim() == 1
+            if single:
+                qs = qs[None, :]
+            if qs.dim() != 2 or qs.shape[1] != self._dim:
+                raise ContractError(
+                    f"innr_tpu_torch::{op}: queries must be (Q, {self._dim}), got "
+                    f"{tuple(qs.shape)}")
+            qs = qs.contiguous()
+            n_q = int(qs.shape[0])
+            k = min(int(k), self.num_vectors)
+            if k <= 0:
+                scores, ids = np.zeros((n_q, 0), np.float32), np.zeros((n_q, 0), np.int64)
+                return (scores[0], ids[0]) if single else (scores, ids)
+            if mode == "cosine":
+                qs = _knn._unit_queries(qs)
+            per_keys, per_vals, per_gids = [], [], []
+            for seg in self._segments:
+                n_alive = seg.n_alive
+                if n_alive == 0:  # covers an empty segment too
+                    continue
+                n_seg = len(seg.ids)
+                with _trace.span("index.segment"):
+                    aux, scan_mode = seg.scan_args(mode)
+                    keys, lidx = local_scan_keys(qs, seg.vb.rows, aux, n_seg, min(k, n_alive),
+                                                 scan_mode)
+                    vals = decode_keys(keys, mode, qs)
+                    # One key space for every segment: the kernel's L2 keys lack
+                    # ||q||^2, so re-key from the decoded scores (larger is better).
+                    ukeys = total_order_key_f32(vals)
+                    if mode == "l2":
+                        ukeys = ~ukeys
+                    lidx = lidx.long()
+                    alive = seg.alive_dev()[lidx]
+                    per_keys.append(torch.where(alive, ukeys, _INT_MIN32))
+                    per_vals.append(vals)
+                    per_gids.append(torch.where(alive, seg.ids_dev()[lidx], _INT_MAX32))
+            with _trace.span("index.merge"):
+                scores, ids = _merge_candidates(torch.cat(per_keys, 1), torch.cat(per_vals, 1),
+                                                torch.cat(per_gids, 1), k)
+            with _trace.span("index.to_host"):
+                pair = torch.stack([scores.contiguous().view(torch.int32), ids]).cpu()
+            scores = pair[0].view(torch.float32).numpy()
+            ids = pair[1].numpy().astype(np.int64)
             return (scores[0], ids[0]) if single else (scores, ids)
-        if mode == "cosine":
-            qs = _knn._unit_queries(qs)
-        per_keys, per_vals, per_gids = [], [], []
-        for seg in self._segments:
-            n_alive = seg.n_alive
-            if n_alive == 0:  # covers an empty segment too
-                continue
-            aux, scan_mode = seg.scan_args(mode)
-            n_seg = len(seg.ids)
-            keys, lidx = local_scan_keys(qs, seg.vb.rows, aux, n_seg, min(k, n_alive),
-                                         scan_mode)
-            vals = decode_keys(keys, mode, qs)
-            # One key space for every segment: the kernel's L2 keys lack
-            # ||q||^2, so re-key from the decoded scores (larger is better).
-            ukeys = total_order_key_f32(vals)
-            if mode == "l2":
-                ukeys = ~ukeys
-            lidx = lidx.long()
-            alive = seg.alive_dev()[lidx]
-            per_keys.append(torch.where(alive, ukeys, _INT_MIN32))
-            per_vals.append(vals)
-            per_gids.append(torch.where(alive, seg.ids_dev()[lidx], _INT_MAX32))
-        scores, ids = _merge_candidates(torch.cat(per_keys, 1), torch.cat(per_vals, 1),
-                                        torch.cat(per_gids, 1), k)
-        pair = torch.stack([scores.contiguous().view(torch.int32), ids]).cpu()
-        scores = pair[0].view(torch.float32).numpy()
-        ids = pair[1].numpy().astype(np.int64)
-        return (scores[0], ids[0]) if single else (scores, ids)
 
     def knn_dot(self, queries, k: int):
         """Top-k MIPS over the alive rows: ``(scores descending, permanent

@@ -24,6 +24,13 @@ costs on the card is measured in ``chip_smoke.py`` (``PERF.md``).
 
 Results are numpy arrays; a backend that returns tensors has them copied to
 the host in one copy of the stacked (scores, indices) pair per window.
+
+While a profiler records (:mod:`innr_tpu_torch.utils.trace`), each window is
+a ``batcher.window`` span on its flush worker (``n`` requests, ``bucket``
+rows, the requests' ``submit_ns`` stamps), with the children
+``batcher.scan`` (the backend call) and ``batcher.deliver`` (the results
+handed out). Its parent is the span that was open where the window's first
+request was submitted.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from innr_tpu_torch.utils import trace as _trace
 from innr_tpu_torch.utils.asserts import ContractError
 
 __all__ = ["MicroBatcher", "BatcherStats"]
@@ -57,11 +65,13 @@ class BatcherStats:
 
 
 class _Request:
-    __slots__ = ("query", "future")
+    __slots__ = ("query", "future", "t_ns", "parent")
 
     def __init__(self, query):
         self.query = query
         self.future = Future()
+        self.t_ns = 0  # submitted at, on perf_counter_ns; stamped while tracing
+        self.parent = None  # the submitter's innermost open span
 
 
 def _bucket(n: int, max_batch: int) -> int:
@@ -159,6 +169,9 @@ class MicroBatcher:
         if q.ndim != 1:
             raise ContractError(f"MicroBatcher.search: query must be 1-D, got {q.shape}")
         req = _Request(q)
+        if _trace.on():
+            req.t_ns = time.perf_counter_ns()
+            req.parent = _trace.current_id()
         with self._lock:
             if self._closed:
                 raise ContractError("MicroBatcher: closed")
@@ -204,11 +217,18 @@ class MicroBatcher:
         try:
             n = len(window)
             bucket = _bucket(n, self.max_batch)
-            qs = np.stack([r.query for r in window]
-                          + [window[0].query] * (bucket - n))  # pad rows are dropped
-            vals, idx = self._normalize(self._scan(qs, self.k))
-            for i, r in enumerate(window):
-                r.future.set_result((vals[i], idx[i]))
+            with _trace.span("batcher.window", parent=window[0].parent, n=n,
+                             bucket=bucket) as span:
+                if _trace.on():
+                    span.set(submit_ns=[r.t_ns for r in window])
+                qs = np.stack([r.query for r in window]
+                              + [window[0].query] * (bucket - n))  # pad rows are dropped
+                with _trace.span("batcher.scan"):
+                    res = self._scan(qs, self.k)
+                with _trace.span("batcher.deliver"):
+                    vals, idx = self._normalize(res)
+                    for i, r in enumerate(window):
+                        r.future.set_result((vals[i], idx[i]))
             with self._lock:
                 self.stats.requests += n
                 self.stats.launches += 1
