@@ -55,6 +55,14 @@ and imports nothing of JAX. Phases:
                 six modes, D in {1, 127, 128, 768}, Q in {1, 5, 32, 67},
                 k in {1, 10, cap + 3}, and 1M rows at D = 128 (u8: 768);
                 with the re-scored pairs per query;
+              - K1's wide schedule (f32, many queries) on the same exact
+                inputs (odd-integer rows with near ties, then the 3xTF32
+                residue queries), held to it by the planner's override:
+                D in {32, 64, 96}, Q in {256, 1000}, six modes, k in
+                {1, 10, 12}; then 10M rows at D = 64 and 96, Q = 10,000
+                (dot and l2m on integer queries, dot on residue queries,
+                k = 10): bit for bit the plain version's (taken 64 queries
+                at a time) and the tile schedule's;
               - the nearest-centroid pass, f32 / bf16 / u8 rows, D in
                 {7, 128, 300}, KC in {1, 3, 256, 2049, 16896}, with exact
                 ties and an all-NaN row; and its tensor-core shortlist on
@@ -164,7 +172,12 @@ and imports nothing of JAX. Phases:
               read_ms / kernel_ms; share = bound / kernel) for f32 10M x
               128, bf16 20M x 128 and u8 1M x 768 (Q=32, k=10) with the
               pairs K1 re-scored, f32 and u8 at Q=1, and u8 4M x 768 at
-              Q=32 and Q=1; for each packed kernel at the sizes
+              Q=32 and Q=1; K1 over 10M unit f32 rows at D = 96 and 128,
+              Q in {256, 1000, 10,000}, k = 10, dot: the planner's
+              schedule within the tolerance of 3a of the plain version (64
+              queries at a time), the wide schedule (D = 96: at D = 128 it
+              has no layout) bit for bit the tile one's, each schedule's
+              kernel ms beside the bound; for each packed kernel at the sizes
               of 3b (with word scores per ms), and the packed scan at
               TwoStageIndex's coarse shape (1M rows, Q=32, k=256, equal to
               the plain version first); the host time of one
@@ -987,6 +1000,115 @@ def phase_exact_tc(dev) -> int:
     return checks
 
 
+def _plain_chunked(qs, rows, aux, k: int, mode: str, chunk: int = 64):
+    """knn_plain over ``chunk`` queries at a time (its (Q, N) scores do not
+    fit at many queries over a large corpus)."""
+    import torch
+
+    from innr_tpu_torch.kernels import knn as tk
+
+    parts = [tk.knn_plain(qs[s:s + chunk], rows, aux, k, mode)
+             for s in range(0, qs.shape[0], chunk)]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def _scheduled(path: str, *args, **kwargs):
+    """fused_knn_keys_batch with K1's planner held to ``path`` ("wide" or
+    "tile"); every pass must have taken it."""
+    from innr_tpu_torch.kernels import knn as tk
+
+    planner, before = tk.scan_path, dict(tk.LAUNCHES_BY_PATH)
+    tk.scan_path = lambda *a: path
+    try:
+        got = tk.fused_knn_keys_batch(*args, **kwargs)
+    finally:
+        tk.scan_path = planner
+    other = "tile" if path == "wide" else "wide"
+    if (tk.LAUNCHES_BY_PATH[path] == before[path]
+            or tk.LAUNCHES_BY_PATH[other] != before[other]):
+        raise AssertionError(f"{path} schedule not taken: {before} -> {tk.LAUNCHES_BY_PATH}")
+    return got
+
+
+def phase_exact_wide(dev) -> int:
+    """K1's wide schedule on phase_exact_tc's exact inputs, against the plain
+    version bit for bit: f32 rows of odd integers in [2049, 4095] with
+    duplicates and rows one odd integer apart planted, integer queries in
+    [-8, 8]; then queries with two nonzero dimensions of odd values
+    2049-2055 (their 3xTF32 products drop x_lo q_lo) against odd integers up
+    to 4033. D in {32, 64, 96}, Q in {256, 1000}, six modes, k in {1, 10,
+    12} (12: the largest its layout takes at D = 96); then 10M rows at D =
+    64 and 96 and Q = 10,000, k = 10, also against the tile schedule. Logs
+    the re-scored pairs per query."""
+    import torch
+
+    from innr_tpu_torch.kernels import knn as tk
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    checks = 0
+
+    def corpus(n, d, hi=2048):
+        rows = (2 * torch.randint(1024, hi, (n, d), generator=gen, device=dev) + 1).float()
+        src = torch.randint(0, n // 2, (64,), generator=gen, device=dev)
+        rows[n // 2:n // 2 + 32] = rows[src[:32]]
+        near = rows[src[32:]].clone()
+        near[:, 0] += 2.0
+        rows[n // 2 + 32:n // 2 + 64] = near
+        norms2, inv = tk._norms2(rows), tk.inv_norms(rows)
+        mask = (torch.rand(n, generator=gen, device=dev) < 0.5).float()
+        return rows, {"dot": None, "l2": norms2, "cosine": inv, "dotm": mask,
+                      "l2m": torch.stack([norms2, mask]), "cosinem": torch.stack([inv, mask])}
+
+    def residue_queries(n_q, d):
+        qs = torch.zeros((n_q, d), device=dev)
+        for _ in range(2):
+            col = torch.randint(0, d, (n_q,), generator=gen, device=dev)
+            val = 2049 + 2 * torch.randint(0, 4, (n_q,), generator=gen, device=dev)
+            sign = torch.where(torch.rand(n_q, generator=gen, device=dev) < 0.5, -1, 1)
+            qs[torch.arange(n_q, device=dev), col] = (sign * val).float()
+        return qs
+
+    def check(name, qs, rows, aux, k, mode, tile=False):
+        nonlocal checks
+        got = _scheduled("wide", qs, rows, aux, k, mode)
+        if mode == "dot" and k == 10:
+            rows_n, q_n, pairs = tk.rescore_stats()
+            log(f"[exact] {name}: re-scored {pairs} pairs, {pairs / q_n!r} per query "
+                f"({rows_n} rows)")
+        expect_equal(name, got, _plain_chunked(qs, rows, aux, k, mode))
+        checks += 1
+        if tile:
+            expect_equal(name + " tile schedule", got, _scheduled("tile", qs, rows, aux, k, mode))
+            checks += 1
+
+    for d in (32, 64, 96):
+        rows, aux_by_mode = corpus(3 * 1024 + 77, d)
+        res_rows, res_aux = corpus(3 * 1024 + 77, d, hi=2017)
+        for n_q in (256, 1000):
+            qs = torch.randint(-8, 9, (n_q, d), generator=gen, device=dev).float()
+            res_qs = residue_queries(n_q, d)
+            for mode in aux_by_mode:
+                for k in (1, 10, 12):
+                    check(f"exact wide near ties d={d} q={n_q} {mode} k={k}",
+                          qs, rows, aux_by_mode[mode], k, mode)
+                    check(f"exact wide 3xTF32 residue d={d} q={n_q} {mode} k={k}",
+                          res_qs, res_rows, res_aux[mode], k, mode)
+        del rows, aux_by_mode, res_rows, res_aux
+    for d in (64, 96):
+        rows, aux_by_mode = corpus(10_000_000, d)
+        qs = torch.randint(-8, 9, (10_000, d), generator=gen, device=dev).float()
+        for mode in ("dot", "l2m"):
+            check(f"exact wide near ties n=10M d={d} q=10000 {mode} k=10",
+                  qs, rows, aux_by_mode[mode], 10, mode, tile=True)
+        check(f"exact wide 3xTF32 residue n=10M d={d} q=10000 dot k=10",
+              residue_queries(10_000, d), rows, None, 10, "dot", tile=True)
+        del rows, aux_by_mode
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    log(f"[exact] {checks} wide-schedule kNN checks agree bit for bit")
+    return checks
+
+
 def unsigned_sort(x, dim: int):
     """Sort int32 views of uint32 values as unsigned: ``(values, order)``
     (a signed sort would put ids >= 2**31 and the sentinel first)."""
@@ -1385,7 +1507,7 @@ def _time_knn(rows, qs) -> tuple:
     log(f"[timing] {str(rows.dtype).removeprefix('torch.')} {n} x {d}, Q={n_q}, k=10: kernel "
         f"{kernel!r} ms, plain {plain!r} ms, same-bytes read {read!r} ms, share (bound/kernel) "
         f"{b[0] / kernel!r}, roofline fraction (read/kernel) {read / kernel!r}, "
-        f"{bound_text(b)}{note}, query tile {tk._grid(rows, n_q, 10)[0]}")
+        f"{bound_text(b)}{note}, query tile {tk._grid(rows, n_q, 10, tk.scan_path(rows, n_q, 10))[0]}")
     return (kernel, plain, read), b
 
 
@@ -1411,6 +1533,45 @@ def phase_timing(corpora: dict, bounds: dict) -> dict:
     del big
     torch.cuda.empty_cache()
     return out
+
+
+def phase_wide(dev) -> None:
+    """K1 over 10M unit f32 rows (D = 96, 128), Q in {256, 1000, 10,000}, k
+    = 10, dot: the planner's schedule's scores and indices within phase
+    3a's tolerance of the plain version (64 queries at a time); where the
+    wide schedule has a layout (D = 96), its keys bit for bit the tile
+    schedule's; each schedule's kernel ms (median of 3) beside K1's bound
+    (its re-scores: the planner's schedule's)."""
+    import torch
+
+    from innr_tpu_torch.kernels import knn as tk
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    for d in (96, 128):
+        rows = torch.randn((10_000_000, d), generator=gen, device=dev)
+        rows /= torch.linalg.vector_norm(rows, dim=1, keepdim=True)
+        for n_q in (256, 1000, 10_000):
+            qs = torch.randn((n_q, d), generator=gen, device=dev)
+            qs /= torch.linalg.vector_norm(qs, dim=1, keepdim=True)
+            planned = tk.scan_path(rows, n_q, 10)
+            name = f"K1 f32 unit rows 10M x {d}, Q={n_q}, dot, k=10 ({planned} schedule)"
+            got = _scheduled(planned, qs, rows, None, 10, "dot")
+            pk, pi = _plain_chunked(qs, rows, None, 11, "dot")
+            err = check_close(name, scores_from_keys(got[0], "dot"), got[1],
+                              scores_from_keys(pk, "dot"), pi,
+                              _tol_dot(qs, rows, chunk=(1 << 30) // n_q))
+            paths = ("tile", "wide") if tk._grid(rows, n_q, 10, "wide")[0] else ("tile",)
+            if "wide" in paths:
+                expect_equal(name + ": wide vs tile schedule", _scheduled("wide", qs, rows, None,
+                                                                          10, "dot"),
+                             _scheduled("tile", qs, rows, None, 10, "dot"))
+            ms = {path: _median_ms(lambda p=path: _scheduled(p, qs, rows, None, 10, "dot"), 3)
+                  for path in sorted(paths, key=lambda p: p == planned)}
+            b, note = _knn_bound(rows, n_q, 10)  # the planner's schedule ran last
+            log(f"[timing] {name}: kernel {ms!r} ms, {bound_text(b)}, share (bound/kernel) "
+                f"{b[0] / ms[planned]!r}{note}; max score err vs plain {err!r}")
+        del rows
+        torch.cuda.empty_cache()
 
 
 def _knn_bound(rows, n_q: int, k: int, read_rows: int | None = None) -> tuple:
@@ -3579,6 +3740,7 @@ def main() -> int:
     phase_exact_packed(dev)
     phase_exact_pruned(dev)
     phase_exact_tc(dev)
+    phase_exact_wide(dev)
     phase_exact_slot_sparse(dev)
     phase_exact_maxsim(dev)
     corpora, errs, bounds = {}, {}, {}
@@ -3588,6 +3750,7 @@ def main() -> int:
     times = {f"knn_scan+knn_merge<{name}>": t
              for name, t in phase_timing(corpora, bounds).items()}
     full_ms = times["knn_scan+knn_merge<float32>"][0]
+    phase_wide(dev)
     gauss_launches, _ = phase_gaussian_prune(dev, corpora, full_ms)
     corpora.clear()
     torch.cuda.empty_cache()

@@ -2,8 +2,9 @@
 // TF32, maxsim_bf16.cu: bf16, knn.cu: both): the K-major shared-memory
 // layout and its descriptors, wgmma m64n64 with both operands in shared
 // memory and m64nN (N = 8, 16, 32, 64) with A in registers, f32
-// accumulators, the fences and group waits around it, and the cp.async
-// copies that fill a staging ring.
+// accumulators, the fences and group waits around it, the cp.async copies
+// that fill a staging ring, and the barriers and bulk copies of a ring that a
+// producer warp fills.
 //
 // Layout. A tile of `rows` x kp values (kp a multiple of the instruction's
 // depth) is stored K-major without swizzle, in 16-byte column chunks: chunk
@@ -203,6 +204,63 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A shared-memory ring's barriers (mbarrier, CTA scope) and the bulk copy
+// that fills a stage: one thread asks for `bytes` contiguous bytes (a
+// multiple of 16, both addresses 16-byte aligned), and the copy counts them
+// off the stage's barrier, whose phase completes when the bytes are in and
+// its arrivals made. Parity: a wait on parity p returns once the phase of
+// that parity has completed (a fresh barrier counts the phase before the
+// first, parity 1, as completed).
+__device__ __forceinline__ void mbar_init(uint32_t bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, unsigned bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// A warpgroup's registers per thread, raised or lowered to N (a multiple of
+// 8 in 24..256; all 128 threads execute it), so that consumer warpgroups can
+// take what a producer warpgroup gives up.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// A barrier of the `threads` threads (whole warps) that name it; id 1..15
+// (0 is __syncthreads).
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 }  // namespace

@@ -122,10 +122,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     f32 = ctypes.c_float
     lib.innr_knn_scan.argtypes = [
         ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, f32, f32, ptr, ptr, ptr, i32, i64, i32, i32,
-        i32, i32, ptr,
+        i32, i32, i32, ptr,
     ]
     lib.innr_knn_scan.restype = i32
-    lib.innr_knn_grid.argtypes = [i32, i32, i32, i32, ptr]
+    lib.innr_knn_grid.argtypes = [i32, i32, i32, i32, i32, ptr]
     lib.innr_knn_grid.restype = i32
     lib.innr_knn_merge.argtypes = [ptr, ptr, i32, i32, i32, ptr]
     lib.innr_knn_merge.restype = i32

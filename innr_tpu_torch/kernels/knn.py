@@ -23,11 +23,16 @@ Dispatch: a CUDA tensor runs the kernel, or the call raises; a CPU tensor
 runs the plain version. :func:`innr_tpu_torch.config.force_reference` sends
 every tensor to the plain version. There is no size gate and no fallback.
 Both run through the same exclusion-bounded multi-pass driver for k above
-:func:`single_pass_k`. While a profiler records
-(:mod:`innr_tpu_torch.utils.trace`), each pass of
+:func:`single_pass_k`. On the card a pass takes one of two schedules of the
+same scan (:func:`scan_path`, from Q, D, k and the corpus dtype): ``"tile"``,
+a grid of slabs x query tiles, one warpgroup a CTA; or ``"wide"``, for f32
+corpora at many queries, persistent CTAs whose producer warpgroup fills a
+shared-memory ring of row tiles for two consumer warpgroups. While a
+profiler records (:mod:`innr_tpu_torch.utils.trace`), each pass of
 :func:`fused_knn_keys_batch` is a ``dispatch.k1_pass`` span (``rows``,
-``n_q``; on the card ``rescored``, the pass's device counter of re-scored
-pairs, kept by reference: read it after the window).
+``n_q``; on the card ``path``, the pass's schedule, and ``rescored``, its
+device counter of re-scored pairs, kept by reference: read it after the
+window).
 """
 
 from __future__ import annotations
@@ -71,6 +76,15 @@ _ROW_TILE = 128
 _RESIDENT_CTAS = 2
 _MAX_WAVES = 4
 _SLAB_ROWS_PER_K = 256
+# The wide schedule (csrc/knn.cu, its source note has the crossover's
+# measurements) from this many queries on, wherever the library has a
+# layout for it (innr_knn_grid: f32, D <= 96, D % 4 == 0, two 64-query
+# warpgroups fitting at this k). Its grid is every resident CTA of the
+# card; each CTA walks items of (query tile pair, slab), at least
+# _WIDE_ITEMS_PER_CTA of them and the same count for every CTA, so no SM
+# carries a partial extra wave.
+_WIDE_MIN_QUERIES = 256
+_WIDE_ITEMS_PER_CTA = 8
 
 # mode -> (score: 0 dot, 1 l2, 2 cosine; has a row predicate)
 _MODES = {
@@ -91,11 +105,14 @@ _MAX_ROWS = 2**31 - 1
 # all and by corpus dtype. Incremented only where the kernels launch.
 LAUNCHES = 0
 LAUNCHES_BY_DTYPE = {"float32": 0, "bfloat16": 0, "uint8": 0}
+# ... and by schedule (scan_path).
+LAUNCHES_BY_PATH = {"wide": 0, "tile": 0}
 # The last tensor-core launch's (rows, queries, device counter of the
 # (row, query) pairs it re-scored exactly); read by rescore_stats().
 _LAST_RESCORED = None
-# The same counter of this thread's last launch, for its dispatch.k1_pass
-# span (another thread's launch may have replaced _LAST_RESCORED meanwhile).
+# The same counter and the schedule of this thread's last launch, for its
+# dispatch.k1_pass span (another thread's launch may have replaced
+# _LAST_RESCORED meanwhile).
 _THIS_THREAD = threading.local()
 # Queries whose norm is not below this (or not finite) get every pair
 # re-scored, and so do rows (csrc/knn.cu): the bound assumes no overflow.
@@ -212,6 +229,16 @@ def rescore_stats():
 def single_pass_k(n_q: int) -> int:
     """Largest k one kernel pass selects (for any query count)."""
     return _K_MAX_PASS
+
+
+def scan_path(rows, n_q: int, k: int) -> str:
+    """The scan's schedule on the card for ``n_q`` queries and k per pass
+    over ``rows``: ``"wide"`` from ``_WIDE_MIN_QUERIES`` queries where the
+    library plans a wide layout at this dtype, D and k, else ``"tile"``.
+    Both compute the same composites."""
+    if n_q < _WIDE_MIN_QUERIES:
+        return "tile"
+    return "wide" if _grid(rows, n_q, k, "wide")[0] else "tile"
 
 
 def _split_aux(aux, mode: str, n: int):
@@ -333,16 +360,29 @@ def _slab_rows(n: int, q_tiles: int, k: int, device, row_tile: int,
     return round_up(-(-n // (wave * waves)), row_tile)
 
 
-def _grid(rows, n_q: int, k: int) -> tuple[int, int]:
-    """(queries per CTA, CTAs resident per SM) of the scan at this shape,
-    as the library plans its launch."""
+def _wide_slab_rows(n: int, q_tiles: int, n_ctas: int) -> int:
+    """Corpus rows per slab of the wide schedule over ``q_tiles`` query
+    tiles (two warpgroups' queries each) on a grid of ``n_ctas`` CTAs: the
+    grid walks q_tiles x n_slabs items, and n_slabs = n_ctas x
+    ceil(_WIDE_ITEMS_PER_CTA / q_tiles) deals every CTA the same count of
+    items, at least _WIDE_ITEMS_PER_CTA, or one fewer where rounding the
+    slabs up to whole row tiles leaves a last few out (fewer items in all
+    where N holds fewer row tiles)."""
+    n_slabs = n_ctas * -(-_WIDE_ITEMS_PER_CTA // q_tiles)
+    return round_up(-(-n // n_slabs), _ROW_TILE)
+
+
+def _grid(rows, n_q: int, k: int, path: str) -> tuple[int, int]:
+    """(queries per CTA, CTAs resident per SM) of the scan at this shape on
+    the schedule ``path``, as the library plans its launch."""
     from innr_tpu_torch.kernels import _build
 
-    key = (rows.dtype, n_q, rows.shape[1], k, rows.device)
+    key = (rows.dtype, n_q, rows.shape[1], k, path, rows.device)
     if key not in _GRIDS:
         info = (ctypes.c_int * 2)()
         with torch.cuda.device(rows.device):
-            rc = _build.load().innr_knn_grid(_DTYPES[rows.dtype], n_q, rows.shape[1], k, info)
+            rc = _build.load().innr_knn_grid(_DTYPES[rows.dtype], n_q, rows.shape[1], k,
+                                             int(path == "wide"), info)
         if rc != 0:
             raise RuntimeError(f"innr_tpu_torch: knn_grid failed, cudaError {rc}")
         _GRIDS[key] = (info[0], max(1, info[1]))
@@ -358,11 +398,12 @@ def _gate_terms(qs, rows, mode: str):
     return qmeta, m.abs, m.aux, torch.empty(1, dtype=torch.int64, device=rows.device)
 
 
-def shared_keys(n_q: int, n_ctas: int, dev) -> torch.Tensor:
+def shared_keys(n_q: int, n_slabs: int, dev) -> torch.Tensor:
     """Space for the scan's shared keys, which the launch sets to INT32_MIN:
-    (Q * (1 + n_ctas),) int32, per query a key k rows reach, then each
-    query's row of the keys its n_ctas CTAs publish (csrc/knn.cu)."""
-    return torch.empty((n_q * (1 + n_ctas),), dtype=torch.int32, device=dev)
+    (Q * (1 + n_slabs),) int32, per query a key k rows reach, then each
+    query's row of the keys its n_slabs slabs publish (csrc/knn.cu; the tile
+    scan of a tile list publishes one key per CTA)."""
+    return torch.empty((n_q * (1 + n_slabs),), dtype=torch.int32, device=dev)
 
 
 def _note_rescored(rows, n_q: int, counter) -> None:
@@ -379,7 +420,17 @@ def _scan_pass(qs, rows, vals, mask, k: int, mode: str, bound, row_ids=None) -> 
     lib = _build.load()
     n_q, d = qs.shape
     n = rows.shape[0]
-    q_tile, resident = _grid(rows, n_q, k)
+    path = scan_path(rows, n_q, k)
+    if path == "wide" and (rows.data_ptr() % 16 or qs.data_ptr() % 16):
+        path = "tile"  # the ring's bulk copies read 16-byte aligned rows
+    q_tile, resident = _grid(rows, n_q, k, path)
+    q_tiles = -(-n_q // q_tile)
+    n_ctas = 0  # the tile schedule's grid is n_slabs x q_tiles
+    if path == "wide":  # every resident CTA of the card, persistent
+        n_ctas = resident * torch.cuda.get_device_properties(rows.device).multi_processor_count
+        slab_rows = _wide_slab_rows(n, q_tiles, n_ctas)
+    else:
+        slab_rows = _slab_rows(n, q_tiles, k, rows.device, _ROW_TILE, resident, 1)
     with torch.cuda.device(rows.device):
         qmeta, m_abs, m_aux, counter = _gate_terms(qs, rows, mode)
 
@@ -388,14 +439,14 @@ def _scan_pass(qs, rows, vals, mask, k: int, mode: str, bound, row_ids=None) -> 
         return lib.innr_knn_scan(
             qs.data_ptr(), rows.data_ptr(), _DTYPES[rows.dtype], _ptr(vals), _ptr(mask),
             _ptr(bound), _ptr(row_ids), _ptr(qmeta), m_abs, m_aux, _ptr(counter), kth.data_ptr(), partial, n_q,
-            n, d, k, _MODES[mode][0], slab_rows, stream)
+            n, d, k, _MODES[mode][0], slab_rows, n_ctas, stream)
 
-    out = _scan_and_merge(
-        "knn_scan", scan,
-        n_q, n, k, q_tile, _ROW_TILE, rows.device, resident, 1)
+    out = _scan_and_merge("knn_scan", scan, n_q, n, k, slab_rows, rows.device)
     _note_rescored(rows, n_q, counter)
+    _THIS_THREAD.path = path
     LAUNCHES += 1
     LAUNCHES_BY_DTYPE[str(rows.dtype).removeprefix("torch.")] += 1
+    LAUNCHES_BY_PATH[path] += 1
     return out
 
 
@@ -426,7 +477,7 @@ def fused_knn_keys_batch(qs, rows, aux, k: int, mode: str, row_ids=None):
         with _trace.span("dispatch.k1_pass", rows=n, n_q=n_q) as span:
             comp = run_pass(qs, rows, vals, mask, pass_k, mode, bound, row_ids)
             if on_card:
-                span.set(rescored=_THIS_THREAD.rescored)
+                span.set(rescored=_THIS_THREAD.rescored, path=_THIS_THREAD.path)
             return comp
 
     return split_composite(_multi_pass(one_pass, k, single_pass_k(n_q)))
@@ -450,16 +501,15 @@ def _chunked_top(keys_of, n: int, step: int, k: int, bound, dev) -> torch.Tensor
     return best
 
 
-def _scan_and_merge(name: str, scan, n_q: int, n: int, k: int, q_tile: int, row_tile: int,
-                    dev, resident: int = _RESIDENT_CTAS,
-                    max_waves: int = _MAX_WAVES) -> torch.Tensor:
+def _scan_and_merge(name: str, scan, n_q: int, n: int, k: int, slab_rows: int,
+                    dev) -> torch.Tensor:
     """One kernel pass of a slab scan, then knn_merge: (Q, k) int64
     composites. ``scan(partial_ptr, slab_rows, stream)`` launches the scan
-    into partial (n_slabs, Q, k) and returns its launcher's cudaError."""
+    into partial (n_slabs, Q, k), n_slabs = ceil(n / slab_rows), and returns
+    its launcher's cudaError."""
     from innr_tpu_torch.kernels import _build
 
     lib = _build.load()
-    slab_rows = _slab_rows(n, -(-n_q // q_tile), k, dev, row_tile, resident, max_waves)
     n_slabs = -(-n // slab_rows)
     with torch.cuda.device(dev):
         partial = torch.empty((n_slabs, n_q, k), dtype=torch.int64, device=dev)

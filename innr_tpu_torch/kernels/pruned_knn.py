@@ -164,7 +164,7 @@ def _scan_tiles(qs, rows, vals, mask, order, n_surv, tile_n, k, mode, bound, row
     # list each, whatever the plan keeps.
     chunks = n_tiles * -(-int(tile_n) // _SCAN_CHUNK_ROWS)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    q_tile, resident = _knn._grid(rows, n_q, k)
+    q_tile, resident = _knn._grid(rows, n_q, k, "tile")
     wave = max(1, sms * resident // -(-n_q // q_tile))
     n_ctas = min(wave, chunks)
     with torch.cuda.device(dev):

@@ -301,7 +301,8 @@ def _scan_pass(queries, slots_t, k: int, bound) -> torch.Tensor:
         lambda partial, slab_rows, stream: lib.innr_slot_scan(
             bits, MODES[mode][0], queries.data_ptr(), slots_t.data_ptr(), _knn._ptr(bound),
             partial, n_q, n, s, k, tile, slab_rows, stream),
-        n_q, n, k, tile, row_tile(bits, mode), slots_t.device)
+        n_q, n, k, _knn._slab_rows(n, -(-n_q // tile), k, slots_t.device, row_tile(bits, mode)),
+        slots_t.device)
     LAUNCHES += 1
     LAUNCHES_BY_DTYPE[f"uint{bits}"] += 1
     LAUNCHES_BY_MODE[mode] += 1

@@ -217,7 +217,8 @@ def _scan_pass(q_idx, q_val, idx_t, val_t, k: int, bound) -> torch.Tensor:
             q_idx.data_ptr(), q_val.data_ptr(), idx_t.data_ptr(), val_t.data_ptr(),
             _knn._ptr(bound), _knn._ptr(table), 0 if table is None else table.numel(), partial,
             n_q, n, l, lq, hbits, k, tile, slab_rows, stream),
-        n_q, n, k, tile, row_scan.ROW_TILE, idx_t.device)
+        n_q, n, k, _knn._slab_rows(n, -(-n_q // tile), k, idx_t.device, row_scan.ROW_TILE),
+        idx_t.device)
     LAUNCHES += 1
     return out
 

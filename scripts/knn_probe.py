@@ -48,13 +48,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 
-KERNEL = "template <typename T, int NQ, bool kTiles>\n__global__"
+KERNEL = "// One warpgroup's shared memory (a TcLayout region from base) and its\n"
 STAGED = "  long long per_tile = 1, items = 0;\n"
 ITEM = "    const Cursor it = next;\n"
 MMA_DONE = "    if (it.ch != L.n_dch - 1) continue;\n"
 GATE_DONE = "    ++tile;\n"
-ROUNDS_DONE = "    // The gate's thresholds, by the warp that owns each query: a key that k\n"
-LOOP_DONE = "  for (int f = tid; f < NQ * k; f += kTcThreads) {\n"
+ROUNDS_DONE = "    __syncthreads();\n    if (total > 0) publish(w, p, q0, blockIdx.x, gridDim.x);\n"
+LOOP_DONE = "  write_partial(w, p, q0, blockIdx.x);\n"
 ADMIT = "__reduce_or_sync(0xFFFFFFFFu, admitted); regs != 0u;"
 MMA = ("#pragma unroll\n    for (int st = 0; st < kSteps; ++st)\n"
        "      Tc<T>::mma(acc, cur, st, kmajor_desc(b0 + st * 2 * NQ * 16, NQ),\n"
@@ -82,9 +82,9 @@ LD_HELPER = """__device__ __forceinline__ uint4 ld_rows(const void* p) {
 U8_CHUNK = ("  static constexpr int kChunk = 256;\n  static constexpr int kSteps = 16;  // m64nNk16\n"
             "  static constexpr int kVecs = 4;\n")
 U8_BLOCKS = "  static constexpr int kSplit = 2;   // q_hi, q_lo\n  static constexpr int kMinBlocks = 3;\n"
-BATCH = "      const int n_b = min(have, 32);\n"
-EXACT_DONE = "        if (cand >= bound[c]) cand = LLONG_MIN;\n      }\n"
-OFFER_DONE = "        warp_merge(best + c0 * k, k, in ? cand : LLONG_MIN, lane);\n      }\n"
+BATCH = "    const int n_b = min(have, 32);\n"
+EXACT_DONE = "      if (cand >= w.bound[c]) cand = LLONG_MIN;\n    }\n"
+OFFER_DONE = "      warp_merge(w.best + c0 * k, k, in ? cand : LLONG_MIN, lane);\n    }\n"
 PHASES = ("staging", "items", "gate", "rescore", "total", "exact", "offer")
 
 
@@ -104,15 +104,15 @@ def _clocks(src: str) -> str:
                 f"(unsigned long long)(clock64() - {since}));\n")
 
     s = _at(src, KERNEL, before="__device__ unsigned long long g_clocks[8];\n")
-    s = _at(s, "  extern __shared__ __align__(128) unsigned char smem[];\n  using Q",
+    s = _at(s, "  const Wg<T, NQ> w(smem, L, threadIdx.x, 0);\n",
             before="  const long long t_start = clock64();\n")
     s = _at(s, STAGED, before="  " + add(0, "t_start"))
     s = _at(s, ITEM, before="    long long t_item = clock64();\n")
     s = _at(s, MMA_DONE, before="    " + add(1, "t_item") + "    long long t_gate = clock64();\n")
     s = _at(s, GATE_DONE, before="    " + add(2, "t_gate") + "    long long t_rounds = clock64();\n")
-    s = _at(s, BATCH, before="      long long t_exact = clock64();\n")
-    s = _at(s, EXACT_DONE, after="      " + add(5, "t_exact") + "      long long t_offer = clock64();\n")
-    s = _at(s, OFFER_DONE, after="      " + add(6, "t_offer"))
+    s = _at(s, BATCH, before="    long long t_exact = clock64();\n")
+    s = _at(s, EXACT_DONE, after="    " + add(5, "t_exact") + "    long long t_offer = clock64();\n")
+    s = _at(s, OFFER_DONE, after="    " + add(6, "t_offer"))
     s = _at(s, ROUNDS_DONE, before="    " + add(3, "t_rounds"))
     s = _at(s, LOOP_DONE, before="  " + add(4, "t_start"))
     return s + """
@@ -171,9 +171,9 @@ def build(out: Path, names=None) -> dict:
             raise SystemExit(f"knn_probe: nvcc failed for {name}:\n{log}")
         lib = ctypes.CDLL(str(out / f"knn_{name}.so"))
         lib.innr_knn_scan.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, f32, f32, ptr, ptr,
-                                      ptr, i32, i64, i32, i32, i32, i32, ptr]
+                                      ptr, i32, i64, i32, i32, i32, i32, i32, ptr]
         lib.innr_knn_scan.restype = i32
-        lib.innr_knn_grid.argtypes = [i32, i32, i32, i32, ptr]
+        lib.innr_knn_grid.argtypes = [i32, i32, i32, i32, i32, ptr]
         lib.innr_knn_grid.restype = i32
         lib.innr_knn_merge.argtypes = [ptr, ptr, i32, i32, i32, ptr]
         lib.innr_knn_merge.restype = i32
@@ -208,7 +208,7 @@ def main() -> int:
         qmeta, m_abs, m_aux, counter = tk._gate_terms(q, rows, "dot")
         for name, lib in libs.items():
             info = (ctypes.c_int * 2)()
-            lib.innr_knn_grid(2, n_q, 768, k, info)
+            lib.innr_knn_grid(2, n_q, 768, k, 0, info)
             q_tile, resident = info[0], max(1, info[1])
             slab = tk._slab_rows(n, -(-n_q // q_tile), k, dev, tk._ROW_TILE, resident, 1)
             partial = torch.empty((-(-n // slab), n_q, k), dtype=torch.int64, device=dev)
@@ -219,7 +219,7 @@ def main() -> int:
                 rc = lib.innr_knn_scan(
                     q.data_ptr(), rows.data_ptr(), 2, None, None, None, None, qmeta.data_ptr(), m_abs,
                     m_aux, counter.data_ptr(), kth.data_ptr(), partial.data_ptr(), n_q, n, 768,
-                    k, 0, slab, torch.cuda.current_stream().cuda_stream)
+                    k, 0, slab, 0, torch.cuda.current_stream().cuda_stream)
                 if rc != 0:
                     raise RuntimeError(f"knn_probe: {name} launch failed, cudaError {rc}")
             if name == "clocks":

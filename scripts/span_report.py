@@ -22,7 +22,9 @@ result line does not carry:
   the first is slow, its traced runs place the spans that much early;
 - per span name in the window: the count, the median duration and the
   median self time (the duration less its children's), in ms; and the
-  dropped count.
+  dropped count;
+- the share of the window's K1 passes (``dispatch.k1_pass``) on each of
+  the scan's schedules (its ``path``: ``"wide"`` or ``"tile"``).
 
 Prints the result line's metrics and these as one JSON object, also
 written to ``OUT.json`` when given. Needs a CUDA card, as the benchmark.
@@ -103,6 +105,12 @@ def durations_ms(spans) -> dict:
             for name, v in sorted(by_name.items())}
 
 
+def path_shares(spans) -> dict:
+    """Share of the dispatch.k1_pass spans on each schedule (``path``)."""
+    paths = [s.attrs.get("path") for s in spans if s.name == "dispatch.k1_pass"]
+    return {p: paths.count(p) / len(paths) for p in sorted(set(paths), key=str)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python3 scripts/span_report.py",
                                  description=__doc__.split("\n")[0])
@@ -134,7 +142,8 @@ def main(argv=None) -> int:
         "metrics": {k: v["value"] for k, v in res["metrics"].items()},
         "idle_s": split, "idle_share": {k: v / window_s for k, v in split.items()},
         "offset_us": offsets_us(rec, spans, got["events"]),
-        "spans_ms": durations_ms(spans), "dropped": log.dropped(),
+        "spans_ms": durations_ms(spans), "k1_paths": path_shares(spans),
+        "dropped": log.dropped(),
     }
     text = json.dumps(report)
     if args.out:

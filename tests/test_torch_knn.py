@@ -326,11 +326,182 @@ class TestContracts:
                                     torch.ones(10, 4, device="meta"), None, 2, "dot")
 
 
+class _FakeLib:
+    """The library's K1 entry points as a stand-in that records each call:
+    the tile grid 64 queries x 2 CTAs an SM; the wide grid 1 CTA an SM of
+    two 64-query warpgroups, or none (0, 0) where the wide scan has no
+    layout (not f32, D above 96 or not a multiple of 4)."""
+
+    def __init__(self):
+        self.scans, self.grids = [], []
+
+    def innr_knn_grid(self, dtype, n_q, d, k, wide, info):
+        self.grids.append((dtype, n_q, d, k, wide))
+        if not wide:
+            info[0], info[1] = 64, 2
+        elif dtype != 0 or d > 96 or d % 4:
+            info[0], info[1] = 0, 0
+        else:
+            info[0], info[1] = 128, 1
+        return 0
+
+    def innr_knn_scan(self, *args):
+        self.scans.append(args)
+        return 0
+
+    def innr_knn_merge(self, *args):
+        return 0
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """_scan_pass on CPU tensors against _FakeLib on a card of 132 SMs;
+    records the shared keys' sizes it asks for."""
+    import contextlib
+    from types import SimpleNamespace
+
+    from innr_tpu_torch.kernels import _build
+
+    lib, keys = _FakeLib(), []
+    real_keys = tk.shared_keys
+
+    def shared_keys(n_q, n_slabs, dev):
+        keys.append((n_q, n_slabs))
+        return real_keys(n_q, n_slabs, dev)
+
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    monkeypatch.setattr(tk, "_GRIDS", {})
+    monkeypatch.setattr(tk, "shared_keys", shared_keys)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: SimpleNamespace(multi_processor_count=132))
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: SimpleNamespace(cuda_stream=0))
+    return lib, keys
+
+
+class TestWidePlanner:
+    """The planner's side of the two K1 schedules, on the CPU."""
+
+    @pytest.mark.parametrize("n_q,d,dtype,path", [
+        (tk._WIDE_MIN_QUERIES, 96, torch.float32, "wide"),
+        (10_000, 96, torch.float32, "wide"),
+        (10_000, 128, torch.float32, "tile"),  # no 64-query layout
+        (10_000, 4, torch.float32, "wide"),
+        (tk._WIDE_MIN_QUERIES - 1, 96, torch.float32, "tile"),
+        (32, 96, torch.float32, "tile"),
+        (10_000, 132, torch.float32, "tile"),  # the layout does not fit
+        (10_000, 98, torch.float32, "tile"),  # rows not in 16-byte vectors
+        (10_000, 96, torch.bfloat16, "tile"),
+        (10_000, 96, torch.uint8, "tile"),
+    ])
+    def test_path_by_queries_dim_and_dtype(self, fake_card, n_q, d, dtype, path):
+        """The path the planner takes where the library plans as the stand-in
+        does; below every crossover it does not ask the library."""
+        lib, _ = fake_card
+        assert tk.scan_path(torch.empty(0, d, dtype=dtype), n_q, 10) == path
+        assert bool(lib.grids) == (n_q >= tk._WIDE_MIN_QUERIES)
+
+    @pytest.mark.parametrize("has_layout", [False, True])
+    def test_path_follows_the_library_from_the_crossover(self, fake_card, monkeypatch,
+                                                         has_layout):
+        """Wide exactly where the library has a layout and Q reaches the
+        crossover; the library is asked once per shape."""
+        lib, _ = fake_card
+        asked = []
+
+        def grid(dtype, n_q, d, k, wide, info):
+            asked.append((n_q, k, wide))
+            info[0], info[1] = (128 * has_layout, 1) if wide else (64, 2)
+            return 0
+
+        monkeypatch.setattr(lib, "innr_knn_grid", grid)
+        rows = torch.empty(0, 96)
+        for n_q in (1, 64, 255, 256, 1000, 10_000, 100_000):
+            for _ in range(2):
+                want = "wide" if has_layout and n_q >= tk._WIDE_MIN_QUERIES else "tile"
+                assert tk.scan_path(rows, n_q, 10) == want, n_q
+        assert asked == [(n_q, 10, 1) for n_q in (256, 1000, 10_000, 100_000)]
+
+    @pytest.mark.parametrize("n", [10_000_000, 100_000_000])
+    @pytest.mark.parametrize("q_tiles", [1, 2, 3, 7, 8, 79, 200])
+    @pytest.mark.parametrize("n_ctas", [132, 264])
+    def test_wide_slabs_deal_every_cta_the_same_items(self, n, q_tiles, n_ctas):
+        """Each CTA walks `per_cta` items (at least 8), or one fewer where
+        the slabs' rounding to whole row tiles left the last slabs out."""
+        slab_rows = tk._wide_slab_rows(n, q_tiles, n_ctas)
+        items = q_tiles * -(-n // slab_rows)
+        per_cta = q_tiles * -(-tk._WIDE_ITEMS_PER_CTA // q_tiles)
+        assert slab_rows % tk._ROW_TILE == 0 and per_cta >= tk._WIDE_ITEMS_PER_CTA
+        assert -(-items // n_ctas) == per_cta
+        assert n_ctas * per_cta - items < 0.01 * n_ctas * per_cta  # idle in the last round
+
+    def test_short_corpus_takes_fewer_slabs(self):
+        slab_rows = tk._wide_slab_rows(3_000, 8, 132)
+        assert slab_rows == tk._ROW_TILE and -(-3_000 // slab_rows) == 24
+
+    @pytest.mark.parametrize("n_q,n", [(1_000, 100_000), (10_000, 3_000), (257, 5_000_000)])
+    def test_wide_launch_grid_slabs_keys_and_counter(self, fake_card, n_q, n):
+        lib, keys = fake_card
+        rows, qs = torch.zeros(n, 96), torch.ones(n_q, 96)
+        before = dict(tk.LAUNCHES_BY_PATH)
+        out = tk._scan_pass(qs, rows, None, None, 10, "dot", None)
+        assert out.shape == (n_q, 10)
+        (scan,) = lib.scans
+        slab_rows, n_ctas = scan[-3], scan[-2]
+        assert n_ctas == 132  # one resident CTA x 132 SMs, persistent
+        assert slab_rows == tk._wide_slab_rows(n, -(-n_q // 128), 132)
+        assert keys == [(n_q, -(-n // slab_rows))]  # one published key a slab
+        assert tk.LAUNCHES_BY_PATH == {**before, "wide": before["wide"] + 1}
+        assert tk._THIS_THREAD.path == "wide"
+
+    def test_tile_launch_keeps_the_slab_grid(self, fake_card):
+        lib, keys = fake_card
+        n_q, n = 32, 100_000
+        before = dict(tk.LAUNCHES_BY_PATH)
+        tk._scan_pass(torch.ones(n_q, 96), torch.zeros(n, 96), None, None, 10, "dot", None)
+        (scan,) = lib.scans
+        slab_rows, n_ctas = scan[-3], scan[-2]
+        assert n_ctas == 0
+        assert slab_rows == tk._slab_rows(n, 1, 10, None, tk._ROW_TILE, 2, 1)
+        assert keys == [(n_q, -(-n // slab_rows))]
+        assert tk.LAUNCHES_BY_PATH == {**before, "tile": before["tile"] + 1}
+        assert tk._THIS_THREAD.path == "tile"
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; chip_smoke.py runs these checks on the card")
     return torch.device("cuda", 0)
+
+
+def _int_corpus(dev, n, d, n_q, seed):
+    """Integer rows and queries in [-4, 4] (every score exact, many ties)
+    and a predicate passing about 70% of the rows."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = torch.randint(-4, 5, (n, d), generator=gen, device=dev).float()
+    qs = torch.randint(-4, 5, (n_q, d), generator=gen, device=dev).float()
+    mask = (torch.rand(n, generator=gen, device=dev) < 0.7).float()
+    return rows, qs, mask
+
+
+def _mode_aux(mode, rows, mask):
+    norms2, inv = tk._norms2(rows), tk.inv_norms(rows)
+    return {"dot": None, "l2": norms2, "cosine": inv, "dotm": mask,
+            "l2m": torch.stack([norms2, mask]), "cosinem": torch.stack([inv, mask])}[mode]
+
+
+def _on_path(monkeypatch, path, *args, **kwargs):
+    """fused_knn_keys_batch with the planner's schedule forced to ``path``."""
+    monkeypatch.setattr(tk, "scan_path", lambda *args: path)
+    before = tk.LAUNCHES_BY_PATH[path]
+    out = tk.fused_knn_keys_batch(*args, **kwargs)
+    assert tk.LAUNCHES_BY_PATH[path] > before
+    return out
+
+
+def _same(got, want):
+    return all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.cuda
@@ -351,3 +522,93 @@ class TestKernelOnCuda:
         assert tk.LAUNCHES > before
         want = tk.knn_plain(qs, rows, None, k, "dot")
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+    @pytest.mark.parametrize("n_q,n,d", [
+        (65, 3077, 96),      # one query tile pair, half of it empty
+        (200, 333, 64),      # N below one item a CTA: 3 slabs
+        (1000, 70_001, 32),  # N not a multiple of the slab
+        (200, 50_000, 96),
+    ])
+    @pytest.mark.parametrize("mode", MODES)
+    def test_wide_matches_plain_and_tile_exactly(self, cuda_device, monkeypatch, n_q, n, d, mode):
+        rows, qs, mask = _int_corpus(cuda_device, n, d, n_q, 11)
+        aux = _mode_aux(mode, rows, mask)
+        ks = [k for k in (1, 10, 12, 32, 40) if tk._grid(rows, n_q, k, "wide")[0]]
+        assert ks[:3] == [1, 10, 12]  # each k whose wide layout fits at this D
+        for k in ks:
+            want = tk.knn_plain(qs, rows, aux, k, mode)
+            assert _same(_on_path(monkeypatch, "wide", qs, rows, aux, k, mode), want), k
+            assert _same(_on_path(monkeypatch, "tile", qs, rows, aux, k, mode), want), k
+
+    @pytest.mark.parametrize("n_q,n,d", [(300, 20_011, 96), (257, 9001, 64), (1000, 50_000, 32)])
+    @pytest.mark.parametrize("mode", ["dot", "l2", "cosinem"])
+    def test_wide_on_float_rows(self, cuda_device, monkeypatch, n_q, n, d, mode):
+        """Random unit rows and queries: the 3xTF32 low parts are nonzero,
+        so the margin and the exact re-score decide near scores. The wide
+        schedule equals the tile schedule bit for bit, and the plain version
+        within rounding (indices wherever its scores are separated)."""
+        from innr_tpu_torch.utils.order import invert_total_key
+
+        gen = torch.Generator(device=cuda_device).manual_seed(16)
+        rows = torch.randn(n, d, generator=gen, device=cuda_device)
+        rows /= torch.linalg.vector_norm(rows, dim=1, keepdim=True)
+        qs = torch.randn(n_q, d, generator=gen, device=cuda_device)
+        qs /= torch.linalg.vector_norm(qs, dim=1, keepdim=True)
+        mask = (torch.rand(n, generator=gen, device=cuda_device) < 0.7).float()
+        aux = _mode_aux(mode, rows, mask)
+        k, tol = 10, 1e-5
+
+        def scores(keys):
+            return invert_total_key(~keys if mode.startswith("l2") else keys).double()
+
+        got = _on_path(monkeypatch, "wide", qs, rows, aux, k, mode)
+        assert _same(got, _on_path(monkeypatch, "tile", qs, rows, aux, k, mode))
+        pk, pi = tk.knn_plain(qs, rows, aux, k + 1, mode)
+        want = scores(pk)
+        assert bool(((scores(got[0]) - want[:, :k]).abs() <= tol).all())
+        gaps = (want[:, 1:] - want[:, :-1]).abs()
+        inf = torch.full_like(want[:, :1], float("inf"))
+        separated = (torch.cat([inf, gaps[:, :k - 1]], dim=1) > 2 * tol) & (gaps[:, :k] > 2 * tol)
+        assert bool((got[1] == pi[:, :k])[separated].all())
+
+    @pytest.mark.parametrize("mode", ["dot", "l2m"])
+    def test_wide_row_ids_exclusion_and_multi_pass(self, cuda_device, monkeypatch, mode):
+        n, d, n_q = 20_011, 96, 300
+        rows, qs, mask = _int_corpus(cuda_device, n, d, n_q, 12)
+        aux = _mode_aux(mode, rows, mask)
+        gen = torch.Generator(device=cuda_device).manual_seed(13)
+        ids = torch.randperm(n, generator=gen, device=cuda_device).to(torch.int32)
+        monkeypatch.setattr(tk, "single_pass_k", lambda n_q: 8)
+        k = 20  # passes of 8, 8 and 4, each resuming after the last
+        want = tk.knn_plain(qs, rows, aux, k, mode, row_ids=ids)
+        assert _same(_on_path(monkeypatch, "wide", qs, rows, aux, k, mode, row_ids=ids), want)
+        vals, pred = tk._split_aux(aux, mode, n)
+        bound = tk._plain_top(qs, rows, vals, pred, 7, mode, row_ids=ids)[:, -1].contiguous()
+        before = tk.LAUNCHES_BY_PATH["wide"]
+        got = tk._scan_pass(qs, rows, vals, pred, 10, mode, bound, ids)
+        assert tk.LAUNCHES_BY_PATH["wide"] == before + 1
+        assert torch.equal(got, tk._plain_top(qs, rows, vals, pred, 10, mode, bound, ids))
+
+    @pytest.mark.parametrize("d,dtype,k", [
+        (132, torch.float32, 10), (98, torch.float32, 10), (96, torch.bfloat16, 10),
+        (128, torch.float32, 10), (100, torch.float32, 10),  # D above 96
+        (96, torch.float32, 13), (96, torch.float32, 100),  # the layout does not fit
+    ])
+    def test_planner_falls_back_to_tile(self, cuda_device, d, dtype, k):
+        n_q = tk._WIDE_MIN_QUERIES + 3
+        rows, qs, _ = _int_corpus(cuda_device, 4099, d, n_q, 14)
+        rows = rows.to(dtype)
+        before = dict(tk.LAUNCHES_BY_PATH)
+        got = tk.fused_knn_keys_batch(qs, rows, None, k, "dot")
+        assert tk.LAUNCHES_BY_PATH == {**before, "tile": before["tile"] + 1}
+        assert _same(got, tk.knn_plain(qs, rows, None, k, "dot"))
+
+    @pytest.mark.parametrize("n_q,path", [(tk._WIDE_MIN_QUERIES - 1, "tile"),
+                                          (tk._WIDE_MIN_QUERIES, "wide")])
+    def test_planner_takes_wide_from_the_crossover(self, cuda_device, n_q, path):
+        rows, qs, mask = _int_corpus(cuda_device, 9001, 96, n_q, 15)
+        aux = _mode_aux("l2", rows, mask)
+        before = dict(tk.LAUNCHES_BY_PATH)
+        got = tk.fused_knn_keys_batch(qs, rows, aux, 10, "l2")
+        assert tk.LAUNCHES_BY_PATH == {**before, path: before[path] + 1}
+        assert _same(got, tk.knn_plain(qs, rows, aux, 10, "l2"))

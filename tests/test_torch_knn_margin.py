@@ -392,6 +392,57 @@ class TestMargin:
         assert tk.rescore_stats() is None
 
 
+def _fma32(x, y, z):
+    """fmaf on float32 arrays: the product is exact in float64, one sum and
+    the final rounding (a model of the card's fmaf, odd with the sign)."""
+    with np.errstate(all="ignore"):
+        return (x.astype(np.float64) * y.astype(np.float64) + z.astype(np.float64)).astype(
+            np.float32)
+
+
+class TestAdmissionForm:
+    """csrc/knn.cu:gate admits every register without a branch, in terms
+    where larger is better for every mode (l2's score and threshold
+    negated); it admits exactly the pairs of the per-mode form it replaced,
+    NaN, infinities and signed zeros included."""
+
+    @staticmethod
+    def _values(rng, n):
+        v = rng.standard_normal(n).astype(np.float32) * np.float32(4)
+        special = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 3e38, -3e38, 1e-40], np.float32)
+        v[rng.integers(0, n, n // 8)] = rng.choice(special, n // 8)
+        return v
+
+    @pytest.mark.parametrize("score", [0, 1, 2])
+    def test_negated_terms_admit_the_same_pairs(self, rng, score):
+        n = 20_000
+        acc, a, kq, kx, cx, thr = (self._values(rng, n) for _ in range(6))
+        thr[rng.integers(0, n, n // 8)] = np.float32(np.inf if score == 1 else -np.inf)  # open
+        passing = rng.random(n) < 0.8
+        open_ = np.float32(np.inf if score == 1 else -np.inf)
+        with np.errstate(all="ignore"):
+            tb = _fma32(kq, kx, cx)
+            # the per-mode form
+            sv = {0: acc, 1: _fma32(np.full(n, -2, np.float32), acc, a), 2: acc * a}[score]
+            old = ~((sv - tb) > thr) if score == 1 else ~((sv + tb) < thr)
+            old = np.where(passing, old, thr == open_)
+            # the branch-free form
+            mul = {0: np.ones(n, np.float32), 1: np.full(n, 2, np.float32), 2: a}[score]
+            add = -a if score == 1 else np.zeros(n, np.float32)
+            tp = -thr if score == 1 else thr
+            new = np.where(passing, ~((_fma32(acc, mul, add) + tb) < tp), tp == -np.inf)
+        np.testing.assert_array_equal(new, old)
+
+    def test_register_masks_cover_rows_and_columns(self):
+        """Entry j's registers are bits 5 << (4 (j / 2) + j % 2), row h's
+        the pattern 0x3 << 2 h of every nibble."""
+        for j in range(16):
+            regs = {i for i in range(32) if 2 * (i >> 2) + (i & 1) == j}
+            assert sum(1 << i for i in regs) == 5 << (4 * (j >> 1) + (j & 1))
+        for h, mask in ((0, 0x33333333), (1, 0xCCCCCCCC)):
+            assert sum(1 << i for i in range(32) if (i >> 1) & 1 == h) == mask
+
+
 def _u8_perm_dim(kk: int) -> int:
     """csrc/knn.cu: Tc<uint8_t>::perm_dim."""
     s, q = kk >> 4, kk & 15
