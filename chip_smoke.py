@@ -229,7 +229,13 @@ and imports nothing of JAX. Phases:
                  knn_dot / knn / knn_cosine at Q = 32, k = 10 and 300 equal
                  to one batch_knn* scan of the alive rows bit for bit,
                  before and after compact(); search and compact ms, K1
-                 launches per search, an npz round trip at 100K rows;
+                 launches per search, an npz round trip at 100K rows; then
+                 10M x 100 unit rows in 8 segments, 4% deleted, with 24
+                 near-copies of each of 32 queries planted (q + 3e-6 N(0,
+                 1), renormalised; a quarter of them deleted): L2
+                 distances clamp to 0.0, and knn / knn_dot / knn_cosine at
+                 k = 10 and 100 equal batch_knn* over the alive rows bit
+                 for bit, the clamp's ties in K1's key order included;
               d. MicroBatcher over the compacted corpus: direct QPS at b = 1,
                  8, 32, coalesced QPS of 96 single-query client threads,
                  every answer equal to a direct batched call bit for bit,
@@ -3097,6 +3103,71 @@ def phase_segmented(dev, total: dict):
     return sc, {"before": before, "after": after, "compact_ms": compact_ms}
 
 
+def phase_segmented_clamp(dev, total: dict) -> None:
+    """5c, near-copies: SegmentedCorpus over 10M x 100 unit rows (MSTuring's
+    width) in 8 segments, 32 queries drawn from the rows, 24 near-copies of
+    each planted at random positions (q + 3e-6 N(0, 1), renormalised), 4%
+    of the ids deleted at random and a quarter of the copies besides. The
+    copies' L2 keys differ, but about half of them decode to 0.0 once
+    ||q||^2 is added back and clamped, so only K1's key order separates
+    them. knn / knn_dot / knn_cosine at k = 10 and 100 must equal batch_knn*
+    over the alive rows stacked in permanent-id order (ids mapped) bit for
+    bit; the L2 answers must hold clamped ties."""
+    import numpy as np
+    import torch
+
+    import innr_tpu_torch as itt
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    d, n_q, n_copies = 100, 32, 24
+    n = N_SEGMENTS * SEGMENT_ROWS
+    rows = torch.randn((n, d), generator=gen, device=dev)
+    rows /= rows.norm(dim=1, keepdim=True)
+    picks = torch.randperm(n, generator=gen, device=dev)
+    qs = rows[picks[:n_q]].clone()
+    near = picks[n_q:n_q * (1 + n_copies)]
+    copies = (qs.repeat_interleave(n_copies, 0)
+              + 3e-6 * torch.randn((n_q * n_copies, d), generator=gen, device=dev))
+    rows[near] = copies / copies.norm(dim=1, keepdim=True)
+    del copies
+    sc = itt.SegmentedCorpus(d, auto_compact=False, device=dev)
+    for s in range(0, n, SEGMENT_ROWS):
+        sc.add(rows[s:s + SEGMENT_ROWS])
+    dead = np.union1d(torch.randperm(n, generator=gen, device=dev)[: n // 25].cpu().numpy(),
+                      near[::4].cpu().numpy())
+    n_dead = sc.delete(dead)
+    if sc.num_segments != N_SEGMENTS or n_dead != len(dead):
+        raise AssertionError("SegmentedCorpus compacted below its thresholds")
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    alive[torch.as_tensor(dead, device=dev)] = False
+    alive_ids = torch.nonzero(alive).squeeze(1).cpu().numpy()
+    ref = itt.VerticalBatch(rows[alive])
+    del rows, alive
+    torch.cuda.empty_cache()
+    qs_host = qs.cpu().numpy()
+    clamped = {}
+    for m, fn in (("knn", itt.batch_knn), ("knn_dot", itt.batch_knn_dot),
+                  ("knn_cosine", itt.batch_knn_cosine)):
+        for k in (10, 100):
+            want = fn(qs, ref, k)
+            (s, i), _ = _run_path(f"SegmentedCorpus.{m} (near-copies, k={k})",
+                                  ["knn_scan+knn_merge<float32>"],
+                                  lambda: getattr(sc, m)(qs_host, k), total)
+            if not (np.array_equal(i, alive_ids[want.indices])
+                    and np.array_equal(s.view(np.int32), want.scores.view(np.int32))):
+                raise AssertionError(f"SegmentedCorpus.{m} (near-copies, k={k}) differs from "
+                                     "the full scan of the alive rows")
+            if m == "knn":
+                clamped[k] = int((s == 0.0).sum(axis=1).min())
+    if clamped[10] < 2:
+        raise AssertionError(f"near-copies: some query has fewer than 2 clamped L2 scores "
+                             f"in its top 10 ({clamped}); the case does not reach the clamp")
+    log(f"[main] SegmentedCorpus near-copies ({n} x {d} unit rows in {N_SEGMENTS} segments, "
+        f"{n_dead} deleted, {n_copies} copies of each of {n_q} queries): knn / knn_dot / "
+        f"knn_cosine at k = 10 and 100 equal to batch_knn* over the alive rows bit for bit; "
+        f"the fewest L2 scores clamped to 0.0 in a query's answer, by k: {clamped}")
+
+
 def phase_serving(dev, sc, index, ivf_qs, total: dict) -> None:
     """5d: MicroBatcher over the compacted 10M x 128 SegmentedCorpus
     (knn_dot, k = 10). QPS of the batched call at b = 1, 8 and 32 (host
@@ -3777,6 +3848,7 @@ def main() -> int:
     ivf, ivf_qs = phase_ties(dev, slice_launches)
     phase_sparse_long(dev, slice_launches)
     segmented, _ = phase_segmented(dev, slice_launches)
+    phase_segmented_clamp(dev, slice_launches)
     phase_serving(dev, segmented, ivf, ivf_qs, slice_launches)
     del segmented, ivf
     torch.cuda.empty_cache()

@@ -9,9 +9,11 @@ takes adds and deletes without rebuilding what it holds:
 - ``delete(ids)`` sets host-side tombstones; the segments' rows are
   untouched and deleted rows are left out exactly at query time;
 - ``knn_dot`` / ``knn`` / ``knn_cosine`` run one K1 scan per segment
-  (``csrc/knn.cu`` on the card, its plain version on the CPU) and merge
-  the segments' candidates on the device, best key first and then the
-  lowest permanent id, with one host copy per query batch;
+  (``csrc/knn.cu`` on the card, its plain version on the CPU), which
+  returns raw keys and permanent ids, merge the segments' candidates on
+  the device on those keys, best key first and then the lowest permanent
+  id, decode the winners once, and copy them to the host once per query
+  batch;
 - ``compact()`` folds the alive rows of every segment into one, on the
   device, and runs automatically (size-tiered) when the tombstone fraction
   exceeds ``max_dead_frac`` or the segment count exceeds ``max_segments``.
@@ -26,12 +28,24 @@ would take thousands. Here a segment with tombstones is scanned in K1's
 masked mode ("dotm" / "l2m" / "cosinem") with its alive mask: a dead row
 keys INT32_MIN and can never beat an alive one, so ``min(k, alive rows)``
 candidates per segment are exact. Alive rows' scores are the unmasked
-scan's, bit for bit. Dead rows are still pinned in key space after the
-scan, as in the JAX package, as a guard.
+scan's, bit for bit. No alive row keys INT32_MIN (K1 keys a NaN score as
+the quiet NaN 0x7FC00000), so no dead row can come back and there is no
+guard after the scan.
+
+One key space. Every segment keys the same query with the same formula,
+so the segments' raw keys compare as they stand, and the merged result is
+one full scan of the alive rows (with their permanent ids as K1's row-id
+map) bit for bit, ties included. That holds where L2 distances clamp: K1's
+L2 key lacks ``||q||^2``, so rows whose keys differ may decode to the same
+0.0, and they keep K1's key order, as in ``batch_knn``, the sharded family
+and ``IVFIndex``. The JAX package re-keys each segment from its decoded
+scores and so orders those rows by id.
 
 While a profiler records (:mod:`innr_tpu_torch.utils.trace`), a search is an
 ``index.call`` span: ``index.to_device`` (the queries' copy to the device),
-one ``index.segment`` child per segment scanned, then ``index.merge`` and
+one ``index.segment`` child per segment scanned (its K1 pass alone), then
+``index.merge`` (the merge and the decode; attributes ``segments``, the
+segments scanned, and ``candidates``, the merged keys per query) and
 ``index.to_host``, the one host copy.
 """
 
@@ -43,16 +57,14 @@ import torch
 from innr_tpu_torch import config
 from innr_tpu_torch.batch import VerticalBatch
 from innr_tpu_torch.kernels import knn as _knn
-from innr_tpu_torch.parallel._scan import decode_keys, local_scan_keys
+from innr_tpu_torch.parallel._scan import decode_keys
 from innr_tpu_torch.utils import trace as _trace
 from innr_tpu_torch.utils.asserts import ContractError
-from innr_tpu_torch.utils.order import composite_keys, total_order_key_f32
+from innr_tpu_torch.utils.order import composite_keys, split_composite
 from innr_tpu_torch.utils.tensors import as_tensor
 
 __all__ = ["SegmentedCorpus"]
 
-_INT_MIN32 = torch.iinfo(torch.int32).min
-_INT_MAX32 = torch.iinfo(torch.int32).max
 _MASKED = {"dot": "dotm", "l2": "l2m", "cosine": "cosinem"}
 
 
@@ -113,12 +125,11 @@ class _Segment:
         return self._aux[mode], _MASKED[mode]
 
 
-def _merge_candidates(keys, vals, gids, k: int):
-    """The device-side merge: the k best of the stacked candidates by (key
+def _merge_candidates(keys, gids, k: int):
+    """The device-side merge: the k best of the stacked raw keys by (key
     descending, permanent id ascending), on int64 composites
-    (:mod:`innr_tpu_torch.utils.order`), carrying the decoded scores."""
-    pos = torch.topk(composite_keys(keys, gids), k, dim=1).indices
-    return torch.gather(vals, 1, pos), torch.gather(gids, 1, pos)
+    (:mod:`innr_tpu_torch.utils.order`): ``(keys, ids)`` int32, (Q, k)."""
+    return split_composite(torch.topk(composite_keys(keys, gids), k, dim=1).values)
 
 
 class SegmentedCorpus:
@@ -247,10 +258,12 @@ class SegmentedCorpus:
 
     # ------------------------------------------------------------- search --
     def _run(self, queries, k: int, mode: str, op: str):
-        """One K1 scan per segment (raw keys, :func:`~innr_tpu_torch.parallel.
-        _scan.local_scan_keys`), decoded and re-keyed on one key space, ids
-        and tombstones gathered on the device, one composite top-k merge
-        (best key first, then the lowest permanent id), one host copy."""
+        """One K1 scan per segment with its permanent ids as the row-id map
+        (raw keys and ids, min(k, alive rows) of them), one composite top-k
+        merge of the raw keys (best key first, then the lowest permanent
+        id), one decode of the (Q, k) winners, one host copy. Nothing guards
+        the result against dead rows: a masked scan cannot return one (the
+        module's notes), and the tests hold it so."""
         with _trace.span("index.call"):
             with _trace.span("index.to_device"):
                 qs = as_tensor(queries, torch.float32, self._device)
@@ -269,30 +282,22 @@ class SegmentedCorpus:
                 return (scores[0], ids[0]) if single else (scores, ids)
             if mode == "cosine":
                 qs = _knn._unit_queries(qs)
-            per_keys, per_vals, per_gids = [], [], []
+            per_keys, per_ids = [], []
             for seg in self._segments:
-                n_alive = seg.n_alive
-                if n_alive == 0:  # covers an empty segment too
+                if seg.n_alive == 0:  # covers an empty segment too
                     continue
-                n_seg = len(seg.ids)
                 with _trace.span("index.segment"):
                     aux, scan_mode = seg.scan_args(mode)
-                    keys, lidx = local_scan_keys(qs, seg.vb.rows, aux, n_seg, min(k, n_alive),
-                                                 scan_mode)
-                    vals = decode_keys(keys, mode, qs)
-                    # One key space for every segment: the kernel's L2 keys lack
-                    # ||q||^2, so re-key from the decoded scores (larger is better).
-                    ukeys = total_order_key_f32(vals)
-                    if mode == "l2":
-                        ukeys = ~ukeys
-                    lidx = lidx.long()
-                    alive = seg.alive_dev()[lidx]
-                    per_keys.append(torch.where(alive, ukeys, _INT_MIN32))
-                    per_vals.append(vals)
-                    per_gids.append(torch.where(alive, seg.ids_dev()[lidx], _INT_MAX32))
-            with _trace.span("index.merge"):
-                scores, ids = _merge_candidates(torch.cat(per_keys, 1), torch.cat(per_vals, 1),
-                                                torch.cat(per_gids, 1), k)
+                    keys, ids = _knn.fused_knn_keys_batch(qs, seg.vb.rows, aux,
+                                                          min(k, seg.n_alive), scan_mode,
+                                                          row_ids=seg.ids_dev())
+                per_keys.append(keys)
+                per_ids.append(ids)
+            with _trace.span("index.merge", segments=len(per_keys)) as span:
+                keys = torch.cat(per_keys, 1)
+                span.set(candidates=keys.shape[1])
+                keys, ids = _merge_candidates(keys, torch.cat(per_ids, 1), k)
+                scores = decode_keys(keys, mode, qs)
             with _trace.span("index.to_host"):
                 pair = torch.stack([scores.contiguous().view(torch.int32), ids]).cpu()
             scores = pair[0].view(torch.float32).numpy()

@@ -24,7 +24,10 @@ result line does not carry:
   median self time (the duration less its children's), in ms; and the
   dropped count;
 - the share of the window's K1 passes (``dispatch.k1_pass``) on each of
-  the scan's schedules (its ``path``: ``"wide"`` or ``"tile"``).
+  the scan's schedules (its ``path``: ``"wide"`` or ``"tile"``);
+- the window's segment merges (``index.merge`` of a ``SegmentedCorpus``)
+  by their ``segments`` and ``candidates`` attributes: how many calls
+  merged that many segments' candidates, once each.
 
 Prints the result line's metrics and these as one JSON object, also
 written to ``OUT.json`` when given. Needs a CUDA card, as the benchmark.
@@ -111,6 +114,15 @@ def path_shares(spans) -> dict:
     return {p: paths.count(p) / len(paths) for p in sorted(set(paths), key=str)}
 
 
+def merge_shapes(spans) -> dict:
+    """Count of the ``index.merge`` spans by ``"<segments> x <candidates>"``."""
+    shapes = defaultdict(int)
+    for s in spans:
+        if s.name == "index.merge":
+            shapes[f"{s.attrs['segments']} x {s.attrs['candidates']}"] += 1
+    return dict(sorted(shapes.items()))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python3 scripts/span_report.py",
                                  description=__doc__.split("\n")[0])
@@ -143,6 +155,7 @@ def main(argv=None) -> int:
         "idle_s": split, "idle_share": {k: v / window_s for k, v in split.items()},
         "offset_us": offsets_us(rec, spans, got["events"]),
         "spans_ms": durations_ms(spans), "k1_paths": path_shares(spans),
+        "merges": merge_shapes(spans),
         "dropped": log.dropped(),
     }
     text = json.dumps(report)

@@ -20,8 +20,10 @@ import innr_tpu as it  # noqa: E402
 import innr_tpu.io as jio  # noqa: E402
 import innr_tpu_torch as tt  # noqa: E402
 import innr_tpu_torch.io as tio  # noqa: E402
+import innr_tpu_torch.parallel as tp  # noqa: E402
 from innr_tpu_torch import config  # noqa: E402
 from innr_tpu_torch.kernels import knn as tk  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 
 @pytest.fixture(autouse=True)
@@ -258,6 +260,147 @@ class TestSearch:
             check_search(tsc, jsc, rows_by_id, int_rows(rng, 2), 11, mode)
 
 
+def near_copy_input():
+    """ROADMAP's F5 input: 5,000 unit rows of D = 96, the query row 1234, and
+    30 rows replaced by near-copies of it (q + 3e-6 N(0, 1), renormalised).
+    In L2 the copies' keys differ but 14 rows clamp to 0.0 once ||q||^2 is
+    added back, so only K1's key order separates them."""
+    rng = np.random.default_rng(1)
+    rows = rng.standard_normal((5000, 96)).astype(np.float32)
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    q = rows[1234].copy()
+    near = rng.choice(5000, 30, replace=False)
+    copies = q + 3e-6 * rng.standard_normal((30, 96)).astype(np.float32)
+    rows[near] = copies / np.linalg.norm(copies, axis=1, keepdims=True)
+    return rows, q[None, :], near
+
+
+def clamped_ties_on_every_path(rows, qs, k, device):
+    """``batch_knn``, ``SegmentedCorpus`` (two segments), ``ShardedCorpus``
+    (four shards) and ``IVFIndex`` (four clusters) in L2 on ``device``,
+    each as (scores, ids) numpy arrays."""
+    vb = tt.VerticalBatch(torch.as_tensor(rows, device=device))
+    full = tt.batch_knn(torch.as_tensor(qs, device=device), vb, k)
+    sc = tt.SegmentedCorpus(rows.shape[1], auto_compact=False, device=device)
+    sc.add(rows[:2500])
+    sc.add(rows[2500:])
+    shard_s, shard_i = tp.ShardedCorpus(rows, tp.default_mesh([device] * 4)).knn_l2(qs, k)
+    ivf = tt.IVFIndex(rows, n_clusters=4, metric="l2", device=device).search_batch(qs, k)
+    return {"batch_knn": (full.scores, full.indices), "segmented": sc.knn(qs, k),
+            "sharded": (shard_s.cpu().numpy(), shard_i.cpu().numpy()),
+            "ivf": (ivf.scores, ivf.indices)}
+
+
+def assert_one_answer(paths, k):
+    """Every path's answer is ``batch_knn``'s bit for bit, and each of its
+    k scores is 0.0 (the callers check that more than k rows clamp, so the
+    case rests on the tie order)."""
+    want_s, want_i = paths["batch_knn"]
+    assert (np.asarray(want_s) == 0.0).all() and np.asarray(want_s).shape == (1, k)
+    for name, (s, i) in paths.items():
+        np.testing.assert_array_equal(np.asarray(i, np.int64), np.asarray(want_i), err_msg=name)
+        assert same_bits(s, want_s), name
+
+
+class TestF5ClampedTies:
+    """Where L2 distances clamp to 0.0 the segmented search keeps K1's key
+    order, as one full scan, the shards and IVF do (ROADMAP F5)."""
+
+    def test_every_path_returns_the_full_scans_answer(self):
+        rows, qs, _ = near_copy_input()
+        wide = tt.batch_knn(qs, tt.VerticalBatch(rows), 20)
+        assert int((wide.scores == 0.0).sum()) > 10
+        assert_one_answer(clamped_ties_on_every_path(rows, qs, 10, "cpu"), 10)
+
+    @pytest.mark.parametrize("method", ["knn", "knn_dot", "knn_cosine"])
+    def test_with_dead_near_copies_across_segments(self, method):
+        rows, qs, near = near_copy_input()
+        sc = tt.SegmentedCorpus(96, auto_compact=False)
+        for s in range(0, 5000, 1250):
+            sc.add(rows[s:s + 1250])
+        dead = np.sort(near[::3])
+        sc.delete(dead)
+        alive = np.setdiff1d(np.arange(5000), dead)
+        full = {"knn": tt.batch_knn, "knn_dot": tt.batch_knn_dot,
+                "knn_cosine": tt.batch_knn_cosine}[method]
+        for k in (10, 40):
+            s, i = getattr(sc, method)(qs, k)
+            want = full(qs, tt.VerticalBatch(rows[alive]), k)
+            np.testing.assert_array_equal(i, alive[want.indices])
+            assert same_bits(s, want.scores)
+            assert not np.isin(i, dead).any()
+
+
+class _CountOps(TorchDispatchMode):
+    """Records the aten ops issued under it; ``muted`` while a K1 pass runs,
+    which counts as one op, ``"k1"``."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops, self.muted = [], False
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not self.muted:
+            self.ops.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+class TestHostWorkPerCall:
+    """A segmented call issues its decode and merge once, not once per
+    segment: outside its K1 passes it issues the same ops for 2 segments as
+    for 8."""
+
+    @staticmethod
+    def ops_of_a_call(monkeypatch, n_segments: int, mode: str):
+        rng = np.random.default_rng(7)
+        sc = tt.SegmentedCorpus(D, auto_compact=False)
+        for _ in range(n_segments):
+            sc.add(int_rows(rng, 40))
+        sc.delete(np.arange(0, 40 * n_segments, 11))  # every segment masked
+        qs = int_rows(rng, 3)
+        method = MODES[mode][0]
+        getattr(sc, method)(qs, 5)  # caches: norms, ids and masks on the device
+        counter, real = _CountOps(), tk.fused_knn_keys_batch
+
+        def one_op(*args, **kwargs):
+            counter.muted = True
+            try:
+                return real(*args, **kwargs)
+            finally:
+                counter.muted = False
+                counter.ops.append("k1")
+
+        with monkeypatch.context() as patch, counter:
+            patch.setattr(tk, "fused_knn_keys_batch", one_op)
+            getattr(sc, method)(qs, 5)
+        return counter.ops
+
+    @pytest.mark.parametrize("mode", sorted(MODES))
+    def test_ops_outside_the_k1_passes_do_not_grow_with_the_segments(self, monkeypatch, mode):
+        two = self.ops_of_a_call(monkeypatch, 2, mode)
+        eight = self.ops_of_a_call(monkeypatch, 8, mode)
+        assert two.count("k1") == 2 and eight.count("k1") == 8
+        assert [op for op in eight if op != "k1"] == [op for op in two if op != "k1"]
+
+    @pytest.mark.parametrize("mode", sorted(MODES))
+    def test_dead_rows_never_come_back_without_a_guard(self, mode):
+        """A masked scan keys dead rows INT32_MIN, below any alive row's key
+        (NaN included), so asking a segment for min(k, alive rows) returns
+        alive rows alone: here the dead rows are the best rows and k takes
+        every alive one."""
+        q = np.ones(D, np.float32)
+        rows = np.tile(np.arange(1, D + 1, dtype=np.float32), (12, 1))
+        rows[:6] = 10.0 * q if mode == "dot" else q  # this mode's best rows, all deleted
+        rows[7, 0] = np.nan
+        sc = tt.SegmentedCorpus(D, auto_compact=False)
+        sc.add(rows[:8])
+        sc.add(rows[8:])
+        assert set(range(6)) <= set(getattr(sc, MODES[mode][0])(q, 7)[1])  # the NaN row too
+        sc.delete(np.arange(6))
+        s, i = getattr(sc, MODES[mode][0])(q, 6)
+        assert sorted(i.tolist()) == [6, 7, 8, 9, 10, 11]
+
+
 class TestNpz:
     def test_cross_load_both_ways(self, rng, tmp_path):
         tsc, jsc, rows_by_id = replay(rng, False, STEPS[:7])
@@ -316,3 +459,13 @@ class TestOnCuda:
                 np.testing.assert_array_equal(i, alive[want.indices])
                 assert same_bits(s, want.scores), (stage, mode)
             sc.compact()
+
+    def test_clamped_ties_follow_k1_keys_on_every_path(self, cuda_device):
+        """ROADMAP F5 on the card: K1's FMA chain rounds the near-copies'
+        keys otherwise than the CPU's matmul, but every path keys them alike
+        and keeps K1's order where the L2 distances clamp to 0.0."""
+        rows, qs, _ = near_copy_input()
+        wide = tt.batch_knn(torch.as_tensor(qs, device=cuda_device),
+                            tt.VerticalBatch(torch.as_tensor(rows, device=cuda_device)), 20)
+        assert int((wide.scores == 0.0).sum()) > 10
+        assert_one_answer(clamped_ties_on_every_path(rows, qs, 10, cuda_device), 10)

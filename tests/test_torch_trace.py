@@ -143,6 +143,7 @@ def test_microbatcher_over_segments_records_the_span_tree(rng, tmp_path):
         # the plain version has no device counter of re-scored pairs
         assert p.attrs == {"rows": 120, "n_q": 6}
     (merge,) = _by(spans, "index.merge")
+    assert merge.attrs == {"segments": 3, "candidates": 3 * 4}  # one merge of k = 4 a segment
     (to_host,) = _by(spans, "index.to_host")
     assert merge.parent == call.id and to_host.parent == call.id
     assert segs[-1].end_ns <= merge.start_ns <= merge.end_ns <= to_host.start_ns
