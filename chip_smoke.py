@@ -3422,7 +3422,8 @@ def _sharded_dense(dev, meshes, total: dict, times: dict) -> None:
     import innr_tpu_torch.parallel as par
     from innr_tpu_torch.kernels import knn as tk
     from innr_tpu_torch.parallel import multihost
-    from innr_tpu_torch.parallel.sharded import _local_keys, merge_parts
+    from innr_tpu_torch.parallel.sharded import _local_keys
+    from innr_tpu_torch.utils.order import merge_parts
 
     m1, m4 = meshes.values()
     gen = torch.Generator(device=dev).manual_seed(SEED + 21)

@@ -46,7 +46,7 @@ from innr_tpu_torch.utils import trace as _trace
 from innr_tpu_torch.utils.asserts import ContractError
 from innr_tpu_torch.utils.order import composite_keys, top_k_total, total_order_key_f32
 from innr_tpu_torch.utils.padding import round_up
-from innr_tpu_torch.utils.tensors import host_device
+from innr_tpu_torch.utils.tensors import host_device, to_host
 
 __all__ = [
     "VerticalBatch",
@@ -362,10 +362,8 @@ def _result(q, vals, idx) -> BatchKnnResult:
     if q.dim() == 1:
         vals, idx = vals[0], idx[0]
     with _trace.span("index.to_host"):
-        return BatchKnnResult(
-            indices=idx.cpu().numpy().astype(np.int64),
-            scores=vals.cpu().numpy().astype(np.float32),
-        )
+        scores, indices = to_host(vals, idx)
+        return BatchKnnResult(indices=indices, scores=scores)
 
 
 def _queries(q) -> torch.Tensor:
@@ -568,11 +566,7 @@ def batch_knn_adaptive(query, batch: VerticalBatch, k: int, warmup_dims: int,
     vals, idx, alive = _adaptive_plain(_queries(q), batch.rows, k, warmup_dims)
     keep = torch.gather(alive, 1, idx)
     if q.dim() == 1:
-        return BatchKnnResult(
-            indices=idx[0][keep[0]].cpu().numpy().astype(np.int64),
-            scores=vals[0][keep[0]].cpu().numpy().astype(np.float32),
-        )
-    return BatchKnnResult(
-        indices=torch.where(keep, idx, -1).cpu().numpy().astype(np.int64),
-        scores=torch.where(keep, vals, torch.nan).cpu().numpy().astype(np.float32),
-    )
+        scores, indices = to_host(vals[0][keep[0]], idx[0][keep[0]])
+    else:
+        scores, indices = to_host(torch.where(keep, vals, torch.nan), torch.where(keep, idx, -1))
+    return BatchKnnResult(indices=indices, scores=scores)

@@ -43,7 +43,7 @@ from innr_tpu_torch.prune import (
 )
 from innr_tpu_torch.utils.asserts import ContractError
 from innr_tpu_torch.utils.padding import round_up
-from innr_tpu_torch.utils.tensors import as_tensor
+from innr_tpu_torch.utils.tensors import as_tensor, to_host
 
 __all__ = ["IVFIndex"]
 
@@ -210,9 +210,8 @@ class IVFIndex:
         k = min(int(k), self.n_true)
         vals, orig = _pruned._pruned_run(self._plan_queries(qs), self.rows, self._aux,
                                          self._summary, k, _MODES[self.metric], self._ids)
-        pair = torch.stack([vals.contiguous().view(torch.int32), orig]).cpu()
-        return BatchKnnResult(indices=pair[1].numpy().astype(np.int64),
-                              scores=pair[0].view(torch.float32).numpy().astype(np.float32))
+        scores, indices = to_host(vals, orig)
+        return BatchKnnResult(indices=indices, scores=scores)
 
     def search(self, query, k: int) -> BatchKnnResult:
         """Single-query :meth:`search_batch` (1-D in, 1-D out)."""

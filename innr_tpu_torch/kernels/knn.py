@@ -17,7 +17,9 @@ place of its position, so ties go to the lowest id and the returned indices
 are ids: a permuted layout (:class:`~innr_tpu_torch.ivf.IVFIndex`) selects
 as a scan of the original order would. The raw form
 (:func:`fused_knn_keys_batch`) returns keys that are larger-is-better for
-every mode (L2 keys come bit-inverted), ready for a cross-shard merge.
+every mode (L2 keys come bit-inverted), ready for a merge across scans
+(:func:`innr_tpu_torch.utils.order.merge_parts`); :func:`decode_keys`
+turns them into scores, once, after the merge.
 
 Dispatch: a CUDA tensor runs the kernel, or the call raises; a CPU tensor
 runs the plain version. :func:`innr_tpu_torch.config.force_reference` sends
@@ -107,12 +109,11 @@ LAUNCHES = 0
 LAUNCHES_BY_DTYPE = {"float32": 0, "bfloat16": 0, "uint8": 0}
 # ... and by schedule (scan_path).
 LAUNCHES_BY_PATH = {"wide": 0, "tile": 0}
-# The last tensor-core launch's (rows, queries, device counter of the
-# (row, query) pairs it re-scored exactly); read by rescore_stats().
-_LAST_RESCORED = None
-# The same counter and the schedule of this thread's last launch, for its
-# dispatch.k1_pass span (another thread's launch may have replaced
-# _LAST_RESCORED meanwhile).
+# This thread's last tensor-core launch: ``stats``, its (rows, queries,
+# device counter of the (row, query) pairs it re-scored exactly), read by
+# rescore_stats(), and ``path``, its schedule; the counter and the path go
+# on its dispatch.k1_pass span. Per thread, so that another flush worker's
+# launch never replaces them.
 _THIS_THREAD = threading.local()
 # Queries whose norm is not below this (or not finite) get every pair
 # re-scored, and so do rows (csrc/knn.cu): the bound assumes no overflow.
@@ -213,16 +214,17 @@ def query_terms(qs, dtype, score: int):
 
 
 def rescore_stats():
-    """``(rows, queries, pairs)`` of the last scan launch (any corpus
-    dtype, full or tile scan): its corpus rows, its queries and the (row,
-    query) pairs it re-scored exactly. Reads a device counter
+    """``(rows, queries, pairs)`` of this thread's last scan launch (any
+    corpus dtype, full or tile scan): its corpus rows, its queries and the
+    (row, query) pairs it re-scored exactly. Reads a device counter
     (synchronises); None before any launch. For sums over many launches,
     read the ``rescored`` counters of the ``dispatch.k1_pass`` spans
     (:mod:`innr_tpu_torch.utils.trace`), which need no synchronisation
     until they are read."""
-    if _LAST_RESCORED is None:
+    stats = getattr(_THIS_THREAD, "stats", None)
+    if stats is None:
         return None
-    n, n_q, counter = _LAST_RESCORED
+    n, n_q, counter = stats
     return n, n_q, int(counter.item())
 
 
@@ -407,9 +409,7 @@ def shared_keys(n_q: int, n_slabs: int, dev) -> torch.Tensor:
 
 
 def _note_rescored(rows, n_q: int, counter) -> None:
-    global _LAST_RESCORED
-    _LAST_RESCORED = (rows.shape[0], n_q, counter)
-    _THIS_THREAD.rescored = counter
+    _THIS_THREAD.stats = (rows.shape[0], n_q, counter)
 
 
 def _scan_pass(qs, rows, vals, mask, k: int, mode: str, bound, row_ids=None) -> torch.Tensor:
@@ -477,7 +477,7 @@ def fused_knn_keys_batch(qs, rows, aux, k: int, mode: str, row_ids=None):
         with _trace.span("dispatch.k1_pass", rows=n, n_q=n_q) as span:
             comp = run_pass(qs, rows, vals, mask, pass_k, mode, bound, row_ids)
             if on_card:
-                span.set(rescored=_THIS_THREAD.rescored, path=_THIS_THREAD.path)
+                span.set(rescored=_THIS_THREAD.stats[2], path=_THIS_THREAD.path)
             return comp
 
     return split_composite(_multi_pass(one_pass, k, single_pass_k(n_q)))
@@ -536,21 +536,27 @@ def _multi_pass(run_pass, k: int, cap: int) -> torch.Tensor:
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
+def decode_keys(keys, mode: str, qs):
+    """K1's raw keys (of one scan, or merged from many) -> float32 scores
+    for the (Q, D) queries ``qs`` as the scan got them. L2 keys flip back
+    to distances, get the per-query ``||q||^2`` the kernel leaves out (a
+    shift that cannot change a selection) and clamp at zero; NaN
+    propagates."""
+    l2 = mode in ("l2", "l2m")
+    vals = invert_total_key(~keys if l2 else keys)
+    if l2:
+        vals = (vals + (qs * qs).sum(dim=1, keepdim=True)).clamp_min(0.0)
+    return vals
+
+
 def _fused_knn(qs, rows, aux, k: int, mode: str, row_ids=None):
     keys, idx = fused_knn_keys_batch(qs, rows, aux, k, mode, row_ids)
-    if mode in ("l2", "l2m"):
-        keys = ~keys
-    return invert_total_key(keys), idx
+    return decode_keys(keys, mode, qs), idx
 
 
 def _norms2(rows) -> torch.Tensor:
     r = rows.float()
     return (r * r).sum(dim=1)
-
-
-def _clamp_l2(vals, qs):
-    """Add back ||q||^2 and clamp at 0; NaN propagates."""
-    return (vals + (qs * qs).sum(dim=1, keepdim=True)).clamp_min(0.0)
 
 
 def fused_knn_dot(q, rows, k: int):
@@ -576,8 +582,7 @@ def fused_knn_l2_batch(qs, rows, k: int, norms2=None):
     ``||q||^2`` added back after selection."""
     if norms2 is None:
         norms2 = _norms2(rows)
-    vals, idx = _fused_knn(qs, rows, norms2, k, "l2")
-    return _clamp_l2(vals, qs), idx
+    return _fused_knn(qs, rows, norms2, k, "l2")
 
 
 def fused_knn_l2_masked_batch(qs, rows, mask, k: int, norms2=None):
@@ -587,8 +592,7 @@ def fused_knn_l2_masked_batch(qs, rows, mask, k: int, norms2=None):
     if norms2 is None:
         norms2 = _norms2(rows)
     aux = torch.stack([norms2.float(), mask.to(device=norms2.device, dtype=torch.float32)])
-    vals, idx = _fused_knn(qs, rows, aux, k, "l2m")
-    return _clamp_l2(vals, qs), idx
+    return _fused_knn(qs, rows, aux, k, "l2m")
 
 
 def fused_knn_u8_batch(qs, codes, k: int):

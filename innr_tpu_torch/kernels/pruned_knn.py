@@ -55,7 +55,7 @@ from innr_tpu_torch import config
 from innr_tpu_torch.kernels import knn as _knn
 from innr_tpu_torch.prune import plan_survivors, plan_threshold_survivors
 from innr_tpu_torch.utils.asserts import ContractError
-from innr_tpu_torch.utils.order import invert_total_key, split_composite
+from innr_tpu_torch.utils.order import split_composite
 from innr_tpu_torch.utils.padding import round_up
 
 # Launches of the tile scan (knn_scan over a tile list, then knn_merge) and
@@ -242,18 +242,11 @@ def _pruned_run(qs, rows, aux, summary, k: int, mode: str, row_ids=None):
     if summary.tile_n * summary.n_tiles < rows.shape[0]:
         raise ValueError("TileSummary does not cover the corpus")
     if k > _knn.single_pass_k(qs.shape[0]):
-        vals, idx = _knn._fused_knn(qs, rows, aux, k, mode, row_ids)
-        if mode in ("l2", "l2m"):
-            vals = _knn._clamp_l2(vals, qs)
-        return vals, idx
-    order, n_surv = plan(qs, rows, summary, k, mode)
-    keys, idx = pruned_keys(qs, rows, aux, order, n_surv, summary.tile_n, k, mode, row_ids)
-    if mode in ("l2", "l2m"):
-        keys = ~keys
-    vals = invert_total_key(keys)
-    if mode in ("l2", "l2m"):
-        vals = _knn._clamp_l2(vals, qs)
-    return vals, idx
+        keys, idx = _knn.fused_knn_keys_batch(qs, rows, aux, k, mode, row_ids)
+    else:
+        order, n_surv = plan(qs, rows, summary, k, mode)
+        keys, idx = pruned_keys(qs, rows, aux, order, n_surv, summary.tile_n, k, mode, row_ids)
+    return _knn.decode_keys(keys, mode, qs), idx
 
 
 def fused_knn_dot_pruned_batch(qs, rows, summary, k: int):

@@ -1,16 +1,14 @@
-"""Shared per-device scan body and key decoding for the distribution layer.
+"""The per-device scan body of the distribution layer.
 
-The counterpart of :mod:`innr_tpu.parallel._scan`. Every index that merges
-candidates across scans (the segments of
-:class:`~innr_tpu_torch.segmented.SegmentedCorpus`; the shards of the
-sharded family, still to be ported) runs the same local step, K1's raw keys
-with global row indices, and the same decode after the merge. On a CUDA
-tensor the step is the kernel (:func:`innr_tpu_torch.kernels.knn.
-fused_knn_keys_batch`), on a CPU tensor its plain version: there is no
-counterpart of the JAX package's ``use_fused`` arm split. One invariant
-stays, the one :func:`decode_keys` exists for: the kernel's L2 keys lack
-the per-query ``||q||^2`` (a shift that cannot change a selection), so the
-decode adds it back and clamps at zero.
+The counterpart of :mod:`innr_tpu.parallel._scan`, less its decode. Every
+container of :mod:`innr_tpu_torch.parallel` that merges K1's candidates
+across scans runs the same local step, K1's raw keys with global row
+indices: on a CUDA tensor the kernel (:func:`innr_tpu_torch.kernels.knn.
+fused_knn_keys_batch`), on a CPU tensor its plain version; there is no
+counterpart of the JAX package's ``use_fused`` arm split. The merge of the
+candidates is :func:`innr_tpu_torch.utils.order.merge_parts` and the decode
+of the winners :func:`innr_tpu_torch.kernels.knn.decode_keys`, as for every
+other index.
 """
 
 from __future__ import annotations
@@ -20,7 +18,6 @@ import torch
 
 from innr_tpu_torch.kernels import knn as _knn
 from innr_tpu_torch.utils.asserts import ContractError
-from innr_tpu_torch.utils.order import invert_total_key
 
 _INT_MIN = torch.iinfo(torch.int32).min
 
@@ -67,15 +64,3 @@ def local_scan_keys_filtered(qs, rows, norms2, mask, n_total: int, k: int, base:
                                                           dtype=torch.float32)])
     keys, lidx = _knn.fused_knn_keys_batch(qs, rows, aux, k, "l2m")
     return _global(keys, lidx, n_total, base)
-
-
-def decode_keys(keys, mode: str, qs):
-    """Raw merged keys -> float32 scores. L2 keys flip back to distances,
-    get the per-query ``||q||^2`` the kernel leaves out and clamp at zero
-    (NaN propagates)."""
-    if mode in ("l2", "l2m"):
-        keys = ~keys
-    vals = invert_total_key(keys)
-    if mode in ("l2", "l2m"):
-        vals = _knn._clamp_l2(vals, qs)
-    return vals

@@ -21,7 +21,6 @@ import torch
 from innr_tpu_torch.batch import VerticalBatch
 from innr_tpu_torch.kernels import knn as _knn
 from innr_tpu_torch.parallel._scan import (
-    decode_keys,
     local_scan_keys,
     local_scan_keys_filtered,
     resolve_predicate_mask,
@@ -32,12 +31,12 @@ from innr_tpu_torch.parallel.sharded import (
     aux_of,
     host_mask,
     host_rows,
-    merge_parts,
     on_device,
     shard_ranges,
     visible_devices,
 )
 from innr_tpu_torch.utils.asserts import ContractError
+from innr_tpu_torch.utils.order import merge_parts
 from innr_tpu_torch.utils.tensors import empty_topk
 
 __all__ = ["GridIndex", "grid_mesh"]
@@ -147,7 +146,7 @@ class GridIndex:
         out = self._scan(qs, k, scan, [e - s for s, e in self.ranges])
         if out is None:
             return empty_topk((0, k), qs.device)
-        return decode_keys(out[0], mode, qs), out[1]
+        return _knn.decode_keys(out[0], mode, qs), out[1]
 
     def knn_dot(self, queries, k: int):
         """2-D-parallel MIPS: (Q, D) -> (scores (Q, k) descending, global
@@ -186,4 +185,4 @@ class GridIndex:
         out = self._scan(qs, k, scan, [int(mask[s:e].sum()) for s, e in self.ranges])
         if out is None:
             return empty_topk((0, k), qs.device)
-        return decode_keys(out[0], "l2", qs), out[1]
+        return _knn.decode_keys(out[0], "l2", qs), out[1]

@@ -22,19 +22,18 @@ import numpy as np
 import torch
 
 from innr_tpu_torch.kernels import knn as _knn
-from innr_tpu_torch.parallel._scan import decode_keys
 from innr_tpu_torch.parallel.sharded import (
     Mesh,
     ShardedCorpus,
     _check,
     _empty,
     _local_keys,
-    merge_parts,
     on_device,
     per_device,
     visible_devices,
 )
 from innr_tpu_torch.utils.asserts import ContractError
+from innr_tpu_torch.utils.order import merge_parts
 
 __all__ = ["HierarchicalCorpus", "hierarchical_mesh"]
 
@@ -102,7 +101,7 @@ class HierarchicalCorpus(ShardedCorpus):
                     slices.append(merge_parts(parts, k_slice, lead))
         # Stage 2: one list per slice, merged on the mesh's first device.
         keys, idx = merge_parts(slices, k, qs.device)
-        vals = decode_keys(keys, mode, qs)
+        vals = _knn.decode_keys(keys, mode, qs)
         return (vals[0], idx[0]) if q.dim() == 1 else (vals, idx)
 
     def knn_dot(self, query, k: int):

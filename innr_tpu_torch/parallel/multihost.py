@@ -31,7 +31,7 @@ import torch.distributed as dist
 from innr_tpu_torch import config
 from innr_tpu_torch.parallel.sharded import Mesh, ShardedCorpus
 from innr_tpu_torch.utils.asserts import ContractError
-from innr_tpu_torch.utils.order import composite_keys, split_composite
+from innr_tpu_torch.utils.order import composite_keys, merge_parts, split_composite
 
 __all__ = [
     "initialize",
@@ -103,15 +103,15 @@ class _ProcessCorpus(ShardedCorpus):
             return keys, idx
         world = dist.get_world_size()
         comp = composite_keys(keys, idx)
-        if comp.shape[1] < k:  # fewer local candidates: empty slots never win
+        if comp.shape[1] < k:  # empty slots lose to every K1 key of a row
             pad = torch.full((comp.shape[0], k - comp.shape[1]), _EMPTY, dtype=torch.int64,
                              device=comp.device)
             comp = torch.cat([comp, pad], dim=1)
         wire = comp.to(_wire_device(), non_blocking=True)
         got = [torch.empty_like(wire) for _ in range(world)]
         dist.all_gather(got, wire)
-        comp = torch.cat(got, dim=1).to(keys.device)
-        return split_composite(torch.topk(comp, k, dim=1).values)
+        return merge_parts([split_composite(torch.cat(got, dim=1).to(keys.device))], k,
+                           keys.device)
 
 
 def _wire_device() -> torch.device:

@@ -20,7 +20,6 @@ import torch
 from innr_tpu_torch.batch import VerticalBatch
 from innr_tpu_torch.kernels import knn as _knn
 from innr_tpu_torch.parallel._scan import (
-    decode_keys,
     local_scan_keys,
     local_scan_keys_filtered,
     resolve_predicate_mask,
@@ -105,7 +104,7 @@ class QueryParallelIndex:
         for d, b, q, _, _ in self._slices(qs):
             with on_device(d):
                 keys, idx = local_scan_keys(q, b.rows, aux_of(b, mode), n, k, mode)
-                parts.append((decode_keys(keys, mode, q), idx))
+                parts.append((_knn.decode_keys(keys, mode, q), idx))
         return self._gather(parts, n_q, k)
 
     def knn_dot(self, queries, k: int):
@@ -140,5 +139,5 @@ class QueryParallelIndex:
                 if d not in masks:
                     masks[d] = host_mask(mask, 0, n, d)
                 keys, idx = local_scan_keys_filtered(q, b.rows, b.norms2(), masks[d], n, k)
-                parts.append((decode_keys(keys, "l2", q), idx))
+                parts.append((_knn.decode_keys(keys, "l2", q), idx))
         return self._gather(parts, n_q, k)

@@ -1,4 +1,4 @@
-"""Sharded corpus container and the cross-shard top-k merge.
+"""Sharded corpus container and its kNN across shards.
 
 The counterpart of :mod:`innr_tpu.parallel.sharded`. The JAX package is
 single-controller: one Python call drives every device of a ``Mesh``
@@ -12,10 +12,12 @@ as:
    score + top-k kernel, :func:`innr_tpu_torch.parallel._scan.
    local_scan_keys`) for a CUDA shard, its plain version for a CPU shard;
    K14 over the shard's own tile summaries with ``prune=True``;
-2. the per-shard (Q, k) int64 composites of (raw int32 total-order key,
-   global row index) (:mod:`innr_tpu_torch.utils.order`) copied to the
-   mesh's first device;
-3. one ``torch.topk`` over them and the key decode back to float32 scores.
+2. the per-shard (Q, k) pairs of (raw int32 total-order key, global row
+   index) copied to the mesh's first device and merged there by
+   :func:`innr_tpu_torch.utils.order.merge_parts` (one ``torch.topk``
+   over int64 composites);
+3. one decode of the winners' keys back to float32 scores
+   (:func:`innr_tpu_torch.kernels.knn.decode_keys`).
 
 Selection uses the same keys as the single-device scan and ties go to the
 lowest global row, so the result is bit-identical to a single-device scan
@@ -47,7 +49,6 @@ from innr_tpu_torch.batch import VerticalBatch
 from innr_tpu_torch.kernels import knn as _knn
 from innr_tpu_torch.kernels import pruned_knn as _pruned
 from innr_tpu_torch.parallel._scan import (
-    decode_keys,
     local_scan_keys,
     local_scan_keys_filtered,
     resolve_predicate_mask,
@@ -55,7 +56,7 @@ from innr_tpu_torch.parallel._scan import (
 from innr_tpu_torch.parallel._stream import fetch_block
 from innr_tpu_torch.prune import build_tile_summary
 from innr_tpu_torch.utils.asserts import ContractError
-from innr_tpu_torch.utils.order import composite_keys, total_order_key_f32
+from innr_tpu_torch.utils.order import composite_keys, merge_parts, total_order_key_f32
 from innr_tpu_torch.utils.padding import round_up
 from innr_tpu_torch.utils.tensors import empty_topk, host_device
 
@@ -148,21 +149,6 @@ def on_device(dev):
 def per_device(t, devices) -> dict:
     """``t`` on each distinct device of ``devices`` (one copy per device)."""
     return {d: t.to(d, non_blocking=True) for d in dict.fromkeys(devices)}
-
-
-def merge_parts(parts, k: int, dev):
-    """The cross-shard merge: ``parts`` is a list of per-shard ``(keys,
-    global idx)`` int32 pairs (Q, k_i), larger keys better, each on its
-    shard's device. Returns the k best as int32 ``(keys, idx)`` (Q, k) on
-    ``dev``: key descending, then the lowest global index, by one
-    ``torch.topk`` over int64 composites. A single part that already holds
-    k candidates is returned as it is (the scans return theirs in order)."""
-    if len(parts) == 1 and parts[0][0].shape[1] == k:
-        return tuple(t.to(dev, non_blocking=True) for t in parts[0])
-    keys = torch.cat([p[0].to(dev, non_blocking=True) for p in parts], dim=1)
-    idx = torch.cat([p[1].to(dev, non_blocking=True) for p in parts], dim=1)
-    pos = torch.topk(composite_keys(keys, idx), k, dim=1).indices
-    return torch.gather(keys, 1, pos), torch.gather(idx, 1, pos)
 
 
 def local_top(scores, k: int, base: int):
@@ -373,7 +359,7 @@ def _run(query, corpus: ShardedCorpus, k: int, mode: str, op: str, prune: bool =
             with on_device(d):
                 parts.append(_local_keys(corpus, i, on[d], min(k, e - s), mode, prune))
     keys, idx = corpus._across(*_merge_local(parts, k, qs), k)
-    vals = decode_keys(keys, mode, qs)
+    vals = _knn.decode_keys(keys, mode, qs)
     return (vals[0], idx[0]) if q.dim() == 1 else (vals, idx)
 
 
@@ -433,5 +419,5 @@ def sharded_knn_filtered(query, corpus: ShardedCorpus, k: int, predicate):
                                                       host_mask(mask, s, e, d), corpus.n_true,
                                                       min(k, passing), s))
     keys, idx = corpus._across(*_merge_local(parts, k, qs), k)
-    vals = decode_keys(keys, "l2", qs)
+    vals = _knn.decode_keys(keys, "l2", qs)
     return (vals[0], idx[0]) if q.dim() == 1 else (vals, idx)

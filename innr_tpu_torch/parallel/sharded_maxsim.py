@@ -21,13 +21,12 @@ from innr_tpu_torch.parallel.sharded import (
     as_queries,
     default_mesh,
     local_top,
-    merge_parts,
     on_device,
     per_device,
     shard_ranges,
 )
 from innr_tpu_torch.utils.asserts import ContractError
-from innr_tpu_torch.utils.order import canonical_nan, invert_total_key
+from innr_tpu_torch.utils.order import canonical_nan, invert_total_key, merge_parts
 from innr_tpu_torch.utils.tensors import as_tensor, empty_topk
 
 __all__ = ["ShardedMaxSimCorpus"]

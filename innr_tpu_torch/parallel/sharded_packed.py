@@ -25,13 +25,13 @@ from innr_tpu_torch.parallel._stream import column_major, fetch_block
 from innr_tpu_torch.parallel.sharded import (
     Mesh,
     default_mesh,
-    merge_parts,
     on_device,
     per_device,
     shard_ranges,
 )
 from innr_tpu_torch.utils.asserts import ContractError
 from innr_tpu_torch.utils.bits import as_words, mask_padding, num_words
+from innr_tpu_torch.utils.order import merge_parts
 from innr_tpu_torch.utils.tensors import as_tensor
 
 __all__ = ["ShardedPackedBinary", "ShardedPackedTernary"]

@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from innr_tpu_torch.kernels.knn import decode_keys
 from innr_tpu_torch.ops.scalar import QuantizationParams, _affine, _quantize
 from innr_tpu_torch.parallel._scan import local_scan_keys
 from innr_tpu_torch.parallel._stream import fetch_block
@@ -24,13 +25,12 @@ from innr_tpu_torch.parallel.sharded import (
     as_queries,
     default_mesh,
     host_rows,
-    merge_parts,
     on_device,
     per_device,
     shard_ranges,
 )
 from innr_tpu_torch.utils.asserts import ContractError
-from innr_tpu_torch.utils.order import invert_total_key
+from innr_tpu_torch.utils.order import merge_parts
 from innr_tpu_torch.utils.tensors import as_tensor, empty_topk
 
 __all__ = ["ShardedQuantizedU8"]
@@ -120,5 +120,5 @@ class ShardedQuantizedU8:
                     parts.append(local_scan_keys(on[d], codes, None, self.n_true,
                                                  min(k, e - s), "dot", s))
         keys, idx = merge_parts(parts, k, qs.device)
-        vals = _affine(invert_total_key(keys), qs.sum(dim=1, keepdim=True), self.params)
+        vals = _affine(decode_keys(keys, "dot", qs), qs.sum(dim=1, keepdim=True), self.params)
         return (vals[0], idx[0]) if q.dim() == 1 else (vals, idx)

@@ -20,13 +20,13 @@ from innr_tpu_torch.parallel._stream import column_major, fetch_block
 from innr_tpu_torch.parallel.sharded import (
     Mesh,
     default_mesh,
-    merge_parts,
     on_device,
     per_device,
     shard_ranges,
 )
 from innr_tpu_torch.utils.asserts import ContractError
 from innr_tpu_torch.utils.bits import as_unsigned, unsigned_bits
+from innr_tpu_torch.utils.order import merge_parts
 
 __all__ = ["ShardedSlotCorpus"]
 

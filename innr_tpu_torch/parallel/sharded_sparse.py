@@ -33,14 +33,13 @@ from innr_tpu_torch.parallel.sharded import (
     Mesh,
     default_mesh,
     local_top,
-    merge_parts,
     on_device,
     per_device,
     shard_ranges,
 )
 from innr_tpu_torch.utils.asserts import ContractError
 from innr_tpu_torch.utils.bits import as_unsigned
-from innr_tpu_torch.utils.order import invert_total_key
+from innr_tpu_torch.utils.order import invert_total_key, merge_parts
 from innr_tpu_torch.utils.tensors import as_tensor, empty_topk
 
 __all__ = ["ShardedSparseCorpus", "ShardedSparseMaxSimCorpus"]

@@ -34,7 +34,7 @@ from innr_tpu_torch.ops import scalar as _scalar
 from innr_tpu_torch.ops import ternary as _ternary
 from innr_tpu_torch.utils.asserts import ContractError
 from innr_tpu_torch.utils.order import top_k_total
-from innr_tpu_torch.utils.tensors import as_tensor
+from innr_tpu_torch.utils.tensors import as_tensor, to_host
 
 __all__ = ["TwoStageIndex", "CoarseConfig"]
 
@@ -170,12 +170,7 @@ class TwoStageIndex:
         k = min(int(k), self.num_vectors)
         n_cand = min(k * self.rerank_factor, self.num_vectors)
         _, cand = self.candidates(queries, n_cand)
-        vals, idx = rerank(self.rows, queries, cand, k)
-        vals = vals.to("cpu", non_blocking=True)
-        idx = idx.to("cpu", non_blocking=True)
-        if self.rows.device.type == "cuda":
-            torch.cuda.current_stream(self.rows.device).synchronize()
-        return vals.numpy().astype(np.float32), idx.numpy().astype(np.int64)
+        return to_host(*rerank(self.rows, queries, cand, k))
 
     def _queries(self, queries, rank: int, op: str) -> torch.Tensor:
         q = as_tensor(queries, torch.float32, self.rows.device).contiguous()

@@ -12,8 +12,10 @@ takes adds and deletes without rebuilding what it holds:
   (``csrc/knn.cu`` on the card, its plain version on the CPU), which
   returns raw keys and permanent ids, merge the segments' candidates on
   the device on those keys, best key first and then the lowest permanent
-  id, decode the winners once, and copy them to the host once per query
-  batch;
+  id (:func:`~innr_tpu_torch.utils.order.merge_parts`), decode the winners
+  once (:func:`~innr_tpu_torch.kernels.knn.decode_keys`), and copy them to
+  the host once per query batch (:func:`~innr_tpu_torch.utils.tensors.
+  to_host`);
 - ``compact()`` folds the alive rows of every segment into one, on the
   device, and runs automatically (size-tiered) when the tombstone fraction
   exceeds ``max_dead_frac`` or the segment count exceeds ``max_segments``.
@@ -57,11 +59,10 @@ import torch
 from innr_tpu_torch import config
 from innr_tpu_torch.batch import VerticalBatch
 from innr_tpu_torch.kernels import knn as _knn
-from innr_tpu_torch.parallel._scan import decode_keys
 from innr_tpu_torch.utils import trace as _trace
 from innr_tpu_torch.utils.asserts import ContractError
-from innr_tpu_torch.utils.order import composite_keys, split_composite
-from innr_tpu_torch.utils.tensors import as_tensor
+from innr_tpu_torch.utils.order import merge_parts
+from innr_tpu_torch.utils.tensors import as_tensor, to_host
 
 __all__ = ["SegmentedCorpus"]
 
@@ -123,13 +124,6 @@ class _Segment:
                 vals = self.vb.norms2() if mode == "l2" else self.vb.inv_norms()
                 self._aux[mode] = torch.stack([vals, alive])
         return self._aux[mode], _MASKED[mode]
-
-
-def _merge_candidates(keys, gids, k: int):
-    """The device-side merge: the k best of the stacked raw keys by (key
-    descending, permanent id ascending), on int64 composites
-    (:mod:`innr_tpu_torch.utils.order`): ``(keys, ids)`` int32, (Q, k)."""
-    return split_composite(torch.topk(composite_keys(keys, gids), k, dim=1).values)
 
 
 class SegmentedCorpus:
@@ -282,26 +276,21 @@ class SegmentedCorpus:
                 return (scores[0], ids[0]) if single else (scores, ids)
             if mode == "cosine":
                 qs = _knn._unit_queries(qs)
-            per_keys, per_ids = [], []
+            parts, candidates = [], 0
             for seg in self._segments:
                 if seg.n_alive == 0:  # covers an empty segment too
                     continue
                 with _trace.span("index.segment"):
                     aux, scan_mode = seg.scan_args(mode)
-                    keys, ids = _knn.fused_knn_keys_batch(qs, seg.vb.rows, aux,
-                                                          min(k, seg.n_alive), scan_mode,
-                                                          row_ids=seg.ids_dev())
-                per_keys.append(keys)
-                per_ids.append(ids)
-            with _trace.span("index.merge", segments=len(per_keys)) as span:
-                keys = torch.cat(per_keys, 1)
-                span.set(candidates=keys.shape[1])
-                keys, ids = _merge_candidates(keys, torch.cat(per_ids, 1), k)
-                scores = decode_keys(keys, mode, qs)
+                    k_seg = min(k, seg.n_alive)
+                    parts.append(_knn.fused_knn_keys_batch(qs, seg.vb.rows, aux, k_seg,
+                                                           scan_mode, row_ids=seg.ids_dev()))
+                candidates += k_seg
+            with _trace.span("index.merge", segments=len(parts), candidates=candidates):
+                keys, ids = merge_parts(parts, k, qs.device)
+                scores = _knn.decode_keys(keys, mode, qs)
             with _trace.span("index.to_host"):
-                pair = torch.stack([scores.contiguous().view(torch.int32), ids]).cpu()
-            scores = pair[0].view(torch.float32).numpy()
-            ids = pair[1].numpy().astype(np.int64)
+                scores, ids = to_host(scores, ids)
             return (scores[0], ids[0]) if single else (scores, ids)
 
     def knn_dot(self, queries, k: int):

@@ -46,6 +46,7 @@ import torch
 
 from innr_tpu_torch.utils import trace as _trace
 from innr_tpu_torch.utils.asserts import ContractError
+from innr_tpu_torch.utils.tensors import to_host
 
 __all__ = ["MicroBatcher", "BatcherStats"]
 
@@ -245,15 +246,12 @@ class MicroBatcher:
     @staticmethod
     def _normalize(res):
         """``(values, indices)`` numpy arrays from a backend's result: one
-        host copy of the stacked pair when it returns tensors."""
+        host copy of the pair when it returns tensors."""
         if hasattr(res, "indices"):  # BatchKnnResult
             return np.asarray(res.scores), np.asarray(res.indices)
         vals, idx = res
         if isinstance(vals, torch.Tensor) and isinstance(idx, torch.Tensor):
-            bits = vals.to(torch.float32).contiguous().view(torch.int32)
-            pair = torch.stack([bits.to(torch.int64), idx.to(device=bits.device,
-                                                             dtype=torch.int64)]).cpu()
-            return pair[0].to(torch.int32).view(torch.float32).numpy(), pair[1].numpy()
+            return to_host(vals.to(torch.float32), idx.to(vals.device))
         return np.asarray(vals), np.asarray(idx)
 
     # -- lifecycle ----------------------------------------------------------

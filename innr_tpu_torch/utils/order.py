@@ -10,7 +10,8 @@ one int64 *composite* key per candidate, ``key << 32 | (0xFFFFFFFF - idx)``:
 a larger composite means a larger key, or an equal key at a lower index.
 Composites of distinct indices never tie, so one top-k over them gives
 "key descending, index ascending" exactly, with no stable sort. The CUDA
-kernel (``csrc/knn.cu``) builds the same composite.
+kernel (``csrc/knn.cu``) builds the same composite, and :func:`merge_parts`,
+the one merge of candidate lists across scans, ranks on it.
 """
 
 from __future__ import annotations
@@ -52,6 +53,31 @@ def split_composite(comp: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     keys = (comp >> 32).to(torch.int32)
     idx = (_LOW32 - (comp & _LOW32)).to(torch.int32)
     return keys, idx
+
+
+def merge_parts(parts, k: int, dev):
+    """The one merge of candidate lists: ``parts`` is a list of ``(keys,
+    idx)`` int32 pairs (Q, k_i), larger keys better (K1's raw keys; each
+    part may sit on its own device), holding k candidates in all or more.
+    Returns the k best as int32 ``(keys, idx)`` (Q, k) on ``dev``: key
+    descending, then the lowest index, by one ``torch.topk`` over int64
+    composites. A single part that already holds k candidates is returned
+    as it is (every scan returns its candidates in this order). An empty
+    slot, ``(INT32_MIN, -1)`` as :func:`split_composite` decodes it, loses
+    to every key above INT32_MIN."""
+    if len(parts) == 1 and parts[0][0].shape[1] == k:
+        return tuple(_on(t, dev) for t in parts[0])
+    keys = torch.cat([_on(p[0], dev) for p in parts], dim=1)
+    idx = torch.cat([_on(p[1], dev) for p in parts], dim=1)
+    pos = torch.topk(composite_keys(keys, idx), k, dim=1).indices
+    return torch.gather(keys, 1, pos), torch.gather(idx, 1, pos)
+
+
+def _on(t: torch.Tensor, dev) -> torch.Tensor:
+    """``t`` on ``dev``, without a call where it is there already: even a
+    copy that does nothing releases the interpreter lock, and a serving
+    thread then waits for it behind the other threads."""
+    return t if t.device == dev else t.to(dev, non_blocking=True)
 
 
 def argsort_total(x: torch.Tensor, descending: bool = False) -> torch.Tensor:

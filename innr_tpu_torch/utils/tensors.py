@@ -1,4 +1,4 @@
-"""Tensor conversion for the public functions' inputs."""
+"""Tensor conversion for the public functions' inputs and results."""
 
 from __future__ import annotations
 
@@ -36,3 +36,18 @@ def empty_topk(shape, device) -> tuple[torch.Tensor, torch.Tensor]:
     """An empty top-k result of ``shape``: float32 scores, int32 indices."""
     return (torch.zeros(shape, dtype=torch.float32, device=device),
             torch.zeros(shape, dtype=torch.int32, device=device))
+
+
+def to_host(scores, ids) -> tuple[np.ndarray, np.ndarray]:
+    """A top-k result on the host: float32 ``scores`` and integer ``ids``
+    of one shape on one device -> numpy ``float32`` scores and ``int64``
+    ids, by one device-to-host copy of the pair stacked as integers (the
+    scores' bits, so NaN payloads and -0.0 survive): int32 beside int32
+    ids, or both widened to int64 when the ids are int64. The rest is
+    numpy, which keeps the interpreter lock."""
+    bits = scores.view(torch.int32)
+    if ids.dtype == torch.int64:
+        pair = torch.stack([bits.to(torch.int64), ids]).cpu().numpy()
+        return pair[0].astype(np.int32).view(np.float32), pair[1]
+    pair = torch.stack([bits, ids]).cpu().numpy()
+    return pair[0].view(np.float32), pair[1].astype(np.int64)

@@ -5,8 +5,8 @@ either reachable at the top of ``innr_tpu_torch`` or on the explicit
 not-yet-ported list below, which shrinks as the port grows; a ported name
 left on the list fails too. A listed package may already hold internal
 pieces that a ported module uses (``innr_tpu_torch.parallel._scan``, the
-scan body of ``SegmentedCorpus``); it counts as ported once it exports the
-reference package's public names. The reference crate's symbols that the JAX
+scan body of the sharded containers); it counts as ported once it exports
+the reference package's public names. The reference crate's symbols that the JAX
 package keeps in a module of its own (the backend report, the sparse_ext
 tuple API, the distance metrics) are checked in the port's module of the
 same name.

@@ -52,6 +52,18 @@ def test_no_module_imports_jax_or_innr_tpu():
     assert "jax" not in (ROOT / "chip_smoke.py").read_text().replace("JAX", "")
 
 
+def test_only_the_distribution_layer_imports_it():
+    """No module outside ``innr_tpu_torch/parallel/`` imports from
+    ``innr_tpu_torch.parallel``: what an index shares with the sharded
+    family lives below both."""
+    pattern = re.compile(
+        r"^\s*(from\s+innr_tpu_torch\.parallel\b|import\s+innr_tpu_torch\.parallel\b"
+        r"|from\s+innr_tpu_torch\s+import\s+.*\bparallel\b)", re.M)
+    offenders = [p.relative_to(ROOT).as_posix() for p in PKG.rglob("*.py")
+                 if "parallel" not in p.relative_to(PKG).parts and pattern.search(p.read_text())]
+    assert offenders == []
+
+
 def test_build_without_nvcc_raises_naming_nvcc(monkeypatch):
     monkeypatch.setenv("PATH", "/nonexistent")
     monkeypatch.setattr(_build.Path, "is_file", lambda self: False)

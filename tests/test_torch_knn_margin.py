@@ -44,6 +44,8 @@ thread builds from its 16-byte loads (codes widened to bf16 through f32),
 ``Tc<uint8_t>::perm_dim`` and the query staging, on a 256-dimension chunk.
 """
 
+import threading
+
 import numpy as np
 import pytest
 
@@ -388,7 +390,7 @@ class TestMargin:
             assert m.kappa == float("inf")
 
     def test_rescore_stats_before_any_launch(self, monkeypatch):
-        monkeypatch.setattr(tk, "_LAST_RESCORED", None)
+        monkeypatch.setattr(tk, "_THIS_THREAD", threading.local())
         assert tk.rescore_stats() is None
 
 

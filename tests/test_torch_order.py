@@ -88,3 +88,51 @@ def test_composite_order_is_key_desc_then_index_asc():
     keys = torch.tensor([3, 3, 4, 3], dtype=torch.int32)
     comp = to.composite_keys(keys, torch.arange(4))
     assert torch.argsort(comp, descending=True).tolist() == [2, 0, 1, 3]
+
+
+_I32_MIN = -(2**31)
+# split_composite of the empty slot, torch.iinfo(torch.int64).min
+_EMPTY_PAIR = (_I32_MIN, -1)
+
+
+def _pair(rows):
+    """One part from per-query lists of (key, id)."""
+    return (torch.tensor([[c[0] for c in r] for r in rows], dtype=torch.int32),
+            torch.tensor([[c[1] for c in r] for r in rows], dtype=torch.int32))
+
+
+MERGE_CASES = {
+    "ties_across_parts_go_to_the_lowest_id": (
+        [[[(5, 9), (5, 4), (2, 1)], [(7, 3), (1, 0), (0, 2)]],
+         [[(5, 2), (3, 8), (2, 10)], [(7, 1), (7, 6), (0, 5)]],
+         [[(5, 6), (5, 0), (2, 7)], [(1, 4), (0, 9), (0, 7)]]], 5),
+    "parts_hold_fewer_than_k": (
+        [[[(4, 0)], [(-3, 1)]],
+         [[(9, 5), (4, 3)], [(_I32_MIN + 1, 2), (-3, 0)]],
+         [[(4, 2), (-7, 6)], [(8, 4), (-3, 9)]]], 4),
+    "a_single_full_part": ([[[(9, 3), (4, 1), (4, 2)], [(2, 0), (1, 5), (-1, 4)]]], 3),
+    "empty_slots_never_win": (
+        [[[(_I32_MIN + 1, 7), _EMPTY_PAIR, _EMPTY_PAIR], [(0, 1), _EMPTY_PAIR, _EMPTY_PAIR]],
+         [[(3, 2), (_I32_MIN + 1, 0), _EMPTY_PAIR], [(0, 0), (-5, 4), _EMPTY_PAIR]],
+         [[_EMPTY_PAIR, _EMPTY_PAIR, _EMPTY_PAIR], [_EMPTY_PAIR, _EMPTY_PAIR, _EMPTY_PAIR]]], 3),
+    "empty_slots_fill_only_the_tail": (
+        [[[(6, 1), _EMPTY_PAIR], [(2, 0), _EMPTY_PAIR]],
+         [[(6, 0), _EMPTY_PAIR], [_EMPTY_PAIR, _EMPTY_PAIR]]], 3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MERGE_CASES))
+def test_merge_parts(case):
+    """The one candidate merge: the k best by key descending, then the
+    lowest id, against a plain sort of every candidate; the split of an
+    empty slot sorts below every key above INT32_MIN."""
+    parts, k = MERGE_CASES[case]
+    pairs = [_pair(p) for p in parts]
+    keys, ids = to.merge_parts(pairs, k, torch.device("cpu"))
+    assert keys.dtype == ids.dtype == torch.int32 and tuple(keys.shape) == (len(parts[0]), k)
+    for q in range(len(parts[0])):
+        cands = [c for p in parts for c in p[q]]
+        want = sorted(cands, key=lambda c: (-c[0], c[1]))[:k]
+        assert list(zip(keys[q].tolist(), ids[q].tolist())) == want
+    if len(pairs) == 1:  # a full part passes as it is
+        assert keys is pairs[0][0] and ids is pairs[0][1]

@@ -1,10 +1,12 @@
-"""innr_tpu_torch.parallel._scan against innr_tpu.parallel._scan.
+"""innr_tpu_torch.parallel._scan and K1's decode against innr_tpu.parallel._scan.
 
 The port's scan body is K1's raw keys (its plain version on the CPU); the
 JAX package's fused arm is its K1 kernel, run here in interpret mode as its
-own tests run it. On integer-valued rows every score is exact, so keys,
-global indices and decoded scores must agree bit for bit, L2's keys
-without ``||q||^2`` included.
+own tests run it. The port decodes the keys in
+``innr_tpu_torch.kernels.knn.decode_keys``, the JAX package in its
+``_scan``. On integer-valued rows every score is exact, so keys, global
+indices and decoded scores must agree bit for bit, L2's keys without
+``||q||^2`` included.
 """
 
 import numpy as np
@@ -59,12 +61,12 @@ def test_local_scan_keys_and_decode_against_jax(mode, base, n_total):
     np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
     if mode == "cosine":  # unit queries: dots round in each package's order
         live = tidx.numpy() - base < n_total - base
-        tv = tscan.decode_keys(tkeys, mode, torch.from_numpy(qs)).numpy()
+        tv = tk.decode_keys(tkeys, mode, torch.from_numpy(qs)).numpy()
         jv = np.asarray(jscan.decode_keys(jkeys, mode, True, jnp.asarray(qs)))
         np.testing.assert_allclose(tv[live], jv[live], rtol=0, atol=1e-6)
         return
     np.testing.assert_array_equal(tkeys.numpy(), np.asarray(jkeys))
-    tv = tscan.decode_keys(tkeys, mode, torch.from_numpy(qs)).numpy()
+    tv = tk.decode_keys(tkeys, mode, torch.from_numpy(qs)).numpy()
     jv = np.asarray(jscan.decode_keys(jkeys, mode, True, jnp.asarray(qs)))
     np.testing.assert_array_equal(tv.view(np.int32), jv.view(np.int32))
 
@@ -83,10 +85,10 @@ def test_l2_decode_adds_the_query_norm_and_clamps():
     qs = np.array([[1.0, 0.0]], np.float32)
     r, q = torch.from_numpy(rows), torch.from_numpy(qs)
     keys, idx = tscan.local_scan_keys(q, r, tk._norms2(r), 2, 2, "l2")
-    vals = tscan.decode_keys(keys, "l2", q)
+    vals = tk.decode_keys(keys, "l2", q)
     assert idx.tolist() == [[0, 1]] and vals.tolist() == [[0.0, 5.0]]
     # The raw keys leave ||q||^2 out: norms2 - 2 q.r is -1 and 4.
-    assert tscan.decode_keys(~keys, "dot", q).tolist() == [[-1.0, 4.0]]
+    assert tk.decode_keys(~keys, "dot", q).tolist() == [[-1.0, 4.0]]
 
 
 @pytest.mark.parametrize("base", [0, 300])

@@ -23,6 +23,7 @@ import innr_tpu_torch.io as tio  # noqa: E402
 import innr_tpu_torch.parallel as tp  # noqa: E402
 from innr_tpu_torch import config  # noqa: E402
 from innr_tpu_torch.kernels import knn as tk  # noqa: E402
+from torch.overrides import TorchFunctionMode  # noqa: E402
 from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 
@@ -345,13 +346,30 @@ class _CountOps(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
+class _CountCalls(TorchFunctionMode):
+    """Records the calls into torch made from Python under it, attribute
+    reads aside: each releases the interpreter lock, which a serving thread
+    then waits to take back (a copy that does nothing too). ``muted`` while
+    a K1 pass runs, which counts as one call, ``"k1"``."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops, self.muted = [], False
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        name = getattr(func, "__name__", str(func))
+        if not self.muted and name != "__get__":
+            self.ops.append(name)
+        return func(*args, **(kwargs or {}))
+
+
 class TestHostWorkPerCall:
     """A segmented call issues its decode and merge once, not once per
     segment: outside its K1 passes it issues the same ops for 2 segments as
     for 8."""
 
     @staticmethod
-    def ops_of_a_call(monkeypatch, n_segments: int, mode: str):
+    def ops_of_a_call(monkeypatch, n_segments: int, mode: str, counter):
         rng = np.random.default_rng(7)
         sc = tt.SegmentedCorpus(D, auto_compact=False)
         for _ in range(n_segments):
@@ -360,7 +378,7 @@ class TestHostWorkPerCall:
         qs = int_rows(rng, 3)
         method = MODES[mode][0]
         getattr(sc, method)(qs, 5)  # caches: norms, ids and masks on the device
-        counter, real = _CountOps(), tk.fused_knn_keys_batch
+        real = tk.fused_knn_keys_batch
 
         def one_op(*args, **kwargs):
             counter.muted = True
@@ -377,8 +395,16 @@ class TestHostWorkPerCall:
 
     @pytest.mark.parametrize("mode", sorted(MODES))
     def test_ops_outside_the_k1_passes_do_not_grow_with_the_segments(self, monkeypatch, mode):
-        two = self.ops_of_a_call(monkeypatch, 2, mode)
-        eight = self.ops_of_a_call(monkeypatch, 8, mode)
+        two = self.ops_of_a_call(monkeypatch, 2, mode, _CountOps())
+        eight = self.ops_of_a_call(monkeypatch, 8, mode, _CountOps())
+        assert two.count("k1") == 2 and eight.count("k1") == 8
+        assert [op for op in eight if op != "k1"] == [op for op in two if op != "k1"]
+
+    @pytest.mark.parametrize("mode", sorted(MODES))
+    def test_torch_calls_outside_the_k1_passes_do_not_grow_with_the_segments(self, monkeypatch,
+                                                                             mode):
+        two = self.ops_of_a_call(monkeypatch, 2, mode, _CountCalls())
+        eight = self.ops_of_a_call(monkeypatch, 8, mode, _CountCalls())
         assert two.count("k1") == 2 and eight.count("k1") == 8
         assert [op for op in eight if op != "k1"] == [op for op in two if op != "k1"]
 
